@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the event-loop kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc, holds each kernel against its plain PyTorch version, drives the port's
-main paths on the card, times the kernels, and prints one JSON line per
-result.  Phases, in order:
+Builds the port's kernels from ``src/repro_torch/kernels/csrc/`` with nvcc
+(one process a source, all at once), holds each kernel against its plain
+PyTorch version, drives the port's main paths on the card, times the
+kernels, and prints one JSON line per result.  Phases, in order:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build, timed;
@@ -20,8 +20,27 @@ result.  Phases, in order:
 5. the what-if path: ``what_if_wave`` (256 requests, 8 replicas) and
    ``what_if_routes`` (4 groups x 8 replicas, > 100 candidate rows), kernel
    vs plain on the card and vs the CPU;
-6. each kernel timed with CUDA events at the main path's shapes, beside its
-   plain version.
+6. each event-loop kernel timed with CUDA events at the main path's shapes,
+   beside its plain version;
+7. the model kernels (rmsnorm, flash_attention, ssd_scan) against their
+   plain versions on synthetic inputs, within the tests' tolerances;
+8. Zamba2-7B at full width in bf16 with random weights from a seeded
+   ``torch.Generator``: ``prefill`` of 8 prompts of 2048 tokens (exactly
+   181 rmsnorm, 9 flash_attention and 81 ssd_scan launches), then up to 64
+   decode steps on 8 slots through the ``ContinuousBatcher`` (``live``);
+9. the same prefill on the plain versions, on the card: logits finite;
+   every block's output, from the same input, within ``BLOCK_REL_L2`` of
+   the kernels'; and on two prompts in float32, the kernels' logits at
+   every position within ``F32_LOGIT_REL_L2`` of the plain versions' with
+   the same top-1 token wherever the top two are further apart than that,
+   and the bf16
+   logits of both no further from that float32 reference than
+   ``BF16_PARITY`` apart;
+10. the small Zamba2 in float32: the card against the CPU, within 1e-4;
+11. each model kernel timed at the main path's largest call, beside its
+    bound, its plain version and the library call computing the same
+    function (``rms_norm``, ``scaled_dot_product_attention``; none for
+    the SSD scan).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -30,6 +49,8 @@ card (or no checkout around this file) the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,10 +66,35 @@ CU_SOURCE = "src/repro_torch/kernels/csrc/event_loop.cu"
 REPLACES = {
     "event_finish": "src/repro/kernels/event_loop.py:138",
     "event_finish_fused": "src/repro/kernels/event_loop.py:174",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+    "flash_attention": "src/repro/kernels/flash_attention.py:85",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:77",
 }
-#: NVIDIA H100 SXM data sheet: HBM bandwidth and non-tensor float32 peak
+#: NVIDIA H100 SXM data sheet: HBM bandwidth, non-tensor float32 peak and
+#: dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+#: kernel vs plain, float32, relative to the largest |plain| (sums in
+#: another order); bfloat16 gets one bfloat16 ulp on top
+MODEL_TOL = {"rmsnorm": 1e-6, "flash_attention": 1e-5, "ssd_scan": 1e-4}
+#: Zamba2-7B, kernels against plain versions from the same weights.  In
+#: bf16 the whole prefill is no test: the random-weight stack of 90 blocks
+#: amplifies rounding differences along its depth, so two bf16 runs that
+#: differ only in the order of float32 sums end up far apart (phase [9]
+#: prints it: about 0.6 in relative L2, and each run about 0.7 from a
+#: float32 run).  So bf16 is held block by block: each block's output,
+#: from the same input, within one bf16 step of its value (2^-8, twice the
+#: unit roundoff; the two compute the same function in float32 and round
+#: the same few values to bf16).  The whole prefill is held in float32 on
+#: two of the prompts, at every position, where the same amplification
+#: acts on rounding of 2^-24: bound 1e-2; and the kernels' bf16 logits may
+#: be no further from that float32 reference than the plain versions'
+#: bf16 logits, with 25 % to spare.
+BLOCK_REL_L2 = 2.0 ** -8
+F32_LOGIT_REL_L2 = 1e-2
+BF16_PARITY = 1.25
+ZAMBA_BATCH, ZAMBA_PROMPT, ZAMBA_DECODE = 8, 2048, 64
 
 
 class SmokeFailure(RuntimeError):
@@ -300,6 +346,459 @@ def bound_ms(nbytes: int, ops: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the model kernels vs their plain versions, synthetic inputs
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(x):
+    mag = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def tol_ratio(got, want, name: str) -> float:
+    """Largest error over its bound: MODEL_TOL[name] times max |want|, one
+    bfloat16 ulp more for bfloat16 outputs.  <= 1 passes."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        err = err - torch.maximum(bf16_ulp(g), bf16_ulp(w))
+    bound = MODEL_TOL[name] * max(float(w.abs().max()), 1e-30)
+    return max(float(err.max()), 0.0) / bound
+
+
+def randn(shape, dtype, device, seed, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+def ssd_inputs(b, S, nh, hp, st, dtype, device, seed):
+    """SSD inputs as the model makes them: dt a softplus, A = -exp(A_log)
+    with the model's A_log, B and C in float32."""
+    dt = torch.nn.functional.softplus(
+        randn((b, S, nh), torch.float32, device, seed))
+    A = -torch.linspace(1.0, 16.0, nh, device=device)
+    return (randn((b, S, nh, hp), dtype, device, seed + 1, 0.5), dt, A,
+            randn((b, S, st), torch.float32, device, seed + 2, 0.5),
+            randn((b, S, st), torch.float32, device, seed + 3, 0.5))
+
+
+def phase_model_kernels(device):
+    """Each model kernel against its plain version at the tests' shapes and
+    the path's widths (D = 3584 and 7168; hd = 112; hp = st = 64, chunk
+    256); returns (name, case, ratio) rows."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.kernels import ssd_scan as SSD
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for shape in ((8, 128), (3, 17, 64), (16, 3584), (8, 7168)):
+        for xd, wd in ((f32, f32), (bf16, bf16), (f32, bf16)):
+            x = randn(shape, xd, device, 1)
+            w = randn(shape[-1:], wd, device, 2)
+            rows.append(("rmsnorm", (shape, str(xd), str(wd)), tol_ratio(
+                RMS.rmsnorm(x, w), RMS.rmsnorm_ref(x, w), "rmsnorm")))
+    for B, S, T, H, K, hd in ((1, 128, 128, 4, 4, 64),
+                              (2, 96, 160, 8, 2, 32),
+                              (1, 257, 129, 6, 3, 64),
+                              (2, 512, 512, 8, 8, 112),
+                              (2, 100, 72, 4, 2, 112)):
+        for dt in (f32, bf16):
+            q = randn((B, S, H, hd), dt, device, 3)
+            k = randn((B, T, K, hd), dt, device, 4)
+            v = randn((B, T, K, hd), dt, device, 5)
+            for causal in (True, False):
+                rows.append(("flash_attention",
+                             ((B, S, T, H, K, hd), str(dt), causal),
+                             tol_ratio(FA.flash_attention(q, k, v,
+                                                          causal=causal),
+                                       FA.flash_attention_ref(
+                                           q, k, v, causal=causal),
+                                       "flash_attention")))
+    for b, S, nh, hp, st, chunk in ((1, 64, 4, 32, 16, 16),
+                                    (2, 128, 8, 32, 16, 32),
+                                    (1, 96, 6, 16, 8, 32),
+                                    (2, 1024, 16, 64, 64, 256)):
+        for dt in (f32, bf16):
+            args = ssd_inputs(b, S, nh, hp, st, dt, device, 6)
+            y, h = SSD.ssd_scan(*args, chunk=chunk)
+            y_ref, h_ref = SSD.ssd_scan_ref(*args, chunk=chunk)
+            case = ((b, S, nh, hp, st, chunk), str(dt))
+            rows.append(("ssd_scan", case + ("y",),
+                         tol_ratio(y, y_ref, "ssd_scan")))
+            rows.append(("ssd_scan", case + ("state",),
+                         tol_ratio(h, h_ref, "ssd_scan")))
+    torch.cuda.synchronize(device)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: Zamba2-7B on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the model on the kernels' plain versions: the model modules'
+    names for the three kernels point at the plain versions while the
+    context is open."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import layers, ssm
+    swaps = [(layers, "rmsnorm", RMS.rmsnorm_ref),
+             (layers, "flash_attention", FA.flash_attention_ref),
+             (ssm, "rmsnorm", RMS.rmsnorm_ref),
+             (ssm, "ssd_scan", SSD.ssd_scan_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def model_counts():
+    from repro_torch import kernels
+    c = kernels.launch_counts()
+    return {k: c[k] for k in ("rmsnorm", "flash_attention", "ssd_scan")}
+
+
+def phase_zamba(device):
+    """Zamba2-7B at full width, bf16: prefill, then decode through the
+    continuous batcher; then the same prefill on the plain versions."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_requests
+    from repro_torch.launch.serve import live
+    from repro_torch.models import (decode_step, init_decode_cache,
+                                    init_params, pad_cache, prefill)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[8] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize(device)
+    n_par = sum(t.numel() for g in params.values()
+                for t in (g.values() if isinstance(g, dict) else [g]))
+    log(f"[8] init_params: {n_par} parameters ({cfg.n_params()} by the "
+        f"config), {torch.cuda.memory_allocated(device) / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S = ZAMBA_BATCH, ZAMBA_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to(device)
+
+    prefill(cfg, params, tokens[:, :cfg.ssm_chunk])     # warm-up, not kept
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, tokens)
+    torch.cuda.synchronize(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = model_counts()
+    log(f"[8] prefill {B} x {S}: {prefill_s:.3f} s, launches "
+        f"{json.dumps(prefill_counts)}, peak "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    require(prefill_counts == {"rmsnorm": 181, "flash_attention": 9,
+                               "ssd_scan": 81},
+            f"prefill launches {prefill_counts}, want 181 / 9 / 81")
+    require(tuple(logits.shape) == (B, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "prefill logits")
+
+    cache = pad_cache(cache, S + ZAMBA_DECODE)
+    first = logits.argmax(-1).to(torch.int32)
+    warm = init_decode_cache(cfg, B, 16, device=device)   # warm-up, not kept
+    decode_step(cfg, params, warm, first)
+    torch.cuda.synchronize(device)
+    del warm
+    reqs = synthetic_requests(16, seed=0, mean_gen=32)
+    kernels.reset_launch_counts()
+    stats, per_tok = live(cfg, params, slots=B, device=device,
+                          requests=reqs, cache=cache, tokens=first,
+                          max_steps=ZAMBA_DECODE)
+    decode_counts = model_counts()
+    del cache
+    log(f"[8] decode: {json.dumps(stats)}, per-token "
+        f"{per_tok * 1e6:.1f} us, launches {json.dumps(decode_counts)}")
+    prof = profile_decode(cfg, params, device, B, S + ZAMBA_DECODE)
+    log(f"[8] decode step profile: {json.dumps(prof)}")
+    require(0 < stats["steps"] <= ZAMBA_DECODE, "decode steps")
+    require(decode_counts == {"rmsnorm": 181 * stats["steps"],
+                              "flash_attention": 0, "ssd_scan": 0},
+            f"decode launches {decode_counts}")
+
+    kernels.reset_launch_counts()
+    with plain_kernels():
+        t0 = time.perf_counter()
+        logits_p, cache_p = prefill(cfg, params, tokens)
+        torch.cuda.synchronize(device)
+        plain_s = time.perf_counter() - t0
+    require(all(v == 0 for v in model_counts().values()),
+            "the plain prefill launched a kernel")
+    del cache_p
+    require(bool(torch.isfinite(logits_p).all()), "plain prefill logits")
+    bf16_rel = rel_l2(logits, logits_p)
+    log(f"[9] plain prefill on the card: {plain_s:.3f} s; bf16 logits rel "
+        f"L2 kernels vs plain {bf16_rel}; top-1 equal on "
+        f"{int((logits.argmax(-1) == logits_p.argmax(-1)).sum())} of {B}")
+
+    blocks = block_check(cfg, params, tokens)
+    worst = max(blocks, key=lambda r: r[1])
+    median = sorted(r[1] for r in blocks)[len(blocks) // 2]
+    log(f"[9] {len(blocks)} blocks, bf16, kernels vs plain from the same "
+        f"input: worst rel L2 {worst[1]} at {worst[0]} (bound "
+        f"{BLOCK_REL_L2}); median {median}")
+    require(worst[1] <= BLOCK_REL_L2, f"block {worst[0]}: {worst[1]}")
+
+    f32 = f32_check(cfg, params, tokens[:2], logits[:2], logits_p[:2])
+    log(f"[9] float32, 2 x {S}: {json.dumps(f32)}")
+    require(f32["rel_l2"] <= F32_LOGIT_REL_L2,
+            f"float32 kernels vs plain logits rel L2 {f32['rel_l2']}")
+    require(f32["top1_agree"], "float32 top-1 differs on a clear row")
+    require(f32["bf16_kernels_vs_f32"]
+            <= BF16_PARITY * f32["bf16_plain_vs_f32"],
+            "the kernels' bf16 logits stray further from float32 than the "
+            "plain versions'")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill_s": prefill_s, "plain_prefill_s": plain_s,
+            "prefill_tokens": B * S, "decode": stats,
+            "per_token_s": per_tok, "decode_profile": prof,
+            "bf16_logits_rel_l2": bf16_rel,
+            "block_worst_rel_l2": worst[1], "float32": f32,
+            "launches": {k: prefill_counts[k] + decode_counts[k]
+                         for k in prefill_counts},
+            "prefill_launches": prefill_counts,
+            "decode_launches": decode_counts}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def block_check(cfg, params, tokens):
+    """Each of the model's blocks (81 Mamba2 layers, 9 applications of the
+    shared attention block) on the kernels and on the plain versions from
+    the same input, the kernels' output carried on; returns (block, rel L2)
+    rows."""
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import ssm_layer_apply
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    rows = []
+    for seg in range(cfg.n_layers // cfg.attn_every):
+        for j in range(cfg.attn_every):
+            i = seg * cfg.attn_every + j
+            p = M.layer_params(params, i)
+            out, _ = ssm_layer_apply(p, x, cfg)
+            with plain_kernels():
+                ref, _ = ssm_layer_apply(p, x, cfg)
+            rows.append((f"mamba{i}", rel_l2(out, ref)))
+            x = out
+        out, _ = M._dense_block(params["shared_attn"], cfg, x, pos)
+        with plain_kernels():
+            ref, _ = M._dense_block(params["shared_attn"], cfg, x, pos)
+        rows.append((f"attn{seg}", rel_l2(out, ref)))
+        x = out
+    return rows
+
+
+def f32_check(cfg, params, tokens, logits_k, logits_p):
+    """The trunk of the prefill of ``tokens`` in float32 (the bf16 weights
+    widened) on the kernels and on the plain versions, with the logits at
+    every position; and the bf16 last-position logits of both runs against
+    the plain float32 ones."""
+    from repro_torch.models import forward, logits_fn
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+               else v.float()) for k, v in params.items()}
+    lk = logits_fn(cfg32, p32, forward(cfg32, p32, tokens)[0])
+    with plain_kernels():
+        lp = logits_fn(cfg32, p32, forward(cfg32, p32, tokens)[0])
+    del p32
+    top2 = lp.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > (F32_LOGIT_REL_L2
+                                              * lp.abs().amax(-1))
+    same = lk.argmax(-1) == lp.argmax(-1)
+    return {"rel_l2": rel_l2(lk, lp), "rows": int(same.numel()),
+            "clear_rows": int(clear.sum()),
+            "top1_agree": bool(same[clear].all()),
+            "top1_equal": int(same.sum()),
+            "bf16_kernels_vs_f32": rel_l2(logits_k, lp[:, -1]),
+            "bf16_plain_vs_f32": rel_l2(logits_p, lp[:, -1])}
+
+
+def profile_decode(cfg, params, device, slots, max_len):
+    """One decode step at a full cache (``max_len`` slots, ``max_len - 64``
+    filled) under ``torch.profiler``: the step's wall time (host clock, over
+    5 steps after 2 to warm up), the card's busy time in it, and the kernels
+    that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, init_decode_cache
+    cache = init_decode_cache(cfg, slots, max_len, device=device)
+    tok = torch.zeros((slots,), dtype=torch.int32, device=device)
+    cache["len"].fill_(max_len - 64)
+    for _ in range(2):
+        decode_step(cfg, params, cache, tok)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        decode_step(cfg, params, cache, tok)
+    torch.cuda.synchronize(device)
+    step_s = (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_step(cfg, params, cache, tok)
+        torch.cuda.synchronize(device)
+
+    def device_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, attr, None)
+            if v:
+                return float(v)
+        return 0.0
+
+    kernels_us = sorted(((device_us(e), e.key, e.count)
+                         for e in prof.key_averages()
+                         if device_us(e) > 0 and not e.key.startswith("aten")),
+                        reverse=True)
+    busy_us = sum(us for us, _, _ in kernels_us)
+    return {"step_s": step_s, "busy_ms": busy_us / 1e3,
+            "launches": sum(n for _, _, n in kernels_us),
+            "top": [(k[:60], us / 1e3, n) for us, k, n in kernels_us[:8]]}
+
+
+def phase_small_card_vs_cpu(device):
+    """The small Zamba2 in float32, one set of weights on the CPU and on the
+    card: prefill logits and caches, and two decode steps, within 1e-4 of
+    the largest magnitude."""
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.models import decode_step, init_params, pad_cache
+    from repro_torch.models import prefill
+    cfg = smoke_reduce(get_config("zamba2-7b"))
+    cpu = torch.device("cpu")
+    p_cpu = init_params(cfg, 0, device=cpu)
+    p_dev = {k: ({n: t.to(device) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(device))
+             for k, v in p_cpu.items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 66)))
+    worst = 0.0
+
+    def ratio(x, y):
+        x, y = x.float().cpu(), y.float()
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+    outs = []
+    for dev, params in ((device, p_dev), (cpu, p_cpu)):
+        t = toks.to(dev)
+        logits, cache = prefill(cfg, params, t[:, :64])
+        steps = [logits]
+        cache = pad_cache(cache, 72)
+        for i in range(2):
+            lg, cache = decode_step(cfg, params, cache, t[:, 64 + i])
+            steps.append(lg)
+        outs.append((steps, cache))
+    (s_dev, c_dev), (s_cpu, c_cpu) = outs
+    for x, y in zip(s_dev, s_cpu):
+        worst = max(worst, ratio(x, y))
+    for name in ("conv", "state", "k", "v"):
+        worst = max(worst, ratio(c_dev[name], c_cpu[name]))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the model kernels timed at the main path's largest calls
+# ---------------------------------------------------------------------------
+
+def model_kernel_records(device, flush, launches):
+    """Each model kernel at the prefill's largest call (bf16): rmsnorm on
+    the gated norm (8 x 2048 rows of 7168), flash attention on the shared
+    block (8 x 2048, 32 heads of 112, causal), the SSD scan on one Mamba2
+    layer (8 x 2048, 112 heads of 64, state 64, chunk 256)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.kernels import ssd_scan as SSD
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    B, S = ZAMBA_BATCH, ZAMBA_PROMPT
+    out = []
+
+    def record(name, args, fn, ref, lib, nbytes, ops, ops_rate, shape,
+               reps=20, plain_reps=3):
+        got, want = fn(*args), ref(*args)
+        if isinstance(got, tuple):
+            err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+            ratio = max(tol_ratio(g, w, name) for g, w in zip(got, want))
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            ratio = tol_ratio(got, want, name)
+        del got, want
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / ops_rate * 1e3
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "tol_ratio": ratio,
+            "ms": time_call(fn, args, reps, device, flush),
+            "plain_ms": time_call(ref, args, plain_reps, device, flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": (None if lib is None else
+                           time_call(lib, args, reps, device, flush)),
+            "shape": shape, "bytes": nbytes, "ops": ops})
+
+    D = 7168
+    x, w = randn((B, S, D), bf16, device, 7), randn((D,), bf16, device, 8)
+    rows = B * S
+    record("rmsnorm", (x, w), RMS.rmsnorm, RMS.rmsnorm_ref,
+           lambda x, w: F.rms_norm(x, (D,), w, 1e-5),
+           nbytes=2 * rows * D * 2 + D * 2, ops=4 * rows * D,
+           ops_rate=F32_OPS_PER_S, shape={"rows": rows, "D": D})
+    del x, w
+
+    H, hd = 32, 112
+    q, k, v = (randn((B, S, H, hd), bf16, device, 9 + i) for i in range(3))
+    pairs = S * (S + 1) // 2
+    record("flash_attention", (q, k, v), FA.flash_attention,
+           FA.flash_attention_ref,
+           lambda q, k, v: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               is_causal=True),
+           nbytes=4 * B * S * H * hd * 2, ops=4 * B * H * hd * pairs,
+           ops_rate=BF16_OPS_PER_S,
+           shape={"B": B, "S": S, "T": S, "H": H, "K": H, "hd": hd,
+                  "causal": True}, plain_reps=2)
+    del q, k, v
+
+    nh, hp, st, Q = 112, 64, 64, 256
+    args = ssd_inputs(B, S, nh, hp, st, bf16, device, 12)
+    tri = Q * (Q + 1) // 2
+    n_chunk = S // Q
+    ops = (B * n_chunk * tri * st * 2                    # C B^T, per chunk
+           + B * n_chunk * nh * (tri * hp * 2            # masked M x
+                                 + 2 * Q * st * hp * 2))  # C h, state
+    nbytes = (2 * B * S * nh * hp * 2 + B * S * nh * 4 + nh * 4
+              + 2 * B * S * st * 4 + B * nh * hp * st * 4)
+    record("ssd_scan", args, lambda *a: SSD.ssd_scan(*a, chunk=Q),
+           lambda *a: SSD.ssd_scan_ref(*a, chunk=Q), None,
+           nbytes=nbytes, ops=ops, ops_rate=BF16_OPS_PER_S,
+           shape={"b": B, "S": S, "nh": nh, "hp": hp, "st": st,
+                  "chunk": Q}, reps=10, plain_reps=2)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -363,7 +862,7 @@ def main() -> int:
 
 
 def run() -> int:
-    from repro_torch import TorchBatchedBackend
+    from repro_torch import TorchBatchedBackend, kernels
     from repro_torch.kernels import build
     from repro_torch.kernels import event_loop as ev
     from repro_torch.sim import get_application
@@ -378,8 +877,9 @@ def run() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    secs = {s: build.build(s) for s in build.SIGNATURES}
-    log(f"[2] built {sorted(secs)} in {time.perf_counter() - t0:.1f} s")
+    secs = build.build_all()
+    log(f"[2] built {json.dumps(secs)} in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc a source, in parallel)")
 
     log("[3] kernels vs plain versions, synthetic inputs")
     grids_np = get_application("mandelbrot").profile_stack(500).grids()
@@ -391,12 +891,12 @@ def run() -> int:
     log("[4] campaign path: sweep_portfolio on the kernels")
     bk = TorchBatchedBackend()
     bk.core_calls = []
-    ev.reset_launch_counts()
+    kernels.reset_launch_counts()
     sw_m, wall_m = sweep("mandelbrot", bk, T=500, reps=3)
     times_m = dict(vars(bk.times))
     bk.times.reset()
     sw_t, wall_t = sweep("tc", bk, reps=3)
-    campaign_launches = ev.launch_counts()
+    campaign_launches = kernels.launch_counts()
     fused_calls = [a for n, a in bk.core_calls if n == "event_finish_fused"]
     bk.core_calls = None
     log(f"[4] launches {json.dumps(campaign_launches)}")
@@ -421,17 +921,20 @@ def run() -> int:
             "versions on the card")
     require(sw_m.oracle_total() == sw_mp.oracle_total()
             and sw_t.oracle_total() == sw_tp.oracle_total(), "oracle totals")
-    require(same_sweeps(small_sweeps(bk),
-                        small_sweeps(TorchBatchedBackend(device="cpu")),
-                        lib_atol=1e-4),
+    small_card = small_sweeps(bk)
+    small_cpu = small_sweeps(TorchBatchedBackend(device="cpu"))
+    require(same_sweeps(small_card, small_cpu, lib_atol=1e-4),
             "the T = 2 sweeps differ between the card and the CPU")
-    log("[4] kernels == plain on the card; card == CPU on the T = 2 sweeps")
+    lib_diff = max(float(np.abs(x.runs[k].libs - y.runs[k].libs).max())
+                   for x, y in zip(small_card, small_cpu) for k in x.runs)
+    log(f"[4] kernels == plain on the card; card == CPU on the T = 2 "
+        f"sweeps (lib largest difference {lib_diff})")
 
     log("[5] what-if path")
-    ev.reset_launch_counts()
+    kernels.reset_launch_counts()
     bk.core_calls = []
     w_card = what_if_calls(bk)
-    whatif_launches = ev.launch_counts()
+    whatif_launches = kernels.launch_counts()
     wave_calls = [a for n, a in bk.core_calls if n == "event_finish"]
     bk.core_calls = None
     log(f"[5] launches {json.dumps(whatif_launches)}, rows per call "
@@ -450,7 +953,7 @@ def run() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     big_f = max(fused_calls, key=lambda a: int(a[-1].long().sum()))
     big_w = max(wave_calls, key=lambda a: int(a[-1].long().sum()))
-    kernels = [
+    records = [
         kernel_record("event_finish", whatif_launches["event_finish"],
                       big_w, 0, ev.event_finish, ev.event_finish_ref,
                       plain_bound, device, flush, reps=50, plain_reps=5),
@@ -459,12 +962,40 @@ def run() -> int:
                       ev.event_finish_fused, ev.event_finish_fused_ref,
                       fused_bound, device, flush, reps=20, plain_reps=2),
     ]
-    for k in kernels:
+    for k in records:
         require(k["max_abs_err"] == 0.0, f"{k['name']} disagrees at the "
                 f"main path's shapes: {k['max_abs_err']}")
-    log(f"[6] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[6] {time.perf_counter() - t_start:.1f} s so far")
+
+    log("[7] model kernels vs plain versions, synthetic inputs")
+    rows = phase_model_kernels(device)
+    for name in MODEL_TOL:
+        worst = max((r for r in rows if r[0] == name), key=lambda r: r[2])
+        log(f"[7] {name}: {sum(r[0] == name for r in rows)} cases, worst "
+            f"error / tolerance {worst[2]} at {worst[1]}")
+    bad = [r for r in rows if not r[2] <= 1.0]
+    require(not bad, f"model kernels outside tolerance: {bad}")
+
+    log("[8] Zamba2-7B, full width, bf16, on the kernels")
+    zamba = phase_zamba(device)
+    log(json.dumps({"zamba2-7b": zamba}))
+
+    log("[10] small Zamba2, float32: the card against the CPU")
+    worst = phase_small_card_vs_cpu(device)
+    log(f"[10] largest difference / largest magnitude: {worst}")
+    require(worst <= 1e-4, f"card vs CPU {worst} > 1e-4")
+
+    log("[11] model kernels timed at the main path's largest calls")
+    model_records = model_kernel_records(device, flush, zamba["launches"])
+    for k in model_records:
+        require(k["tol_ratio"] <= 1.0, f"{k['name']} outside tolerance "
+                f"at the main path's shapes: {k['tol_ratio']}")
+        log(f"[11] {k['name']}: {k['ms']:.4f} ms (bound "
+            f"{k['bound_ms']:.4f} ms, {k['bound_by']}; plain "
+            f"{k['plain_ms']:.4f} ms; library {k['library_ms']})")
+    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": records + model_records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

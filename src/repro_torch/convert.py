@@ -5,7 +5,9 @@ prefix grids and their constants) and the machine constants.  These helpers
 take that state out of any object with the reference's fields as plain
 numpy arrays and dicts (``*_state``), and build the port's objects from
 such dicts (``*_from_state``), so a test can hand the exact reference state
-to both engines.  Nothing here imports the reference.
+to both engines.  The models' weights cross as a nested dict of numpy
+arrays (:func:`model_params_from_jax`).  Nothing here imports the
+reference.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import dataclasses
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
+from .device import resolve_device
 from .sim.systems import SystemModel
 from .sim.workloads import LoopProfile
 
@@ -46,3 +50,25 @@ def system_state(system: Any) -> Dict[str, Any]:
 
 def system_from_state(state: Dict[str, Any]) -> SystemModel:
     return SystemModel(**state)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bfloat16 arrays (numpy
+    has no such type of its own: ml_dtypes supplies it) cross bit for bit
+    through their 16-bit pattern."""
+    a = np.array(a, order="C")           # a writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def model_params_from_jax(tree: Dict[str, Any], device=None
+                          ) -> Dict[str, Any]:
+    """The port's model parameters from the reference's ``init_params``
+    pytree given as numpy arrays (nested dicts, the same keys), dtype for
+    dtype, on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    return {k: model_params_from_jax(v, dev) if isinstance(v, dict)
+            else _tensor(np.asarray(v), dev) for k, v in tree.items()}

@@ -25,9 +25,10 @@ plain versions write both as ``torch.addcmul`` and the kernels as
 
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
+
+from .common import check as _check
+from .common import launch
 
 #: largest PE count the kernels hold in registers (4 per thread of a warp)
 MAX_P = 128
@@ -93,27 +94,6 @@ def event_finish_fused_ref(grids, grid_id, gscale, starts, sizes, loc, noise,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(fn_name: str, args, device) -> None:
-    from .build import load
-    lib = load(_SOURCE)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed with CUDA error {rc}")
-
-
 def _lane_args(B, P, K, device, speed, jitter, h_eff, bcost, forced, count):
     f32, i32 = torch.float32, torch.int32
     if P > MAX_P:
@@ -140,7 +120,7 @@ def event_finish(eff, speed, jitter, h_eff, bcost, forced, count):
     _check("eff", eff, torch.float32, (B, K), device)
     _lane_args(B, P, K, device, speed, jitter, h_eff, bcost, forced, count)
     out = torch.empty((B, P), dtype=torch.float32, device=device)
-    _launch("event_finish_launch",
+    launch(_SOURCE, "event_finish_launch",
             [t.data_ptr() for t in (eff, speed, jitter, h_eff, bcost, forced,
                                     count, out)] + [B, K, P], device)
     event_finish.launches += 1
@@ -173,7 +153,7 @@ def event_finish_fused(grids, grid_id, gscale, starts, sizes, loc, noise,
         _check(name, t, dt, (B, K), device)
     _lane_args(B, P, K, device, speed, jitter, h_eff, bcost, forced, count)
     out = torch.empty((B, P), dtype=torch.float32, device=device)
-    _launch("event_finish_fused_launch",
+    launch(_SOURCE, "event_finish_fused_launch",
             [t.data_ptr() for t in (grids, grid_id, gscale, starts, sizes,
                                     loc, noise, speed, jitter, h_eff, bcost,
                                     forced, count, out)]
@@ -186,12 +166,3 @@ event_finish.launches = 0
 event_finish_fused.launches = 0
 
 WRAPPERS = (event_finish, event_finish_fused)
-
-
-def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0

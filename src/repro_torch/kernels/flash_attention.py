@@ -1,0 +1,81 @@
+"""Flash attention: one CUDA kernel and its plain PyTorch version.
+
+Causal or non-causal grouped-query attention of q (B, S, H, hd) over k, v
+(B, T, K, hd), H % K == 0, query head h reading kv head ``h // (H / K)``:
+scores in float32 scaled by ``1 / sqrt(hd)``, the causal mask
+``kpos <= qpos`` with no offset, an online softmax, the sum in float32 and
+the output in ``q.dtype``; a row with no key gives 0 (the denominator is
+floored at 1e-30).  That is the function of the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention``.
+
+The wrapper takes the plain version for tensors on the CPU and launches the
+kernel (``csrc/flash_attention.cu``) for tensors on a CUDA device; it never
+falls back from one to the other.  ``flash_attention.launches`` counts the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .common import DTYPE_CODES, check, cuda_device, launch
+
+_SOURCE = "flash_attention.cu"
+#: the largest head dim the kernel holds (its tiles are sized for it)
+MAX_HEAD_DIM = 128
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Plain version: the whole (S, T) score matrix in float32."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q.float() * scale).reshape(B, S, K, G, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    if causal:
+        valid = (torch.arange(T, device=q.device)[None, :]
+                 <= torch.arange(S, device=q.device)[:, None])
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
+    else:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgst,btkh->bskgh", p / den, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
+                    block_kv: int = 512):
+    """q (B, S, H, hd), k/v (B, T, K, hd) with H % K == 0 and hd <= 128,
+    float32 or bfloat16; returns (B, S, H, hd) in q's dtype.
+    ``block_q``/``block_kv`` are the TPU kernel's tiles, kept for parity:
+    the CUDA kernel's tiles are fixed (64 queries by 32 keys)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    device = cuda_device("flash_attention", q)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if K == 0 or H % K:
+        raise ValueError(f"H={H} is not a multiple of K={K}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    check("q", q, (torch.float32, torch.bfloat16), (B, S, H, hd), device)
+    check("k", k, q.dtype, (B, T, K, hd), device)
+    check("v", v, q.dtype, (B, T, K, hd), device)
+    out = torch.empty_like(q)
+    if out.numel():
+        launch(_SOURCE, "flash_attention_launch",
+               [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, T, H, K, hd, DTYPE_CODES[q.dtype], int(causal),
+                1.0 / math.sqrt(hd)], device)
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+WRAPPERS = (flash_attention,)

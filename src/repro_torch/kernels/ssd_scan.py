@@ -1,0 +1,120 @@
+"""Mamba2 SSD chunked scan: one CUDA kernel and its plain PyTorch version.
+
+For x (b, S, nh, hp), positive steps dt (b, S, nh) float32, decay rates
+A (nh,), and B, C (b, S, st) float32 shared by all heads (ngroups = 1), the
+scan of ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T``, ``y_t = h_t C_t``
+in its chunked form: within a chunk of ``chunk`` steps
+``y = (C B^T ∘ L)(dt·x) + (C h_prev)·exp(cumsum dA)`` with
+``L[i, j] = exp(cumsum dA_i - cumsum dA_j)`` for j <= i, and between chunks
+``h = h·exp(Σ dA) + (x·exp(ΣdA - cumsum dA)·dt)^T B``.  Returns y in x's
+dtype and the final state (b, nh, hp, st) in float32 — the function of the
+Pallas TPU kernel ``repro.kernels.ssd_scan.ssd_scan`` and of the model's
+XLA twin ``repro.models.ssm.ssd_chunked``, whose formulation the plain
+version keeps.
+
+The wrapper takes the plain version for tensors on the CPU and launches the
+kernel (``csrc/ssd_scan.cu``) for tensors on a CUDA device; it never falls
+back from one to the other.  ``ssd_scan.launches`` counts the kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .common import DTYPE_CODES, check, cuda_device, launch
+
+_SOURCE = "ssd_scan.cu"
+#: the largest head and state widths the kernel's 64 x 64 tiles hold, and
+#: the longest chunk its shared cumulative sums hold
+MAX_HEADDIM = 64
+MAX_STATE = 64
+MAX_CHUNK = 1024
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
+    """Plain version: the chunked SSD of ``repro.models.ssm.ssd_chunked``,
+    chunk = min(chunk, S), S a multiple of it."""
+    b, S, nh, hp = x.shape
+    st = B.shape[-1]
+    chunk = min(chunk, S)
+    nc = S // chunk
+    if nc * chunk != S:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+
+    xc = x.reshape(b, nc, chunk, nh, hp)
+    dtc = dt.reshape(b, nc, chunk, nh)
+    Bc = B.reshape(b, nc, chunk, st)
+    Cc = C.reshape(b, nc, chunk, st)
+
+    dA = dtc * A[None, None, None, :]                      # (b,nc,Q,nh)
+    dA_cum = torch.cumsum(dA, dim=2)
+    dA_total = dA_cum[:, :, -1]                             # (b,nc,nh)
+    xdt = xc.float() * dtc[..., None]                       # (b,nc,Q,nh,hp)
+
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j), lower-triangular
+    cum = dA_cum.permute(0, 1, 3, 2)                        # (b,nc,nh,Q)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~tril, float("-inf"))
+    L = torch.exp(seg)                                      # (b,nc,nh,Q,Q)
+    scores = torch.einsum("bcis,bcjs->bcij", Cc, Bc)        # (b,nc,Q,Q)
+    M = scores[:, :, None] * L
+    Y_diag = torch.einsum("bchij,bcjhp->bcihp", M, xdt)
+
+    # chunk states
+    decay_to_end = torch.exp(dA_total[:, :, None, :] - dA_cum)
+    S_c = torch.einsum("bcjs,bcjh,bcjhp->bchps", Bc, decay_to_end * dtc,
+                       xc.float())                          # (b,nc,nh,hp,st)
+
+    # inter-chunk recurrence: the state before each chunk
+    h = torch.zeros((b, nh, hp, st), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * torch.exp(dA_total[:, c])[..., None, None] + S_c[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)                    # (b,nc,nh,hp,st)
+
+    Y_off = torch.einsum("bcis,bchps,bcih->bcihp", Cc, h_prev,
+                         torch.exp(dA_cum))
+    y = (Y_diag + Y_off).reshape(b, S, nh, hp)
+    return y.to(x.dtype), h
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
+    """x (b, S, nh, hp) float32 or bfloat16, dt (b, S, nh), A (nh,) and
+    B, C (b, S, st) float32; hp, st <= 64, chunk = min(chunk, S) <= 1024
+    and a divisor of S.  Returns (y (b, S, nh, hp) in x's dtype, state
+    (b, nh, hp, st) float32).  ``head_block`` is the TPU kernel's head
+    tile, kept for parity: the CUDA kernel runs one block per (batch,
+    head)."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    device = cuda_device("ssd_scan", x)
+    b, S, nh, hp = x.shape
+    st = B.shape[-1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    if hp > MAX_HEADDIM or st > MAX_STATE or chunk > MAX_CHUNK:
+        raise ValueError(f"hp={hp}, st={st}, chunk={chunk} exceed the "
+                         f"kernel's {MAX_HEADDIM}, {MAX_STATE}, {MAX_CHUNK}")
+    f32 = torch.float32
+    check("x", x, (f32, torch.bfloat16), (b, S, nh, hp), device)
+    check("dt", dt, f32, (b, S, nh), device)
+    check("A", A, f32, (nh,), device)
+    check("B", B, f32, (b, S, st), device)
+    check("C", C, f32, (b, S, st), device)
+    y = torch.empty_like(x)
+    state = torch.empty((b, nh, hp, st), dtype=f32, device=device)
+    if x.numel():
+        launch(_SOURCE, "ssd_scan_launch",
+               [t.data_ptr() for t in (x, dt, A, B, C, y, state)]
+               + [b, S, nh, hp, st, chunk, DTYPE_CODES[x.dtype]], device)
+        ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0
+WRAPPERS = (ssd_scan,)

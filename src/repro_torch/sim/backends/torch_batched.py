@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ...core.metrics import xla_row_mean
 from ...core.sched import chunk_schedule, staticsteal_schedule
 from ...device import resolve_device
 from ...kernels.event_loop import (event_finish, event_finish_fused,
@@ -319,7 +320,8 @@ class TorchBatchedBackend(SimBackend):
         fin = self._core(core, grids, gid, gscale, starts, sizes, loc, noise,
                          speed, jitter, h_eff, bcost, forced, count)
         mk = fin.max(dim=1).values
-        lib = torch.where(mk > 0.0, (1.0 - fin.mean(dim=1) / mk) * 100.0,
+        # the row mean in the reference's summation order: lib is bit-equal
+        lib = torch.where(mk > 0.0, (1.0 - xla_row_mean(fin) / mk) * 100.0,
                           torch.zeros_like(mk))
         return mk, lib, fin
 

@@ -24,6 +24,19 @@ def _module(path: pathlib.Path) -> str:
 
 MODULES = sorted(_module(p) for p in PORT.rglob("*.py"))
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: the serving slice's modules, which the checks below must reach
+SERVING_SLICE = {
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.zamba2_7b", "repro_torch.models",
+    "repro_torch.models.layers", "repro_torch.models.ssm",
+    "repro_torch.models.model", "repro_torch.models.decode",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.serving", "repro_torch.serving.engine",
+    "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.kernels.common", "repro_torch.kernels.rmsnorm",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+    "repro_torch.convert", "repro_torch.core.metrics",
+}
 
 
 def _env():
@@ -45,7 +58,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, env=_env(), timeout=240)
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["n"] == len(MODULES) >= 16
+    assert rec["n"] == len(MODULES) >= 36
+    assert SERVING_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 
@@ -64,6 +78,13 @@ def test_source_names_no_jax_or_repro(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_every_kernel_source_has_an_entry_point_signature():
+    from repro_torch.kernels import build
+    sources = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
+    assert sources == set(build.SIGNATURES) == {
+        "event_loop.cu", "rmsnorm.cu", "flash_attention.cu", "ssd_scan.cu"}
 
 
 def test_backend_defaults_to_the_card():

@@ -1,8 +1,14 @@
-"""The CUDA event-loop kernels against their plain PyTorch versions, on the
-card (marker ``cuda``; each test skips without a card).  This file imports
-only torch, numpy and the port, so it runs where JAX is not installed:
+"""The CUDA kernels against their plain PyTorch versions, on the card
+(marker ``cuda``; each test skips without a card).  This file imports only
+torch, numpy and the port, so it runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+
+The event-loop kernels are bit-equal to their plain versions.  The model
+kernels are held within the tolerances of ``test_torch_model_kernels.py``:
+float32 rmsnorm 1e-6, flash attention 1e-5, SSD 1e-4 relative to the
+largest magnitude of the plain output (sums in another order); bfloat16
+one bfloat16 ulp beyond that.
 """
 
 import numpy as np
@@ -11,6 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import event_loop as T  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import rmsnorm as RMS  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.sim import get_application  # noqa: E402
 
 CASES = [(8, 256, 12), (20, 1024, 100), (56, 4096, 300), (128, 4096, 1000)]
@@ -94,3 +103,117 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         T.event_finish(eff[0].t().contiguous().t(), *eff[1:])
     with pytest.raises(ValueError, match="is on"):
         T.event_finish(eff[0], eff[1].cpu(), *eff[2:])
+
+
+# ---------------------------------------------------------------------------
+# the model kernels
+# ---------------------------------------------------------------------------
+
+F32_TOL = {"rmsnorm": 1e-6, "flash": 1e-5, "ssd": 1e-4}
+
+
+def _bf16_ulp(x):
+    mag = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def assert_within(got, want, kernel):
+    """float32: F32_TOL relative to max |want|; bfloat16: one ulp more."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    bound = F32_TOL[kernel] * max(float(w.abs().max()), 1e-30)
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        err = err - torch.maximum(_bf16_ulp(g), _bf16_ulp(w))
+    assert float(err.max()) <= bound, (float(err.max()), bound)
+
+
+def _randn(shape, dtype, device, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (16, 3584),
+                                   (8, 7168), (5, 7168)])
+@pytest.mark.parametrize("xd,wd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16")])
+def test_rmsnorm_kernel_matches_plain_version(card, shape, xd, wd):
+    x = _randn(shape, DT[xd], card, sum(shape))
+    w = _randn(shape[-1:], DT[wd], card, 1)
+    n0 = RMS.rmsnorm.launches
+    got = RMS.rmsnorm(x, w)
+    assert RMS.rmsnorm.launches == n0 + 1
+    assert_within(got, RMS.rmsnorm_ref(x, w), "rmsnorm")
+
+
+FLASH = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
+         (1, 257, 129, 6, 3, 64), (2, 256, 256, 4, 4, 112),
+         (2, 100, 72, 4, 2, 112), (1, 300, 300, 2, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(card, B, S, T, H, K, hd,
+                                            causal, dtype):
+    q = _randn((B, S, H, hd), DT[dtype], card, 1)
+    k = _randn((B, T, K, hd), DT[dtype], card, 2)
+    v = _randn((B, T, K, hd), DT[dtype], card, 3)
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.flash_attention.launches == n0 + 1
+    assert_within(got, FA.flash_attention_ref(q, k, v, causal=causal),
+                  "flash")
+
+
+SSD_CASES = [(1, 64, 4, 32, 16, 16), (2, 128, 8, 32, 16, 32),
+             (1, 96, 6, 16, 8, 32), (2, 512, 8, 64, 64, 256),
+             (1, 256, 3, 64, 64, 128)]
+
+
+def _ssd_args(b, S, nh, hp, st, dtype, device):
+    rng = np.random.default_rng(b * S + nh)
+    dt = torch.from_numpy((np.log1p(np.exp(rng.standard_normal(
+        (b, S, nh)))) * 0.1).astype(np.float32)).to(device)
+    A = torch.from_numpy((-np.exp(rng.standard_normal(nh) * 0.3)
+                          ).astype(np.float32)).to(device)
+    return (_randn((b, S, nh, hp), DT[dtype], device, 4, 0.5), dt, A,
+            _randn((b, S, st), torch.float32, device, 5, 0.5),
+            _randn((b, S, st), torch.float32, device, 6, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,nh,hp,st,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain_version(card, b, S, nh, hp, st, chunk,
+                                          dtype):
+    args = _ssd_args(b, S, nh, hp, st, dtype, card)
+    n0 = SSD.ssd_scan.launches
+    y, h = SSD.ssd_scan(*args, chunk=chunk)
+    assert SSD.ssd_scan.launches == n0 + 1
+    y_ref, h_ref = SSD.ssd_scan_ref(*args, chunk=chunk)
+    assert_within(y, y_ref, "ssd")
+    assert_within(h, h_ref, "ssd")
+
+
+@pytest.mark.cuda
+def test_model_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = _randn((1, 8, 2, 136), torch.float32, card, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, q, q)
+    q = _randn((1, 8, 2, 64), torch.float32, card, 0)
+    with pytest.raises(TypeError, match="dtype"):
+        FA.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="is on"):
+        RMS.rmsnorm(q, torch.ones(64))
+    args = _ssd_args(1, 64, 2, 96, 16, "float32", card)
+    with pytest.raises(ValueError, match="exceed"):
+        SSD.ssd_scan(*args, chunk=32)
