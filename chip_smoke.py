@@ -26,7 +26,8 @@ kernels, and prints one JSON line per result.  Phases, in order:
    plain versions on synthetic inputs, within the tests' tolerances;
 8. Zamba2-7B at full width in bf16 with random weights from a seeded
    ``torch.Generator``: ``prefill`` of 8 prompts of 2048 tokens (exactly
-   181 rmsnorm, 9 flash_attention and 81 ssd_scan launches), then up to 64
+   181 rmsnorm, 9 flash_attention and 81 ssd_scan launches; an ssd_scan
+   launch is one call, three kernels in bf16), then up to 64
    decode steps on 8 slots through the ``ContinuousBatcher`` (``live``);
 9. the same prefill on the plain versions, on the card: logits finite;
    every block's output, from the same input, within ``BLOCK_REL_L2`` of
@@ -40,7 +41,10 @@ kernels, and prints one JSON line per result.  Phases, in order:
 11. each model kernel timed at the main path's largest call, beside its
     bound, its plain version and the library call computing the same
     function (``rms_norm``, ``scaled_dot_product_attention``; none for
-    the SSD scan).
+    the SSD scan), with the rate it reaches (``tflops``: the function's
+    operations over the kernel's time) and, for the SSD scan, each of its
+    three bf16 kernels' share of the call (``parts_ms``, from
+    ``torch.profiler``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -636,6 +640,29 @@ def f32_check(cfg, params, tokens, logits_k, logits_p):
             "bf16_plain_vs_f32": rel_l2(logits_p, lp[:, -1])}
 
 
+def device_us(e):
+    """The card's own time of one ``key_averages()`` entry, in us."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, attr, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def kernel_parts_ms(fn, args, names, device, reps=3):
+    """Each named kernel's mean card time (ms) within one call of ``fn``,
+    from ``torch.profiler`` over ``reps`` calls after one to warm up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize(device)
+    return {n: sum(device_us(e) for e in prof.key_averages()
+                   if n in e.key) / reps / 1e3 for n in names}
+
+
 def profile_decode(cfg, params, device, slots, max_len):
     """One decode step at a full cache (``max_len`` slots, ``max_len - 64``
     filled) under ``torch.profiler``: the step's wall time (host clock, over
@@ -658,14 +685,6 @@ def profile_decode(cfg, params, device, slots, max_len):
                              ProfilerActivity.CUDA]) as prof:
         decode_step(cfg, params, cache, tok)
         torch.cuda.synchronize(device)
-
-    def device_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            v = getattr(e, attr, None)
-            if v:
-                return float(v)
-        return 0.0
-
     kernels_us = sorted(((device_us(e), e.key, e.count)
                          for e in prof.key_averages()
                          if device_us(e) > 0 and not e.key.startswith("aten")),
@@ -745,12 +764,13 @@ def model_kernel_records(device, flush, launches):
         del got, want
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ops_rate * 1e3
+        ms = time_call(fn, args, reps, device, flush)
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "tol_ratio": ratio,
-            "ms": time_call(fn, args, reps, device, flush),
+            "ms": ms, "tflops": ops / ms * 1e-9,
             "plain_ms": time_call(ref, args, plain_reps, device, flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -795,6 +815,10 @@ def model_kernel_records(device, flush, launches):
            nbytes=nbytes, ops=ops, ops_rate=BF16_OPS_PER_S,
            shape={"b": B, "S": S, "nh": nh, "hp": hp, "st": st,
                   "chunk": Q}, reps=10, plain_reps=2)
+    # the bf16 scan is three kernels: their shares of the call
+    out[-1]["parts_ms"] = kernel_parts_ms(
+        lambda *a: SSD.ssd_scan(*a, chunk=Q), args,
+        ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"), device)
     return out
 
 
@@ -990,9 +1014,11 @@ def run() -> int:
     for k in model_records:
         require(k["tol_ratio"] <= 1.0, f"{k['name']} outside tolerance "
                 f"at the main path's shapes: {k['tol_ratio']}")
-        log(f"[11] {k['name']}: {k['ms']:.4f} ms (bound "
-            f"{k['bound_ms']:.4f} ms, {k['bound_by']}; plain "
-            f"{k['plain_ms']:.4f} ms; library {k['library_ms']})")
+        log(f"[11] {k['name']}: {k['ms']:.4f} ms, {k['tflops']:.1f} "
+            f"TFLOP/s (bound {k['bound_ms']:.4f} ms, {k['bound_by']}; "
+            f"plain {k['plain_ms']:.4f} ms; library {k['library_ms']})"
+            + (f"; kernels {json.dumps(k['parts_ms'])}"
+               if "parts_ms" in k else ""))
     log(f"[11] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records}), flush=True)

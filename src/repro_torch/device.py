@@ -37,5 +37,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if cap != KERNEL_CAPABILITY:
         raise RuntimeError(
             f"{torch.cuda.get_device_name(dev)} has compute capability {cap}; "
-            f"the event-loop kernels need {KERNEL_CAPABILITY} (sm_90a)")
+            f"the port's CUDA kernels (event loop, rmsnorm, flash attention, "
+            f"SSD scan) are built for {KERNEL_CAPABILITY} (sm_90a) only")
     return dev

@@ -3,9 +3,10 @@
 The sources in ``csrc/`` have a plain C interface.  At first use each is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
 checkout's ``build/`` directory (git ignores it), named by a hash of the
-source and the flags so that an edited source is rebuilt, and loaded with
-``ctypes``.  Nothing is built when the module is imported, and nothing falls
-back: a missing ``nvcc`` or a failed build raises.
+source, the shared headers (``csrc/*.cuh``) and the flags so that an
+edited source or header is rebuilt, and loaded with ``ctypes``.  Nothing
+is built when the module is imported, and nothing falls back: a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 EXTRA_FLAGS: Dict[str, Sequence[str]] = {"event_loop.cu": ("-fmad=false",)}
 
 #: ctypes signatures of the C entry points, by source
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "event_loop.cu": {
         "event_finish_launch": (_P,) * 7 + (_P, _I, _I, _I, _P),
@@ -46,9 +48,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attention.cu": {
         "flash_attention_launch": (_P,) * 4 + (_I,) * 8 + (_F, _P),
     },
-    # x, dt, A, B, C, y, state, b, S, nh, hp, st, chunk, x dtype, stream
+    # x, dt, A, B, C, y, state, ws, ws floats, b, S, nh, hp, st, chunk,
+    # x dtype, stream
     "ssd_scan.cu": {
-        "ssd_scan_launch": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "ssd_scan_launch": (_P,) * 8 + (_L,) + (_I,) * 7 + (_P,),
     },
 }
 
@@ -73,11 +76,15 @@ def flags(source: str) -> Sequence[str]:
     return NVCC_FLAGS + tuple(EXTRA_FLAGS.get(source, ()))
 
 
-def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    tag = hashlib.sha256(src + " ".join(flags(source)).encode()
-                         ).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    """Where the library of ``source`` is built: named by a hash of the
+    source, every shared header of ``csrc`` (in name order) and the flags,
+    so that no edit to what the source includes loads a stale library."""
+    h = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags(source)).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> float:

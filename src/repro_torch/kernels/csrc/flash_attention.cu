@@ -1,38 +1,61 @@
 // Flash attention on Hopper (sm_90a): causal or non-causal grouped-query
-// attention with an online softmax, float32 throughout, output in q's type.
+// attention with an online softmax, output in q's type.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py
 // (flash_attention, _flash_kernel).  Same function: q (B,S,H,hd), k and v
 // (B,T,K,hd), query head h reads kv head h / (H/K); s = (q*scale) k^T in
 // float32; masked where kpos >= T or, if causal, kpos > qpos (no offset);
-// masked scores are -1e30 and their p is 0; m starts at -1e30, l at 0;
-// out = acc / max(l, 1e-30).
+// masked scores give p = 0; out = acc / max(l, 1e-30).
 //
 // What bounds it.  At the prefill's shapes (S = T = 2048, hd = 112) the
 // work is 2 * 2 * S * T / 2 * hd operations per (batch, head) against
 // 4 * S * hd * 2 bytes in and out: about 500 operations a byte, above the
 // card's ~295 a byte for bf16 tensor cores, so the function is bound by
-// operations.  This first kernel computes in float32 on the CUDA cores
-// (the TPU kernel's arithmetic, with no bf16 rounding of p), so its own
-// ceiling is the float32 rate, and within that its shared-memory reads.
+// operations, and only the tensor cores come near that bound.
 //
-// What the design does about it.  The TPU kernel leans on a sequential
-// grid axis to keep (m, l, acc) in VMEM across kv blocks.  Here one block
-// of 256 threads owns one (batch*head, 64-query tile) and walks the kv
-// tiles itself, so (m, l, acc) stay in registers: thread (ty, tx) holds
-// rows ty + 16i (i < 4) and output columns tx + 16j (j < 8, < hd).  Each
-// 32-key tile of K (transposed) and V is staged in shared memory in
-// float32; the q tile is staged once, pre-scaled.  Scores are a 4 x 2
-// register tile per thread; the row max and sum reduce across the 16
-// threads of a row with xor shuffles.  p goes through shared memory for
-// the p·V product.  Causal blocks skip every kv tile wholly above the
-// diagonal, and the heaviest query tiles are launched first.  Strides
-// padded by one word keep the transposed stores and the reads free of bank
-// conflicts.  hd = 112 (not a power of two) and ragged S, T are masked.
-// 75 KB of shared memory a block: three blocks an SM.
+// Two kernels, by dtype.
+//
+// bfloat16 (flash_wgmma_kernel, the serving path): Hopper's warpgroup
+// tensor-core products (wgmma, wgmma.cuh), no added rounding.  q·k^T is a
+// bf16 x bf16 product, exact in float32, so it runs as wgmma m64n64k16
+// with q and k read from shared memory and float32 accumulators; the scale
+// (times log2 e, for exp2) is applied to s afterwards, which differs from
+// the TPU kernel's q*scale by about one float32 ulp of s.  p stays float32
+// for the softmax and the row sums; for p·V it is split into bf16 hi and lo
+// parts (tensor_core.cuh), and both parts go to wgmma m64nHDk16 from
+// registers against the same V tile in shared memory, so p loses about
+// 2^-17 of itself where plain bf16 p would lose 2^-9 and miss the 1e-5
+// tolerance.  A block of two warpgroups owns 128 queries of one
+// (batch*head), 64 a warpgroup, with (m, l, acc) in registers in the
+// accumulators' layout; 64-key tiles of K and V stream through a 2-stage
+// cp.async ring in shared memory, stored as 64-column blocks with the
+// 128-byte swizzle that wgmma's descriptors read (K-major for q and k,
+// MN-major for V); the q tile is staged once.  The head dim is padded to
+// 64, 112 or 128 (zeros, which add nothing); rows past S or T are
+// zero-filled, and the mask is applied only on edge tiles.  Causal blocks
+// skip every kv tile wholly above the diagonal (a warpgroup skips those
+// above its own 64 rows), and the heaviest query tiles launch first.  Rows
+// whose 16-byte chunks are not aligned (hd % 8, or a pointer) are staged
+// by plain loads into the same layout.  cp.async rather than TMA: one
+// loader zero-fills the padded head dim and the ragged rows for every hd
+// the wrapper takes, with no tensor map to encode on the host for each
+// call, and the warpgroups' products, not the loads, hold the kernel.
+// 97 KB of shared memory a block: two blocks an SM.
+
+// float32 (flash_kernel, as first written): the TPU kernel's arithmetic on
+// the CUDA cores.  One block of 256 threads owns
+// one (batch*head, 64-query tile) and walks 32-key tiles, (m, l, acc) in
+// registers (thread (ty, tx) holds rows ty + 16i, i < 4, and columns
+// tx + 16j, j < 8), K transposed and V staged in float32 shared memory,
+// the q tile pre-scaled; 75 KB of shared memory a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
+
+#include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -48,17 +71,10 @@ constexpr size_t kSmemBytes =
                      kBQ * kKStride);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Reduce over the 16 threads of one row group (lanes differing in bits 0-3).
 __device__ __forceinline__ float row_max(float v) {
@@ -218,22 +234,307 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace bf16 {
+
+constexpr int kWGs = 2;             // warpgroups of 64 queries
+constexpr int kThreads = kWGs * 128;
+constexpr int kBQ = kWGs * 64;      // queries a block
+constexpr int kBKV = 64;            // keys a tile
+
+struct Args {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* out;
+  int B, S, T, H, K, hd, causal, vec;
+  float scale_log2;  // scale * log2(e)
+};
+
+
+// HD: the head dim padded to 64, 112 or 128
+template <int HD>
+struct Tile {
+  static constexpr int kBlocks = HD > 64 ? 2 : 1;  // 64-column blocks
+  static constexpr int kQBytes = kBlocks * kBQ * 128;
+  static constexpr int kKVBytes = kBlocks * kBKV * 128;
+  static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;  // + alignment
+};
+
+// byte offset of (r, c) in a tile of R rows kept as 64-column blocks with
+// the 128-byte swizzle (wgmma.cuh)
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((c >> 6) * R * 128 + r * 128 +
+                               ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+                               (c & 7) * 2);
+}
+
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                            const __nv_bfloat16* src,
+                                            size_t ld, int len, int hd,
+                                            bool vec) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const uint32_t d = dst + swz<ROWS>(r, c);
+    const __nv_bfloat16* s = src + static_cast<size_t>(r) * ld + c;
+    if (vec) {
+      const bool in = r < len && c < hd;
+      tc::cp_async16(d, in ? s : src, in ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = c + 2 * e;
+        const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
+        w[e] = tc::pack(r < len && c0 < hd ? s[2 * e] : z,
+                        r < len && c0 + 1 < hd ? s[2 * e + 1] : z);
+      }
+      tc::st_shared_v4(d, w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void pv(float (&o)[HD / 8][4],
+                                   const uint32_t (&p)[4], uint64_t dv) {
+  if constexpr (HD == 64) wg::mma_rs_n64(o, p, dv);
+  else if constexpr (HD == 112) wg::mma_rs_n112(o, p, dv);
+  else wg::mma_rs_n128(o, p, dv);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2) flash_wgmma_kernel(Args a) {
+  using Tl = Tile<HD>;
+  constexpr int kKSteps = HD / 16;  // k-steps of q·k^T
+  constexpr int kNT = HD / 8;       // n-tiles of the output
+  extern __shared__ unsigned char smem_w[];
+  const uint32_t sQ = (tc::smem_addr(smem_w) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + Tl::kQBytes;  // stage i: K, then V
+
+  const int n_q = (a.S + kBQ - 1) / kBQ;
+  const int BH = a.B * a.H;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x / BH);  // heavy first
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int b = bh / a.H, h = bh % a.H;
+  const int kh = h / (a.H / a.K);
+  const int q0 = qt * kBQ;
+  const int wgi = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+
+  const size_t q_ld = static_cast<size_t>(a.H) * a.hd;
+  const size_t k_ld = static_cast<size_t>(a.K) * a.hd;
+  const __nv_bfloat16* qb =
+      a.q + (static_cast<size_t>(b) * a.S + q0) * q_ld + h * a.hd;
+  const __nv_bfloat16* kb =
+      a.k + static_cast<size_t>(b) * a.T * k_ld + kh * a.hd;
+  const __nv_bfloat16* vb =
+      a.v + static_cast<size_t>(b) * a.T * k_ld + kh * a.hd;
+  __nv_bfloat16* ob = a.out + static_cast<size_t>(b) * a.S * q_ld + h * a.hd;
+
+  const int q_last = min(q0 + kBQ, a.S) - 1;
+  const int t_end = a.causal ? min(a.T, q_last + 1) : a.T;
+  const int n_kv = (t_end + kBKV - 1) / kBKV;
+
+  auto load_kv = [&](int it) {
+    const int t0 = it * kBKV;
+    const uint32_t sK = sKV + (it & 1) * 2 * Tl::kKVBytes;
+    load_tile<HD, kBKV>(sK, kb + t0 * k_ld, k_ld, a.T - t0, a.hd, a.vec);
+    load_tile<HD, kBKV>(sK + Tl::kKVBytes, vb + t0 * k_ld, k_ld, a.T - t0,
+                          a.hd, a.vec);
+  };
+  load_tile<HD, kBQ>(sQ, qb, q_ld, a.S - q0, a.hd, a.vec);
+  tc::cp_async_commit();
+  if (n_kv > 0) load_kv(0);
+  tc::cp_async_commit();
+
+  const int wq0 = q0 + wgi * 64;  // the warpgroup's first query
+  const int w0 = q0 + warp * 16;  // the warp's first query
+  float o[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) load_kv(it + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // q and tile `it` have landed
+    wg::fence_proxy();
+    __syncthreads();
+    const int t0 = it * kBKV;
+    const uint32_t sK = sKV + (it & 1) * 2 * Tl::kKVBytes;
+    const uint32_t sV = sK + Tl::kKVBytes;
+    if (wq0 < a.S && !(a.causal && t0 > wq0 + 63)) {  // warpgroup-uniform
+      // s = q k^T: 64 x 64 a warpgroup, q and k from shared memory
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      wg::touch(s);
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const uint32_t kq = (ks >> 2) * kBQ * 128 + (ks & 3) * 32;
+        const uint32_t kk = (ks >> 2) * kBKV * 128 + (ks & 3) * 32;
+        wg::mma_ss_n64(s, wg::desc(sQ + wgi * 64 * 128 + kq, 16, 1024),
+                       wg::desc(sK + kk, 16, 1024), ks > 0);
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::touch(s);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= a.scale_log2;
+      if (t0 + kBKV > a.T || (a.causal && t0 + kBKV - 1 > w0)) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = t0 + n * 8 + 2 * t4 + (e & 1);
+            const int qpos = w0 + g + (e >> 1) * 8;
+            if (kpos >= a.T || (a.causal && kpos > qpos)) s[n][e] = -INFINITY;
+          }
+      }
+
+      // online softmax: rows g (r = 0) and g + 8 (r = 1), over the quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[r] - base);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          s[n][2 * r] = exp2f(s[n][2 * r] - base);
+          s[n][2 * r + 1] = exp2f(s[n][2 * r + 1] - base);
+          sum += s[n][2 * r] + s[n][2 * r + 1];
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[r] = l[r] * alpha + sum;
+        m[r] = m_new;
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+
+      // o += p V, p as bf16 hi + lo from registers, V from shared memory.
+      // Every p fragment has registers of its own until the products have
+      // completed: wgmma reads them asynchronously.
+      uint32_t pp[4][2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        tc::split(s[2 * kk][0], s[2 * kk][1], pp[kk][0][0], pp[kk][1][0]);
+        tc::split(s[2 * kk][2], s[2 * kk][3], pp[kk][0][1], pp[kk][1][1]);
+        tc::split(s[2 * kk + 1][0], s[2 * kk + 1][1], pp[kk][0][2],
+                  pp[kk][1][2]);
+        tc::split(s[2 * kk + 1][2], s[2 * kk + 1][3], pp[kk][0][3],
+                  pp[kk][1][3]);
+      }
+      wg::touch(o);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = wg::desc(sV + kk * 16 * 128, kBKV * 128, 1024);
+        pv<HD>(o, pp[kk][0], dv);
+        pv<HD>(o, pp[kk][1], dv);
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::touch(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg::touch_a(pp[kk]);
+    }
+    __syncthreads();  // tile `it` consumed before its stage is reloaded
+  }
+
+  if (w0 >= a.S) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row >= a.S) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = ob + static_cast<size_t>(row) * q_ld;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int col = n * 8 + 2 * t4;
+      const float v0 = o[n][2 * r] * inv, v1 = o[n][2 * r + 1] * inv;
+      if (a.hd % 2 == 0) {
+        if (col < a.hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < a.hd) orow[col] = __float2bfloat16_rn(v0);
+        if (col + 1 < a.hd) orow[col + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile<HD>::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>((a.S + kBQ - 1) / kBQ) * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  flash_wgmma_kernel<HD><<<static_cast<unsigned>(blocks), kThreads,
+                           Tile<HD>::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+                     int B, int S, int T, int H, int K, int hd, int causal,
+                     float scale, cudaStream_t stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  Args a{static_cast<const __nv_bfloat16*>(q),
+         static_cast<const __nv_bfloat16*>(k),
+         static_cast<const __nv_bfloat16*>(v),
+         static_cast<__nv_bfloat16*>(out),
+         B, S, T, H, K, hd, causal,
+         hd % 8 == 0 && aligned(q) && aligned(k) && aligned(v),
+         scale * 1.4426950408889634f};
+  if (hd <= 64) return launch<64>(a, stream);
+  if (hd <= 112) return launch<112>(a, stream);
+  return launch<128>(a, stream);
+}
+
+}  // namespace bf16
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Returns a
+// cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int T, int H, int K, int hd, int dtype,
                                       int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K || hd <= 0 || hd > kHD)
+  if (B <= 0 || S <= 0 || T < 0 || H <= 0 || K <= 0 || H % K || hd <= 0 ||
+      hd > kHD)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0)
     err = launch<float>(q, k, v, out, B, S, T, H, K, hd, causal, scale, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, hd, causal,
-                                scale, s);
+    err = bf16::dispatch(q, k, v, out, B, S, T, H, K, hd, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

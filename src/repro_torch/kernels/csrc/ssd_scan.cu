@@ -12,28 +12,65 @@
 // What bounds it.  At the prefill's shapes (Q = 256, hp = st = 64, nh =
 // 112) a chunk costs a (Q, Q) score product over st, the masked (Q, Q) by
 // (Q, hp) product, and two (Q, 64, 64) products for the offset and the
-// state: about 170 float32 operations for each byte of x, B, C, dt read
-// and y written, so the work is bound by operations, not bytes.  This
-// first kernel runs in float32 on the CUDA cores, and recomputes C B^T for
-// every head (B and C are shared by the heads).
+// state: about 120 operations for each byte of x, B, C, dt read and y
+// written, below the tensor cores' ~295 a byte, so on the tensor cores the
+// work is bound by its bytes; on the CUDA cores (67 TFLOP/s float32) it
+// would be bound by its operations.
 //
-// What the design does about it.  The TPU kernel carries h in VMEM scratch
-// across a sequential chunk axis.  Here one block of 256 threads owns one
-// (batch, head) and walks the chunks in order, so h (64 x 64 float32,
-// 16 KB) stays in shared memory for the whole sequence: b * nh blocks, 896
-// at b = 8.  The (Q, Q) decay matrix of a 256-step chunk (256 KB) does not
-// fit a block's 227 KB, so the chunk's rows are tiled by 64: for each row
-// tile i the block stages C_i, then for each column tile j <= i stages B_j
-// and x_j (converted to float32), forms the masked 64 x 64 tile of
-// (C B^T) * exp(cum_i - cum_j) * dt_j in shared memory, and adds its
-// product with x_j to the row tile's y held in registers (a 4 x 4 tile a
-// thread).  The state update then walks the column tiles once more.  One
-// warp computes cum with a segmented shuffle scan.  Tiles are padded by one
-// word a row so that the reads are free of bank conflicts.  91 KB of
-// shared memory a block: two blocks an SM.
+// Two designs, by the dtype of x.
+//
+// bfloat16 x (the serving path): Mamba2's GPU formulation, in three
+// kernels that run in order on the stream, with a float32 workspace that
+// the wrapper allocates.
+//   1. ssd_state_kernel, one block per (batch, head block of kHB = 4
+//      heads, chunk): cum (summed in order by one thread a head, as
+//      torch.cumsum sums it on the card, since exp of its differences
+//      amplifies any other rounding of a long chunk's sums), the chunk's
+//      own state S_c = (x w)^T B with w_j = exp(cum_{Q-1} - cum_j) dt_j,
+//      and its total decay.  It also leaves cum and dt by head, and the
+//      blocks of the first head block leave B and C as bf16 hi/lo planes
+//      (256 aligned bytes a row, zero past st), for kernel 3.
+//   2. ssd_pass_kernel, one thread per (batch, head, state element): the
+//      serial pass over chunks, h <- h exp(total_c) + S_c, in float32 as
+//      the reference runs it; it leaves the state before each chunk as a
+//      plane, and writes the final state.
+//   3. ssd_out_kernel, one block per (batch, head block, chunk, 64-row
+//      tile), a chunk's row tiles side by side, heaviest first: y =
+//      exp(cum_i) (C_i h^T) + sum_{j <= i} (C_i B_j^T o L o dt_j) x_j.
+//      Each 64 x 64 tile of C B^T is formed once for the block's 4 heads:
+//      each warpgroup forms half of it, and both read the whole from
+//      shared memory where M is built.
+// All four tile products (C B^T, the masked M times x, C h^T and
+// (x w)^T B) are Hopper warpgroup products (wgmma, wgmma.cuh) with float32
+// accumulators: a block is two warpgroups, each owning all 64 rows of a
+// tile for 2 of the 4 heads.  Operands in shared memory are bf16 tiles of
+// 64 x 64 with the 128-byte swizzle, and every one arrives by cp.async
+// (x as it is, B, C and h from the planes), the next while the current
+// one is multiplied.  x is bf16 and enters as it is.  Every float32
+// operand (B, C, the masked decay tile M, h, x w) enters as a bf16 hi/lo
+// pair: three products where both operands are float32, two where one is
+// bf16, so no operand loses more than about 2^-16 of itself.  M and x w
+// are built in registers, in the layout of a wgmma A operand, from the
+// C B^T halves and from x's transposed fragments (ldmatrix,
+// tensor_core.cuh); two 16-column steps are in flight, so that one step's
+// fragments are built while the step before multiplies.  What holds kernel
+// 3 is M's construction (an exp and a split for each of its elements, for
+// every head) and the bytes of x, h and y; see PERF.md.  Heads past nh,
+// rows past the chunk and widths below 64 are zero-filled or masked.
+//
+// float32 x (ssd_kernel, as first written): the TPU kernel's arithmetic on
+// the CUDA cores.  One block of 256 threads owns
+// one (batch, head) and walks the chunks in order, h (64 x 64 float32) in
+// shared memory; the chunk's rows are tiled by 64, and for each row tile
+// the masked 64 x 64 tile of (C B^T) * exp(cum_i - cum_j) * dt_j is formed
+// in shared memory and multiplied into y; the state update walks the
+// column tiles once more.  91 KB of shared memory a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -45,17 +82,10 @@ constexpr size_t kSmemBytes =
     sizeof(float) * (2 * kMaxChunk + 5 * kT * kStride);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // rows [r0, r0 + kT) of a (., width) float32 matrix with row stride `ld`,
 // zero past `rows` and past `width`
@@ -290,13 +320,809 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 x: tensor cores, chunk-parallel
+// ---------------------------------------------------------------------------
+
+namespace bf16 {
+
+using tc::swz;
+constexpr int kHB = 4;               // heads a block
+constexpr int kWarps = 8;            // a 16-row slab of a tile x 2 heads
+constexpr int kThreads2 = kWarps * 32;
+constexpr int kTileBytes = kT * kT * 2;  // one 64 x 64 bf16 tile
+constexpr int kPlane = 2 * kT;       // bf16 a plane row: hi[64] then lo[64]
+
+// A plane holds float32 rows of up to 64 values as bf16 hi (columns 0-63)
+// and lo (64-127), zero past the row's width: 256 aligned bytes a row, so
+// that any tile of it is a cp.async copy.
+struct Args {
+  const __nv_bfloat16* x;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  __nv_bfloat16* y;
+  float* state;
+  float* s_c;            // (b, nc, nh, hp, st): each chunk's own state
+  float* total;          // (b, nc, nh): cum at the chunk's last step
+  __nv_bfloat16* h_pl;   // (b, nc, nh, 64) planes: the state before chunk c
+  __nv_bfloat16* b_pl;   // (b * S) planes of B
+  __nv_bfloat16* c_pl;   // (b * S) planes of C
+  float* cum_t;          // (b, nc, nh, Q): cum, by head
+  float* dt_t;           // (b, nc, nh, Q): dt, by head
+  int b, S, nh, hp, st, Q, nc, nhb;
+  int vec_x;   // x and y rows in 16-byte chunks (hp % 8 == 0, aligned)
+  int vec_bc;  // B and C rows in float4 (st % 4 == 0, aligned)
+};
+
+// float32 offsets of the workspace's parts, each 256-byte aligned; `end`
+// is its size.  The wrapper sizes the workspace by the same sums.
+struct Workspace {
+  size_t s_c, total, h_pl, b_pl, c_pl, cum_t, dt_t, end;
+  Workspace(int b, int S, int nh, int hp, int st, int Q) {
+    const auto up = [](size_t n) { return (n + 63) / 64 * 64; };
+    const size_t nc = S / Q;
+    s_c = 0;
+    total = up(static_cast<size_t>(b) * nc * nh * hp * st);
+    h_pl = total + up(static_cast<size_t>(b) * nc * nh);
+    b_pl = h_pl + static_cast<size_t>(b) * nc * nh * kT * kPlane / 2;
+    c_pl = b_pl + static_cast<size_t>(b) * S * kPlane / 2;
+    cum_t = c_pl + static_cast<size_t>(b) * S * kPlane / 2;
+    dt_t = cum_t + up(static_cast<size_t>(b) * S * nh);
+    end = dt_t + up(static_cast<size_t>(b) * S * nh);
+  }
+};
+
+// Rows [0, nrows) of a float32 matrix (row stride ld; zero at columns >=
+// ncols), split into bf16 hi and lo, as plane rows.  The loads of each half
+// are issued before its first store.
+__device__ __forceinline__ void write_plane(__nv_bfloat16* pl,
+                                            const float* src, size_t ld,
+                                            int nrows, int ncols, bool vec) {
+  constexpr int kIters = kT * kT / 4 / kThreads2 / 2;  // two batches
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float4 v[kIters];
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int idx = threadIdx.x + (half * kIters + it) * kThreads2;
+      const int r = idx >> 4, c = (idx & 15) * 4;
+      v[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nrows) {
+        const float* s = src + static_cast<size_t>(r) * ld + c;
+        if (vec) {
+          if (c < ncols) v[it] = *reinterpret_cast<const float4*>(s);
+        } else {
+          if (c < ncols) v[it].x = s[0];
+          if (c + 1 < ncols) v[it].y = s[1];
+          if (c + 2 < ncols) v[it].z = s[2];
+          if (c + 3 < ncols) v[it].w = s[3];
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int idx = threadIdx.x + (half * kIters + it) * kThreads2;
+      const int r = idx >> 4, c = (idx & 15) * 4;
+      if (r >= nrows) continue;
+      uint32_t h0, l0, h1, l1;
+      tc::split(v[it].x, v[it].y, h0, l0);
+      tc::split(v[it].z, v[it].w, h1, l1);
+      __nv_bfloat16* row = pl + static_cast<size_t>(r) * kPlane + c;
+      *reinterpret_cast<uint2*>(row) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(row + kT) = make_uint2(l0, l1);
+    }
+  }
+}
+
+// Rows [0, 64) of a float32 matrix (row stride ld) as they are into a
+// 64 x 64 float32 tile (256 bytes a row), zero at rows >= nrows and
+// columns >= ncols: by cp.async when the rows are float4 chunks, else by
+// plain loads; the caller commits and waits
+__device__ __forceinline__ void stage_raw(uint32_t dst, const float* src,
+                                          size_t ld, int nrows, int ncols,
+                                          bool vec) {
+  for (int idx = threadIdx.x; idx < kT * kT / 4; idx += kThreads2) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    const float* s = src + static_cast<size_t>(r) * ld + c;
+    const uint32_t d = dst + (r * kT + c) * 4;
+    if (vec) {
+      const bool in = r < nrows && c < ncols;
+      tc::cp_async16(d, in ? s : src, in ? 16 : 0);
+    } else {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (r < nrows && c + e < ncols) v[e] = s[e];
+      tc::st_shared_v4(d, __float_as_uint(v[0]), __float_as_uint(v[1]),
+                       __float_as_uint(v[2]), __float_as_uint(v[3]));
+    }
+  }
+}
+
+// A float32 tile from stage_raw split into swizzled bf16 hi and lo tiles,
+// and into plane rows (pl, if not null; rows < nrows only)
+__device__ __forceinline__ void split_raw(uint32_t hi, uint32_t lo,
+                                          __nv_bfloat16* pl, const float* raw,
+                                          int nrows) {
+  for (int idx = threadIdx.x; idx < kT * kT / 4; idx += kThreads2) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(raw + r * kT + c);
+    uint32_t h0, l0, h1, l1;
+    tc::split(v.x, v.y, h0, l0);
+    tc::split(v.z, v.w, h1, l1);
+    const uint32_t off = swz(r, c);
+    tc::st_shared_v2(hi + off, h0, h1);
+    tc::st_shared_v2(lo + off, l0, l1);
+    if (pl && r < nrows) {
+      __nv_bfloat16* row = pl + static_cast<size_t>(r) * kPlane + c;
+      *reinterpret_cast<uint2*>(row) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(row + kT) = make_uint2(l0, l1);
+    }
+  }
+}
+
+// x rows (bf16, row stride ld) as one swizzled bf16 tile: by cp.async
+// (zero-filled past nrows and ncols) when the rows are 16-byte chunks, else
+// by plain loads; the caller commits and waits for the copies
+__device__ __forceinline__ void stage_x(uint32_t dst,
+                                        const __nv_bfloat16* src, size_t ld,
+                                        int nrows, int ncols, bool vec) {
+  for (int idx = threadIdx.x; idx < kT * kT / 8; idx += kThreads2) {
+    const int r = idx >> 3, c = (idx & 7) * 8;
+    const __nv_bfloat16* s = src + static_cast<size_t>(r) * ld + c;
+    const uint32_t d = dst + swz(r, c);
+    if (vec) {
+      const bool in = r < nrows && c < ncols;
+      tc::cp_async16(d, in ? s : src, in ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (r < nrows) {
+        const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = tc::pack(c + 2 * e < ncols ? s[2 * e] : z,
+                          c + 2 * e + 1 < ncols ? s[2 * e + 1] : z);
+      }
+      tc::st_shared_v4(d, w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// Rows [0, 64) of a plane (zero-filled at rows >= nrows) into swizzled hi
+// and lo tiles, by cp.async; the caller commits and waits
+__device__ __forceinline__ void stage_plane(uint32_t hi, uint32_t lo,
+                                            const __nv_bfloat16* pl,
+                                            int nrows) {
+  for (int idx = threadIdx.x; idx < kT * 16; idx += kThreads2) {
+    const int r = idx >> 4, c = (idx & 15) * 8;  // plane column
+    const bool in = r < nrows;
+    const __nv_bfloat16* s = pl + static_cast<size_t>(r) * kPlane + c;
+    tc::cp_async16((c < kT ? hi : lo) + swz(r, c & (kT - 1)),
+                   in ? s : pl, in ? 16 : 0);
+  }
+}
+
+// cum[j] = sum_{j' <= j} d[j'] * a for j < len, by one thread, each product
+// rounded and then added in order: torch.cumsum along a dimension that is
+// not the innermost sums so on the card, and cum's differences feed exp,
+// which would amplify a different rounding of a long chunk's sums
+__device__ __forceinline__ void seq_cumsum(float* cum, const float* d,
+                                           float a, int len) {
+  float acc = 0.f;
+  int j = 0;
+  for (; j + 8 <= len; j += 8) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(d[j + e], a);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      acc = __fadd_rn(acc, v[e]);
+      cum[j + e] = acc;
+    }
+  }
+  for (; j < len; ++j) {
+    acc = __fadd_rn(acc, __fmul_rn(d[j], a));
+    cum[j] = acc;
+  }
+}
+
+// dt of the block's heads at steps [0, len) of the chunk from `t0`, into
+// [kHB][Q] (0 for heads past nh); neighbouring threads read neighbouring
+// heads, and each thread's loads are issued before its stores
+__device__ __forceinline__ void load_dt(float* dts, const Args& a, size_t t0,
+                                        int h0, int nheads, int len) {
+  constexpr int kBatch = 8;
+  const int n = kHB * len;
+  for (int base = 0; base < n; base += kBatch * kThreads2) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * kThreads2 + threadIdx.x;
+      const int t = idx / kHB, hh = idx % kHB;
+      v[u] = idx < n && hh < nheads ? a.dt[(t0 + t) * a.nh + h0 + hh] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * kThreads2 + threadIdx.x;
+      if (idx < n) dts[(idx % kHB) * a.Q + idx / kHB] = v[u];
+    }
+  }
+}
+
+// 1. the chunk's own state S_c = (x w)^T B, per head, and its total decay;
+// the blocks of the first head block also write the chunk's rows of B and
+// C as planes for kernel 3
+__global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  // tiles at 1024-byte boundaries, as wgmma's swizzled descriptors need
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sBh = tc::smem_addr(smem), sBl = sBh + kTileBytes;
+  const uint32_t sX0 = sBl + kTileBytes;          // kHB tiles, x of even j
+  const uint32_t sX1 = sX0 + kHB * kTileBytes;    // kHB tiles, x of odd j
+  const uint32_t sRaw = sX1 + kHB * kTileBytes;   // B_j as it is, float32
+  const float* raw_b = reinterpret_cast<const float*>(
+      smem + (2 + 2 * kHB) * kTileBytes);
+  float* dts = reinterpret_cast<float*>(smem + (4 + 2 * kHB) * kTileBytes);
+  float* cum = dts + kHB * a.Q;
+
+  const int Q = a.Q;
+  const int c = blockIdx.x % a.nc, rest = blockIdx.x / a.nc;
+  const int hb = rest % a.nhb, bb = rest / a.nhb;
+  const int h0 = hb * kHB, nheads = min(kHB, a.nh - h0);
+  const size_t t0 = static_cast<size_t>(bb) * a.S + static_cast<size_t>(c) * Q;
+  const size_t x_ld = static_cast<size_t>(a.nh) * a.hp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const auto load_j = [&](int j0) {  // B_j and x_j, as they are
+    const int nrows = min(kT, Q - j0);
+    stage_raw(sRaw, a.B + (t0 + j0) * a.st, a.st, nrows, a.st, a.vec_bc);
+    const uint32_t dst = (j0 / kT) % 2 ? sX1 : sX0;
+#pragma unroll
+    for (int hh = 0; hh < kHB; ++hh)
+      if (hh < nheads)
+        stage_x(dst + hh * kTileBytes,
+                a.x + (t0 + j0) * x_ld + (h0 + hh) * a.hp, x_ld, nrows,
+                a.hp, a.vec_x);
+  };
+  load_j(0);
+  tc::cp_async_commit();
+  load_dt(dts, a, t0, h0, nheads, Q);
+  if (hb == 0)
+    for (int j0 = 0; j0 < Q; j0 += kT)
+      write_plane(a.c_pl + (t0 + j0) * kPlane, a.C + (t0 + j0) * a.st, a.st,
+                  min(kT, Q - j0), a.st, a.vec_bc);
+  __syncthreads();
+  if (warp < nheads && lane == 0)
+    seq_cumsum(cum + warp * Q, dts + warp * Q, a.A[h0 + warp], Q);
+  __syncthreads();
+  // cum and dt by head for kernel 3, then w_j = exp(cum_{Q-1} - cum_j) dt_j
+  // over dt
+  float* cum_t = a.cum_t + ((static_cast<size_t>(bb) * a.nc + c) * a.nh + h0) * Q;
+  float* dt_t = a.dt_t + (cum_t - a.cum_t);
+  for (int idx = threadIdx.x; idx < nheads * Q; idx += kThreads2) {
+    const int hh = idx / Q;
+    cum_t[idx] = cum[idx];
+    dt_t[idx] = dts[idx];
+    dts[idx] = expf(cum[hh * Q + Q - 1] - cum[idx]) * dts[idx];
+  }
+  if (threadIdx.x < nheads)
+    a.total[(static_cast<size_t>(bb) * a.nc + c) * a.nh + h0 + threadIdx.x] =
+        cum[threadIdx.x * Q + Q - 1];
+  __syncthreads();
+
+  // warp = (slab, pair): rows p = 16 slab + g (+8), columns s, of heads
+  // 2 pair and 2 pair + 1
+  const int slab = warp & 3, pair = warp >> 2;
+  float acc[2][8][4];
+#pragma unroll
+  for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      acc[hl][n][0] = acc[hl][n][1] = acc[hl][n][2] = acc[hl][n][3] = 0.f;
+
+  for (int j0 = 0; j0 < Q; j0 += kT) {
+    const int nrows = min(kT, Q - j0);
+    tc::cp_async_wait<0>();
+    __syncthreads();  // B_j and x_j have landed
+    split_raw(sBh, sBl, hb == 0 ? a.b_pl + (t0 + j0) * kPlane : nullptr,
+              raw_b, nrows);
+    wg::fence_proxy();
+    __syncthreads();  // B_j split; its float32 tile is free
+    if (j0 + kT < Q) load_j(j0 + kT);  // the next tile, while this one runs
+    tc::cp_async_commit();
+    const uint32_t sX = (j0 / kT) % 2 ? sX1 : sX0;
+    // the warpgroup `pair` takes heads 2 pair and 2 pair + 1: A = (x w)^T
+    // (rows p, k = the step j) built in registers from x's transposed
+    // fragments times w_j, split into bf16 hi/lo; B = B_j (k = j, n = s)
+    // from shared memory, MN-major; hi*hi, hi*lo, lo*hi.  Two k-steps in
+    // flight: a step's fragments are built while the one before it
+    // multiplies.
+    uint32_t xa[2][2][2][4];  // [step % 2][head][hi, lo]
+#pragma unroll
+    for (int hl = 0; hl < 2; ++hl) wg::touch(acc[hl]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks * 16 >= nrows) continue;  // the same for the whole block
+      uint32_t(&xs)[2][2][4] = xa[ks & 1];
+      if (ks >= 2) {
+        wg::wait<1>();  // step ks - 2 has read xs
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl) wg::touch_a(xs[hl]);
+      }
+      const uint32_t offA = swz(ks * 16 + (lane & 7) + (lane >> 4) * 8,
+                                    slab * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int hl = 0; hl < 2; ++hl) {
+        const int hh = 2 * pair + hl;
+        uint32_t xr[4];  // x^T: rows p, k = j (2t, 2t+1 | 8+2t, 9+2t)
+        tc::ldsm_x4_t(xr, sX + hh * kTileBytes + offA);
+        float wj[4];     // w at those four steps
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          wj[u] = dts[hh * Q + min(j0 + ks * 16 + (u >> 1) * 8 + 2 * t4 +
+                                       (u & 1), Q - 1)];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(&xr[q]);
+          const int u = (q >> 1) * 2;
+          tc::split(__low2float(x2) * wj[u], __high2float(x2) * wj[u + 1],
+                    xs[hl][0][q], xs[hl][1][q]);
+        }
+      }
+      wg::fence();
+      const uint64_t dbh = wg::desc(sBh + ks * 16 * 128, kTileBytes, 1024);
+      const uint64_t dbl = wg::desc(sBl + ks * 16 * 128, kTileBytes, 1024);
+#pragma unroll
+      for (int hl = 0; hl < 2; ++hl) {
+        if (2 * pair + hl >= nheads) continue;
+        wg::mma_rs_n64(acc[hl], xs[hl][0], dbh);
+        wg::mma_rs_n64(acc[hl], xs[hl][0], dbl);
+        wg::mma_rs_n64(acc[hl], xs[hl][1], dbh);
+      }
+      wg::commit();
+    }
+    wg::wait<0>();
+#pragma unroll
+    for (int hl = 0; hl < 2; ++hl) {
+      wg::touch(acc[hl]);
+      wg::touch_a(xa[0][hl]);
+      wg::touch_a(xa[1][hl]);
+    }
+    __syncthreads();  // the tiles are consumed before the next are staged
+  }
+
+#pragma unroll
+  for (int hl = 0; hl < 2; ++hl) {
+    const int hh = 2 * pair + hl;
+    if (hh >= nheads) continue;
+    float* out = a.s_c + ((static_cast<size_t>(bb) * a.nc + c) * a.nh + h0 +
+                          hh) * a.hp * a.st;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = slab * 16 + g + 8 * r, s = n * 8 + 2 * t4;
+        if (p >= a.hp) continue;
+        if (a.st % 2 == 0) {
+          if (s < a.st)
+            *reinterpret_cast<float2*>(out + p * a.st + s) =
+                make_float2(acc[hl][n][2 * r], acc[hl][n][2 * r + 1]);
+        } else {
+          if (s < a.st) out[p * a.st + s] = acc[hl][n][2 * r];
+          if (s + 1 < a.st) out[p * a.st + s + 1] = acc[hl][n][2 * r + 1];
+        }
+      }
+  }
+}
+
+// 2. the pass over chunks, in float32 as the reference runs it:
+// h <- h exp(total_c) + S_c; the state before each chunk c > 0 is written
+// as a plane (zero past hp and st) for kernel 3, the final state as it is.
+// Each batch of chunks is read before any is written.
+__global__ void ssd_pass_kernel(Args a) {
+  constexpr int kBatch = 8;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;  // (p, s) of 64 x 64
+  const int p = e / kT, s = e % kT;
+  const bool in = p < a.hp && s < a.st;
+  const int bb = blockIdx.x / a.nh, hh = blockIdx.x % a.nh;
+  const size_t k0 = static_cast<size_t>(bb) * a.nc * a.nh + hh;
+  const size_t n = static_cast<size_t>(a.hp) * a.st;
+  float h = 0.f;
+  for (int c0 = 0; c0 < a.nc; c0 += kBatch) {
+    float s_c[kBatch], g[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const size_t k = k0 + static_cast<size_t>(c0 + i) * a.nh;
+      const bool ok = c0 + i < a.nc;
+      s_c[i] = ok && in ? a.s_c[k * n + p * a.st + s] : 0.f;
+      g[i] = ok ? a.total[k] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int c = c0 + i;
+      if (c >= a.nc) break;
+      if (c > 0) {
+        __nv_bfloat16* row = a.h_pl +
+            ((k0 + static_cast<size_t>(c) * a.nh) * kT + p) * kPlane + s;
+        const __nv_bfloat16 hi = __float2bfloat16_rn(h);
+        row[0] = hi;
+        row[kT] = __float2bfloat16_rn(h - __bfloat162float(hi));
+      }
+      h = __fadd_rn(__fmul_rn(h, expf(g[i])), s_c[i]);  // as torch rounds
+    }
+  }
+  if (in) a.state[static_cast<size_t>(blockIdx.x) * n + p * a.st + s] = h;
+}
+
+// 3. y of one 64-row tile of a chunk for the block's heads.  A warpgroup
+// owns the tile's 64 rows for two of the heads; the two warpgroups each
+// form half of the C B^T tile and put it in shared memory, where M's
+// construction reads the whole.  Every tile arrives by cp.async from the
+// planes and x: the second pair of heads' h while the first pair's offset
+// is formed, the next column tile's x while one tile's M x runs (its B
+// after, as the halves lie where B is kept).
+__global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  // tiles at 1024-byte boundaries, as wgmma's swizzled descriptors need
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sCh = tc::smem_addr(smem), sCl = sCh + kTileBytes;
+  const uint32_t sBh = sCl + kTileBytes, sBl = sBh + kTileBytes;
+  const uint32_t sX0 = sBl + kTileBytes;          // kHB tiles, x of even j
+  const uint32_t sX1 = sX0 + kHB * kTileBytes;    // kHB tiles, x of odd j
+  // C B^T halves [slab][half][16][lane], over B once it is consumed
+  float* xcb = reinterpret_cast<float*>(smem + 2 * kTileBytes);
+  float* dts = reinterpret_cast<float*>(smem + (4 + 2 * kHB) * kTileBytes);
+  float* cum = dts + kHB * a.Q;
+
+  // the row tiles of one (batch, head block, chunk) are neighbours in the
+  // grid, heaviest first, so that they share x, B and h through L2
+  const int Q = a.Q, ni = (Q + kT - 1) / kT;
+  const int it = ni - 1 - static_cast<int>(blockIdx.x % ni);
+  int rest = static_cast<int>(blockIdx.x / ni);
+  const int c = rest % a.nc;
+  rest /= a.nc;
+  const int hb = rest % a.nhb, bb = rest / a.nhb;
+  const int h0 = hb * kHB, nheads = min(kHB, a.nh - h0);
+  const int i0 = it * kT, len = min(i0 + kT, Q);
+  const size_t t0 = static_cast<size_t>(bb) * a.S + static_cast<size_t>(c) * Q;
+  const size_t x_ld = static_cast<size_t>(a.nh) * a.hp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int slab = warp & 3, pair = warp >> 2;  // heads 2 pair, 2 pair + 1
+  const int rl = slab * 16 + g;  // local row of r = 0; r = 1 is rl + 8
+  const bool carry = c > 0;      // a state comes in
+  const __nv_bfloat16* h_pl =
+      a.h_pl + (static_cast<size_t>(bb) * a.nc + c) * a.nh * kT * kPlane;
+
+  // h of heads r and 2 + r (hi, lo each) into the x buffer r
+  const auto load_h = [&](int r) {
+    const uint32_t base = r ? sX1 : sX0;
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (2 * q + r < nheads)
+        stage_plane(base + 2 * q * kTileBytes, base + (2 * q + 1) * kTileBytes,
+                    h_pl + static_cast<size_t>(h0 + 2 * q + r) * kT * kPlane,
+                    a.hp);
+  };
+  const auto load_b = [&](int j0) {  // B_j
+    stage_plane(sBh, sBl, a.b_pl + (t0 + j0) * kPlane, min(kT, Q - j0));
+  };
+  const auto load_x = [&](int j0) {  // x_j of the block's heads
+    const uint32_t dst = (j0 / kT) % 2 ? sX1 : sX0;
+#pragma unroll
+    for (int hh = 0; hh < kHB; ++hh)
+      if (hh < nheads)
+        stage_x(dst + hh * kTileBytes,
+                a.x + (t0 + j0) * x_ld + (h0 + hh) * a.hp, x_ld,
+                min(kT, Q - j0), a.hp, a.vec_x);
+  };
+
+  // group 0: C_i, and the first two heads' h
+  stage_plane(sCh, sCl, a.c_pl + (t0 + i0) * kPlane, len - i0);
+  if (carry) load_h(0);
+  tc::cp_async_commit();
+  if (!carry) {
+    load_b(0);
+    load_x(0);
+    tc::cp_async_commit();
+  }
+  {  // cum and dt of the block's heads at steps [0, len), from kernel 1
+    const size_t k0 = ((static_cast<size_t>(bb) * a.nc + c) * a.nh + h0) * Q;
+    constexpr int kBatch = 4;
+    const int n = nheads * len;
+    for (int base = 0; base < n; base += kBatch * kThreads2) {
+      float cv[kBatch], dv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kThreads2 + threadIdx.x;
+        const size_t src = k0 + static_cast<size_t>(idx / len) * Q + idx % len;
+        cv[u] = idx < n ? a.cum_t[src] : 0.f;
+        dv[u] = idx < n ? a.dt_t[src] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kThreads2 + threadIdx.x;
+        if (idx < n) {
+          cum[(idx / len) * Q + idx % len] = cv[u];
+          dts[(idx / len) * Q + idx % len] = dv[u];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  float cr[2][2];  // cum at this thread's two rows, for its two heads
+#pragma unroll
+  for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int hh = 2 * pair + hl, ig = i0 + rl + 8 * r;
+      cr[hl][r] = hh < nheads && ig < Q ? cum[hh * Q + ig] : 0.f;
+    }
+
+  float y[2][8][4];
+#pragma unroll
+  for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      y[hl][n][0] = y[hl][n][1] = y[hl][n][2] = y[hl][n][3] = 0.f;
+
+  // the carried state's part: y += exp(cum_i) (C_i h^T), C and h as hi/lo;
+  // in round r the warp takes its head 2 pair + r
+  if (carry) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r == 0) {
+        load_h(1);
+      } else {
+        load_b(0);
+        load_x(0);
+      }
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+      wg::fence_proxy();
+      __syncthreads();
+      if (2 * pair + r < nheads) {  // the same for the whole warpgroup
+        // C_i h^T over the 64 rows, C and h from shared memory (h stored
+        // [p][s]: k = s, n = p), hi*hi, hi*lo, lo*hi
+        const uint32_t sHh = (r ? sX1 : sX0) + 2 * pair * kTileBytes;
+        const uint32_t sHl = sHh + kTileBytes;
+        float off[8][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          off[n][0] = off[n][1] = off[n][2] = off[n][3] = 0.f;
+        wg::touch(off);
+        wg::fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (ks * 16 >= a.st) continue;
+          const uint64_t ch = wg::desc(sCh + ks * 32, 16, 1024);
+          const uint64_t cl = wg::desc(sCl + ks * 32, 16, 1024);
+          wg::mma_ss_n64(off, ch, wg::desc(sHh + ks * 32, 16, 1024), 1);
+          wg::mma_ss_n64(off, ch, wg::desc(sHl + ks * 32, 16, 1024), 1);
+          wg::mma_ss_n64(off, cl, wg::desc(sHh + ks * 32, 16, 1024), 1);
+        }
+        wg::commit();
+        wg::wait<0>();
+        wg::touch(off);
+        const float d0 = expf(cr[r][0]), d1 = expf(cr[r][1]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          y[r][n][0] += off[n][0] * d0;
+          y[r][n][1] += off[n][1] * d0;
+          y[r][n][2] += off[n][2] * d1;
+          y[r][n][3] += off[n][3] * d1;
+        }
+      }
+      __syncthreads();  // h consumed before its buffer is reloaded
+    }
+  }
+
+  // the chunk's own part, one column tile j <= i at a time
+  for (int j0 = 0; j0 <= i0; j0 += kT) {
+    tc::cp_async_wait<0>();
+    wg::fence_proxy();
+    __syncthreads();  // B_j and x_j have landed
+
+    // this warpgroup's half of C_i B_j^T: columns j of 32 pair .. + 31 for
+    // the 64 rows, C and B from shared memory, hi*hi, hi*lo, lo*hi
+    float cbh[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      cbh[n][0] = cbh[n][1] = cbh[n][2] = cbh[n][3] = 0.f;
+    wg::touch(cbh);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks * 16 >= a.st) continue;
+      const uint32_t kb = pair * 32 * 128 + ks * 32;
+      const uint64_t ch = wg::desc(sCh + ks * 32, 16, 1024);
+      const uint64_t cl = wg::desc(sCl + ks * 32, 16, 1024);
+      wg::mma_ss_n32(cbh, ch, wg::desc(sBh + kb, 16, 1024), 1);
+      wg::mma_ss_n32(cbh, ch, wg::desc(sBl + kb, 16, 1024), 1);
+      wg::mma_ss_n32(cbh, cl, wg::desc(sBh + kb, 16, 1024), 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::touch(cbh);
+    __syncthreads();  // B_j consumed: its space takes the halves
+    {
+      float* mine = xcb + ((slab * 2 + pair) * 16) * 32 + lane;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) mine[k * 32] = cbh[k >> 2][k & 3];
+    }
+    __syncthreads();
+    // the slab's whole C_i B_j^T, read where M needs it: n-tile n, element
+    // e at cbs[(4 n + e) * 32]
+    const float* cbs = xcb + slab * 2 * 16 * 32 + lane;
+    if (j0 + kT <= i0) load_x(j0 + kT);  // the next x, while M x runs
+
+    const uint32_t sX = (j0 / kT) % 2 ? sX1 : sX0;
+    const bool diag = j0 == i0;
+#pragma unroll
+    for (int hl = 0; hl < 2; ++hl) {
+      const int hh = 2 * pair + hl;
+      if (hh >= nheads) continue;  // the same for the whole warpgroup
+      const float* cum_h = cum + hh * Q;
+      const float* dt_h = dts + hh * Q;
+      // y += M x for 16 columns j at a time: M's fragments (rows i, k = j)
+      // in bf16 hi/lo from registers, x_j (k = j, n = p) from shared
+      // memory, MN-major.  Two steps in flight: a step's M is built while
+      // the one before it multiplies.
+      uint32_t ma[2][2][4];  // [step % 2][hi, lo]
+      wg::touch(y[hl]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (j0 + kk * 16 >= len) continue;  // past the chunk
+        uint32_t(&mk)[2][4] = ma[kk & 1];
+        if (kk >= 2) {
+          wg::wait<1>();  // step kk - 2 has read mk
+          wg::touch_a(mk);
+        }
+        // the thread's four columns j of these 16: cum_j and dt_j
+        float cj[4], dj[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int jc = min(j0 + kk * 16 + (u >> 1) * 8 + 2 * t4 + (u & 1),
+                             len - 1);
+          cj[u] = cum_h[jc];
+          dj[u] = dt_h[jc];
+        }
+        // M = C B^T o exp(cum_i - cum_j) o dt_j, masked j <= i on the
+        // diagonal tile.  Rows past the chunk are never written, so they
+        // go unmasked.
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int n = 2 * kk + (q >> 1), r = q & 1;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int u = (q >> 1) * 2 + e;
+            v[e] = cbs[(4 * n + 2 * r + e) * 32] * __expf(cr[hl][r] - cj[u]) *
+                   dj[u];
+            if (diag) {
+              const int jg = j0 + kk * 16 + (q >> 1) * 8 + 2 * t4 + e;
+              if (jg > i0 + rl + 8 * r) v[e] = 0.f;
+            }
+          }
+          tc::split(v[0], v[1], mk[0][q], mk[1][q]);
+        }
+        wg::fence();
+        const uint64_t dx =
+            wg::desc(sX + hh * kTileBytes + kk * 16 * 128, kTileBytes, 1024);
+        wg::mma_rs_n64(y[hl], mk[0], dx);
+        wg::mma_rs_n64(y[hl], mk[1], dx);
+        wg::commit();
+      }
+      wg::wait<0>();
+      wg::touch(y[hl]);
+      wg::touch_a(ma[0]);
+      wg::touch_a(ma[1]);
+    }
+    __syncthreads();  // the halves are read before B_{j+1} lands on them
+    if (j0 + kT <= i0) load_b(j0 + kT);
+    tc::cp_async_commit();
+  }
+
+#pragma unroll
+  for (int hl = 0; hl < 2; ++hl) {
+    const int hh = 2 * pair + hl;
+    if (hh >= nheads) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ig = i0 + rl + 8 * r;
+      if (ig >= Q) continue;
+      __nv_bfloat16* yrow = a.y + (t0 + ig) * x_ld + (h0 + hh) * a.hp;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int p = n * 8 + 2 * t4;
+        const float v0 = y[hl][n][2 * r], v1 = y[hl][n][2 * r + 1];
+        if (a.hp % 2 == 0) {
+          if (p < a.hp)
+            *reinterpret_cast<__nv_bfloat162*>(yrow + p) =
+                __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (p < a.hp) yrow[p] = __float2bfloat16_rn(v0);
+          if (p + 1 < a.hp) yrow[p + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t run(const void* x, const void* dt, const void* A, const void* B,
+                const void* C, void* y, void* state, void* ws,
+                long long ws_floats, int b, int S, int nh, int hp, int st,
+                int Q, cudaStream_t stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const Workspace w(b, S, nh, hp, st, Q);
+  if (ws_floats < 0 || static_cast<size_t>(ws_floats) < w.end || !aligned(ws))
+    return cudaErrorInvalidValue;
+  float* wsf = static_cast<float*>(ws);
+  Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.dt = static_cast<const float*>(dt);
+  a.A = static_cast<const float*>(A);
+  a.B = static_cast<const float*>(B);
+  a.C = static_cast<const float*>(C);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.state = static_cast<float*>(state);
+  a.s_c = wsf + w.s_c;
+  a.total = wsf + w.total;
+  a.h_pl = reinterpret_cast<__nv_bfloat16*>(wsf + w.h_pl);
+  a.b_pl = reinterpret_cast<__nv_bfloat16*>(wsf + w.b_pl);
+  a.c_pl = reinterpret_cast<__nv_bfloat16*>(wsf + w.c_pl);
+  a.cum_t = wsf + w.cum_t;
+  a.dt_t = wsf + w.dt_t;
+  a.b = b, a.S = S, a.nh = nh, a.hp = hp, a.st = st, a.Q = Q;
+  a.nc = S / Q;
+  a.nhb = (nh + kHB - 1) / kHB;
+  a.vec_x = hp % 8 == 0 && aligned(x) && aligned(y);
+  a.vec_bc = st % 4 == 0 && aligned(B) && aligned(C);
+
+  // + 1024: room to align the tiles
+  const int smem1 = (4 + 2 * kHB) * kTileBytes + 2 * kHB * Q * 4 + 1024;
+  const int smem3 = (4 + 2 * kHB) * kTileBytes + 2 * kHB * Q * 4 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      ssd_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem3);
+  if (err != cudaSuccess) return err;
+  const long long blocks1 = static_cast<long long>(b) * a.nhb * a.nc;
+  const long long blocks3 = blocks1 * ((Q + kT - 1) / kT);
+  if (blocks3 > 0x7fffffffLL || static_cast<long long>(b) * nh > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+
+  ssd_state_kernel<<<static_cast<unsigned>(blocks1), kThreads2, smem1,
+                     stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_pass_kernel<<<dim3(b * nh, kT * kT / 256), 256, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_out_kernel<<<static_cast<unsigned>(blocks3), kThreads2, smem3,
+                   stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16
+
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// x_dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, three
+// launches).  ws: float32 scratch of ws_floats values for bfloat16 x (the
+// wrapper's _workspace_floats), unused for float32.  Returns a cudaError_t.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C, void* y,
-                               void* state, int b, int S, int nh, int hp,
-                               int st, int chunk, int x_dtype, void* stream) {
+                               void* state, void* ws, long long ws_floats,
+                               int b, int S, int nh, int hp, int st,
+                               int chunk, int x_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || S <= 0 || nh <= 0 || hp <= 0 || hp > kT || st <= 0 ||
       st > kT || chunk <= 0 || chunk > kMaxChunk || S % chunk)
@@ -304,9 +1130,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   cudaError_t err;
   if (x_dtype == 0)
     err = launch<float>(x, dt, A, B, C, y, state, b, S, nh, hp, st, chunk, s);
-  else if (x_dtype == 1)
-    err = launch<__nv_bfloat16>(x, dt, A, B, C, y, state, b, S, nh, hp, st,
-                                chunk, s);
+  else if (x_dtype == 1 && ws != nullptr)
+    err = bf16::run(x, dt, A, B, C, y, state, ws, ws_floats, b, S, nh, hp, st,
+                    chunk, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

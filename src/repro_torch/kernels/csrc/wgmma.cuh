@@ -1,0 +1,204 @@
+// Hopper warpgroup matrix products (wgmma), as raw PTX for sm_90a: the
+// shared-memory matrix descriptor of a 128-byte-swizzled tile, the fence /
+// commit / wait of the asynchronous products, and the shapes the bf16
+// flash-attention and SSD kernels issue (float32 accumulators).
+//
+// Layout.  A tile of R rows and up to 128 bf16 columns is stored as column
+// blocks of 64 (128 bytes a row): block b, row r, 16-byte chunk k of the
+// block at b * R * 128 + r * 128 + ((k ^ (r % 8)) * 16), the base aligned to
+// 1024 bytes; that is the 128-byte swizzle TMA writes and wgmma reads.
+//   K-major operand (rows = M or N, columns = K): a k-step of 16 columns is
+//   the descriptor's start moved by 32 bytes in its column block; 8-row
+//   groups are 1024 bytes apart (SBO), LBO is not used.
+//   MN-major operand (rows = K, columns = N): 8-row groups of K are 1024
+//   bytes apart (SBO), the next 64 columns of N are a column block further
+//   (LBO = R * 128); a k-step of 16 rows moves the start by 2048 bytes.
+// Accumulators: thread t of the warpgroup holds, for each 8-column tile j,
+// d[j][0..1] at row 16 (t / 32) + (t % 32) / 4, columns 8 j + 2 (t % 4) + 0..1,
+// and d[j][2..3] eight rows further (tensor_core.cuh), warp by warp.
+
+#pragma once
+
+#include <cstdint>
+
+namespace wg {
+
+__device__ __forceinline__ uint64_t desc(uint32_t smem_addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);  // 128-byte swizzle
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from reading or moving accumulators across an
+// asynchronous product: every register is an operand of an empty asm.
+template <int NT>
+__device__ __forceinline__ void touch(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    asm volatile("" : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]),
+                 "+f"(d[j][3]) :: "memory");
+}
+
+// the same for the registers of an A fragment (4 x bf16x2) that a wgmma
+// reads asynchronously: they stay as they are until after its wait
+template <int NA>
+__device__ __forceinline__ void touch_a(uint32_t (&a)[NA][4]) {
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+    asm volatile("" : "+r"(a[j][0]), "+r"(a[j][1]), "+r"(a[j][2]),
+                 "+r"(a[j][3]) :: "memory");
+}
+
+// shared-memory writes of the generic proxy (st.shared, cp.async) made
+// visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 32) = (scale_d ? d : 0) + A B^T, A and B K-major in shared
+// memory (descriptors)
+__device__ __forceinline__ void mma_ss_n32(float (&d)[4][4], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// d (64 x 64) = (scale_d ? d : 0) + A B^T, A and B K-major in shared
+// memory (descriptors)
+__device__ __forceinline__ void mma_ss_n64(float (&d)[8][4], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// d (64 x 64) += A B, A (64 x 16) from registers (the A layout
+// of tensor_core.cuh), B (16 x 64) MN-major in shared memory (descriptor)
+__device__ __forceinline__ void mma_rs_n64(float (&d)[8][4],
+                                          const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d (64 x 112) += A B, A (64 x 16) from registers (the A layout
+// of tensor_core.cuh), B (16 x 112) MN-major in shared memory (descriptor)
+__device__ __forceinline__ void mma_rs_n112(float (&d)[14][4],
+                                          const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55}"
+      ", {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d (64 x 128) += A B, A (64 x 16) from registers (the A layout
+// of tensor_core.cuh), B (16 x 128) MN-major in shared memory (descriptor)
+__device__ __forceinline__ void mma_rs_n128(float (&d)[16][4],
+                                          const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+}  // namespace wg

@@ -53,7 +53,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
     """q (B, S, H, hd), k/v (B, T, K, hd) with H % K == 0 and hd <= 128,
     float32 or bfloat16; returns (B, S, H, hd) in q's dtype.
     ``block_q``/``block_kv`` are the TPU kernel's tiles, kept for parity:
-    the CUDA kernel's tiles are fixed (64 queries by 32 keys)."""
+    the CUDA kernels' tiles are fixed (bfloat16: 128 queries by 64 keys on
+    the tensor cores; float32: 64 by 32 on the CUDA cores)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     device = cuda_device("flash_attention", q)

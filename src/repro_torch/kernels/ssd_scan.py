@@ -14,8 +14,10 @@ version keeps.
 
 The wrapper takes the plain version for tensors on the CPU and launches the
 kernel (``csrc/ssd_scan.cu``) for tensors on a CUDA device; it never falls
-back from one to the other.  ``ssd_scan.launches`` counts the kernel
-launches.
+back from one to the other.  ``ssd_scan.launches`` counts the wrapper's
+calls that reach the card: one for a float32 x (one kernel), and one for a
+bfloat16 x, whose chunk-parallel design runs three kernels in order on the
+stream (chunk states, the pass over chunks, the output).
 """
 
 from __future__ import annotations
@@ -30,6 +32,20 @@ _SOURCE = "ssd_scan.cu"
 MAX_HEADDIM = 64
 MAX_STATE = 64
 MAX_CHUNK = 1024
+
+
+def _workspace_floats(b, S, nh, hp, st, chunk) -> int:
+    """float32 values of the bfloat16 kernels' scratch (``Workspace`` in
+    ``csrc/ssd_scan.cu``, which checks the size): each chunk's own state,
+    each chunk's total decay, the state before each chunk as a bf16 hi/lo
+    plane of 64 rows, B and C as planes, and cum and dt by head; each part
+    rounded up to 64 values."""
+    def up(n):
+        return -(-n // 64) * 64
+
+    nc = S // chunk
+    return (up(b * nc * nh * hp * st) + up(b * nc * nh)
+            + b * nc * nh * 64 * 64 + 2 * b * S * 64 + 2 * up(b * S * nh))
 
 
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
@@ -87,8 +103,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
     B, C (b, S, st) float32; hp, st <= 64, chunk = min(chunk, S) <= 1024
     and a divisor of S.  Returns (y (b, S, nh, hp) in x's dtype, state
     (b, nh, hp, st) float32).  ``head_block`` is the TPU kernel's head
-    tile, kept for parity: the CUDA kernel runs one block per (batch,
-    head)."""
+    tile, kept for parity: the bfloat16 kernels fix theirs at 4 heads a
+    block, the float32 kernel runs one block per (batch, head)."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
     device = cuda_device("ssd_scan", x)
@@ -109,9 +125,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
     y = torch.empty_like(x)
     state = torch.empty((b, nh, hp, st), dtype=f32, device=device)
     if x.numel():
+        n_ws = (_workspace_floats(b, S, nh, hp, st, chunk)
+                if x.dtype == torch.bfloat16 else 0)
+        ws = torch.empty(max(n_ws, 1), dtype=f32, device=device)
         launch(_SOURCE, "ssd_scan_launch",
-               [t.data_ptr() for t in (x, dt, A, B, C, y, state)]
-               + [b, S, nh, hp, st, chunk, DTYPE_CODES[x.dtype]], device)
+               [t.data_ptr() for t in (x, dt, A, B, C, y, state, ws)]
+               + [n_ws, b, S, nh, hp, st, chunk, DTYPE_CODES[x.dtype]],
+               device)
         ssd_scan.launches += 1
     return y, state
 

@@ -153,9 +153,14 @@ def test_rmsnorm_kernel_matches_plain_version(card, shape, xd, wd):
     assert_within(got, RMS.rmsnorm_ref(x, w), "rmsnorm")
 
 
+#: the last three are the edges the bfloat16 kernel's tiles must mask at
+#: the serving head dim: ragged S and T with GQA, S < T against a long
+#: key range with one kv head, and a full 2048-token prefill
 FLASH = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
          (1, 257, 129, 6, 3, 64), (2, 256, 256, 4, 4, 112),
-         (2, 100, 72, 4, 2, 112), (1, 300, 300, 2, 1, 128)]
+         (2, 100, 72, 4, 2, 112), (1, 300, 300, 2, 1, 128),
+         (1, 257, 129, 6, 3, 112), (2, 64, 2048, 4, 1, 112),
+         (1, 2048, 2048, 2, 2, 112)]
 
 
 @pytest.mark.cuda
@@ -174,9 +179,14 @@ def test_flash_kernel_matches_plain_version(card, B, S, T, H, K, hd,
                   "flash")
 
 
+#: the last three are the edges of the bfloat16 kernels' head blocks and
+#: chunk-parallel passes: 3 heads in a block of 4 with 16 chunks of 16,
+#: 6 heads (a block and a half) over 8 chunks of 256, and the serving
+#: width of 112 heads in one chunk of 1024
 SSD_CASES = [(1, 64, 4, 32, 16, 16), (2, 128, 8, 32, 16, 32),
              (1, 96, 6, 16, 8, 32), (2, 512, 8, 64, 64, 256),
-             (1, 256, 3, 64, 64, 128)]
+             (1, 256, 3, 64, 64, 128), (1, 256, 3, 64, 64, 16),
+             (2, 2048, 6, 64, 64, 256), (1, 1024, 112, 64, 64, 1024)]
 
 
 def _ssd_args(b, S, nh, hp, st, dtype, device):
