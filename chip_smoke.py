@@ -10,8 +10,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build, timed;
-3. kernel vs plain on synthetic inputs (P in {20, 56, 128}, K in {256, 4096,
-   65536}; forced rows, equal-jitter ties, count == 0 lanes), bit-equal;
+3. kernel vs plain on synthetic inputs (P in {8, 16, 20, 56, 128}, K in
+   {256, 4096, 65536}; forced rows, equal-jitter ties, count == 0 lanes),
+   bit-equal;
 4. the campaign path: ``sweep_portfolio("mandelbrot", "epyc")`` at T = 500,
    reps = 3 and ``sweep_portfolio("tc", "epyc")`` through the kernels, then
    the same sweeps with the plain event core on the card, bit-equal, and
@@ -19,9 +20,12 @@ kernels, and prints one JSON line per result.  Phases, in order:
    bit-equal: the draws and the event core round alike on both);
 5. the what-if path: ``what_if_wave`` (256 requests, 8 replicas) and
    ``what_if_routes`` (4 groups x 8 replicas, > 100 candidate rows), kernel
-   vs plain on the card and vs the CPU;
-6. each event-loop kernel timed with CUDA events at the main path's shapes,
-   beside its plain version;
+   vs plain on the card and vs the CPU; then each call's wall time on the
+   host clock (after one warm call) with the kernel's share of it;
+6. each event-loop kernel timed with CUDA events at the main path's largest
+   call, beside its plain version, with the call's longest lane alone (the
+   chain) and the call with no chunks (the launch floor); and the fused
+   call cut to its first 132 ... 4096 lanes (issue- or chain-bound);
 7. the model kernels (rmsnorm, flash_attention, ssd_scan) against their
    plain versions on synthetic inputs, within the tests' tolerances;
 8. Zamba2-7B at full width in bf16 with random weights from a seeded
@@ -154,7 +158,8 @@ def phase_synthetic(device, grids_np: np.ndarray, N: int, seed: int = 0,
     S, G1 = grids_np.shape
     G = G1 - 1
     shapes = shapes or [(P, K, 4096 if K <= 4096 else 512)
-                        for P in (20, 56, 128) for K in (256, 4096, 65536)]
+                        for P in (8, 16, 20, 56, 128)
+                        for K in (256, 4096, 65536)]
     results = []
     for P, K, B in shapes:
         count, forced, jitter, speed, h_eff, bcost = synthetic_lanes(
@@ -244,17 +249,19 @@ def wave_inputs(seed: int, n_requests: int = 256, R: int = 8):
     return prefix, avail
 
 
-def what_if_calls(backend, seed: int = 0):
-    """A 256-request wave over 8 replicas for all 12 algorithms at the
-    default chunk and at expChunk, and a 4-group x 8-replica fleet routing
-    decision over 6 request shards (144 candidate rows)."""
+def what_if_thunks(backend, seed: int = 0):
+    """(name, call) of each what-if call: a 256-request wave over 8
+    replicas for all 12 algorithms at the default chunk and at expChunk,
+    and a 4-group x 8-replica fleet routing decision over 6 request shards
+    (144 candidate rows)."""
     from repro_torch.core import N_ALGORITHMS, exp_chunk
     R = 8
     prefix, avail = wave_inputs(seed)
     N = len(prefix) - 1
     algs = list(range(N_ALGORITHMS))
-    waves = [backend.what_if_wave(prefix, R, avail, 0.2e-6, 5e-6, algs,
-                                  chunk_param=cp)
+    calls = [(f"what_if_wave(chunk_param={cp})",
+              lambda cp=cp: backend.what_if_wave(prefix, R, avail, 0.2e-6,
+                                                 5e-6, algs, chunk_param=cp))
              for cp in (0, exp_chunk(N, R))]
     rng = np.random.default_rng(seed + 1)
     group_avail = [rng.random(R) * 2e-3 for _ in range(4)]
@@ -266,8 +273,37 @@ def what_if_calls(backend, seed: int = 0):
         avails.append(group_avail[s % 4])
     cands = [(s, a, cp) for s in range(6) for a in algs
              for cp in (0, exp_chunk(len(prefixes[s]) - 1, R))]
-    routes = backend.what_if_routes(prefixes, R, avails, 0.2e-6, 5e-6, cands)
-    return waves + [routes]
+    calls.append(("what_if_routes", lambda: backend.what_if_routes(
+        prefixes, R, avails, 0.2e-6, 5e-6, cands)))
+    return calls
+
+
+def what_if_calls(backend, seed: int = 0):
+    return [call() for _, call in what_if_thunks(backend, seed)]
+
+
+def what_if_latency(backend, device, reps: int = 5):
+    """Each what-if call's wall time on the host clock, synchronized, after
+    one warm call: mean, least and largest over ``reps`` calls (ms), and
+    the event core's card time in it (``core_ms``, the backend's CUDA
+    events)."""
+    rows = []
+    for name, call in what_if_thunks(backend):
+        call()
+        walls, cores = [], []
+        for _ in range(reps):
+            backend.times.reset()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            cores.append(backend.times.core_ms)
+        mean, core = sum(walls) / reps, sum(cores) / reps
+        rows.append({"call": name, "wall_ms": mean, "wall_min_ms":
+                     min(walls), "wall_max_ms": max(walls), "core_ms": core,
+                     "core_share": core / mean})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -844,28 +880,55 @@ def longest_lane(args, shared: int):
 
 def kernel_record(name, launches, args, shared, fn, ref, bound_fn, device,
                   flush, reps, plain_reps):
-    """Time one kernel and its plain version on one call's arguments, and
-    the kernel on the call's longest lane alone: one warp walking that
-    lane's chain of dependent steps, which no call can finish sooner."""
+    """Time one kernel and its plain version on one call's arguments; the
+    kernel on the call's longest lane alone: one warp walking that lane's
+    chain of dependent steps, which no call can finish sooner; and the
+    kernel on the call with every count 0 (the wrapper, the launch and the
+    write-back of jitter): the floor under any design of the steps."""
     err = float((fn(*args) - ref(*args)).abs().max())
     ms = time_call(fn, args, reps, device, flush)
     plain_ms = time_call(ref, args, plain_reps, device, flush)
     lane = longest_lane(args, shared)
     chain_ms = time_call(fn, lane, reps, device, flush)
     chain_steps = int(lane[-1].sum())
+    floor_ms = time_call(fn, list(args[:-1]) + [torch.zeros_like(args[-1])],
+                         reps, device, flush)
     nbytes, ops = bound_fn(args)
     b_ms, b_by = bound_ms(nbytes, ops)
+    P = int(args[-6].shape[1])
     return {"name": name, "route": "cuda", "source": CU_SOURCE,
             "replaces": REPLACES[name], "launches": launches,
+            "layout": f"warp/{-(-P // 32)}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"B": int(args[-1].shape[0]),
                       "K": int(args[-2].shape[1]),
-                      "P": int(args[-6].shape[1]),
+                      "P": P,
                       "live_chunks": int(args[-1].long().sum())},
             "bytes": nbytes, "ops": ops, "chain_steps": chain_steps,
             "chain_ms": chain_ms,
-            "chain_step_us": chain_ms * 1e3 / max(chain_steps, 1)}
+            "chain_step_us": chain_ms * 1e3 / max(chain_steps, 1),
+            "floor_ms": floor_ms}
+
+
+SCAN_LANES = (132, 528, 1056, 2112, 4096)
+
+
+def lane_scan(fn, args, shared: int, device, flush, reps: int = 20):
+    """The call cut to its first n lanes, for n in ``SCAN_LANES`` (132 =
+    one a SM): ms of each cut.  Flat in n: the longest lane's chain holds
+    the call; growing with n: the card's issue slots do."""
+    B = int(args[-1].shape[0])
+    out = []
+    for n in SCAN_LANES:
+        if n > B:
+            break
+        cut = list(args[:shared]) + [a[:n].contiguous() for a in
+                                      args[shared:]]
+        out.append({"lanes": n, "ms": time_call(fn, cut, reps, device, flush),
+                     "chain_steps": int(cut[-1].max()),
+                     "live_chunks": int(cut[-1].long().sum())})
+    return out
 
 
 def main() -> int:
@@ -972,6 +1035,8 @@ def run() -> int:
                 f"what-if prices differ between the kernels and {name}")
         require(all(np.all(np.isfinite(a)) for a in w_card), "what-if nan")
     log("[5] kernels == plain on the card == CPU")
+    for row in what_if_latency(bk, device):
+        log(f"[5] latency {json.dumps(row)}")
 
     log("[6] timing at the main path's shapes")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
@@ -989,6 +1054,14 @@ def run() -> int:
     for k in records:
         require(k["max_abs_err"] == 0.0, f"{k['name']} disagrees at the "
                 f"main path's shapes: {k['max_abs_err']}")
+        log(f"[6] {k['name']} ({k['layout']}): {k['ms']:.4f} ms, chain "
+            f"{k['chain_ms']:.4f} ms over {k['chain_steps']} steps "
+            f"({k['chain_step_us']:.4f} us a step), no chunks "
+            f"{k['floor_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.3g} ms, plain {k['plain_ms']:.2f} ms")
+    scan = lane_scan(ev.event_finish_fused, big_f, 1, device, flush)
+    records[1]["lane_scan"] = scan
+    log(f"[6] event_finish_fused lane scan {json.dumps(scan)}")
     log(f"[6] {time.perf_counter() - t_start:.1f} s so far")
 
     log("[7] model kernels vs plain versions, synthetic inputs")

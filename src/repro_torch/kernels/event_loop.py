@@ -17,6 +17,11 @@ kernel (``csrc/event_loop.cu``) for tensors on a CUDA device; it never falls
 back from one to the other.  ``launches`` on each wrapper counts the kernel
 launches, so a run can show that it went through the kernel.
 
+The kernels run one warp a lane and take the argmin as two integer
+minima over order-preserving keys of ``fin``; :func:`warp_argmin` spells
+that out in torch integer and float ops, so the CPU tests hold its
+arithmetic to ``torch.argmin`` and ``jnp.argmin``.
+
 Rounding: the reference contracts ``h_eff + eff*speed`` and the grid
 interpolation ``lo + (pos - i)*(hi - lo)`` into fused multiply-adds; the
 plain versions write both as ``torch.addcmul`` and the kernels as
@@ -34,6 +39,41 @@ from .common import launch
 MAX_P = 128
 
 _SOURCE = "event_loop.cu"
+
+
+# ---------------------------------------------------------------------------
+# the kernels' argmin
+# ---------------------------------------------------------------------------
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' order-preserving keys of float32 ``x`` (uint32
+    values in int64): ``u = bits(x + 0.0)``, ``u ^ 0xffffffff`` for a set
+    sign bit, else ``u ^ 0x80000000``.  Keys order as the floats do, with
+    -0.0 and +0.0 equal."""
+    u = (x.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
+    u = u & 0xFFFFFFFF
+    return u ^ torch.where(u >> 31 == 1, 0xFFFFFFFF, 0x80000000)
+
+
+def warp_argmin(fin: torch.Tensor) -> torch.Tensor:
+    """argmin over each row of ``fin`` (B, P) as the kernels compute it:
+    thread t holds PEs t + 32 r (+inf past P) and keeps its own least
+    value with a strict < in slot order; the least of the 32 threads' keys,
+    then the least PE index among the threads that hold it."""
+    B, P = fin.shape
+    R = -(-P // 32)
+    x = torch.full((B, 32 * R), float("inf"), dtype=torch.float32)
+    x[:, :P] = fin
+    regs = x.view(B, R, 32)                    # regs[:, r, t]: PE t + 32 r
+    t = torch.arange(32, dtype=torch.int64)
+    v, idx = regs[:, 0], t.expand(B, 32)
+    for r in range(1, R):
+        p = regs[:, r] < v
+        v = torch.where(p, regs[:, r], v)
+        idx = torch.where(p, t + 32 * r, idx)
+    key = order_keys(v)
+    least = key.min(dim=1, keepdim=True).values
+    return torch.where(key == least, idx, 0xFFFFFFFF).min(dim=1).values
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,12 @@ from repro_torch.kernels import rmsnorm as RMS  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.sim import get_application  # noqa: E402
 
-CASES = [(8, 256, 12), (20, 1024, 100), (56, 4096, 300), (128, 4096, 1000)]
+# (P, K, B): every count of registers a thread (ceil(P/32) = 1 .. 4), the
+# edges P = 1 and 33, B not a multiple of the 4 lanes a block, and K = 250
+# (rows of no whole number of 32-chunk segments)
+CASES = [(8, 256, 12), (20, 1024, 100), (56, 4096, 300), (128, 4096, 1000),
+         (1, 256, 70), (16, 1024, 130), (17, 512, 67), (33, 1024, 101),
+         (80, 512, 66), (8, 250, 133)]
 
 
 @pytest.fixture
