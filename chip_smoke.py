@@ -48,7 +48,20 @@ kernels, and prints one JSON line per result.  Phases, in order:
     the SSD scan), with the rate it reaches (``tflops``: the function's
     operations over the kernel's time) and, for the SSD scan, each of its
     three bf16 kernels' share of the call (``parts_ms``, from
-    ``torch.profiler``).
+    ``torch.profiler``);
+12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
+    T=500, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
+    lanes, 33,000 decisions) on the kernels, the sweep, the lockstep replay
+    and the SimPolicy pricing each on a backend of its own: the walls, the
+    replay's ``PathTimes`` split, the host's decide and learn remainder, the
+    pricing calls and the Fig. 5 degradation of every lane; the fused kernel
+    timed at the replay's largest call; replay steps under
+    ``torch.profiler`` (the card's busy time and launches a step, its idle
+    share); the same grid with two learned lanes
+    at T = 50 on the kernels and on the plain event core, and at T = 4 on
+    the card and on the CPU, histories, totals and policy states bit-equal;
+    and SimPolicy's decision equal to the exhaustive Oracle's on the
+    noise-free ``tc``/``epyc`` loop.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -859,6 +872,232 @@ def model_kernel_records(device, flush, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the selection-policy layer (selector replays, the Fig. 5 cell)
+# ---------------------------------------------------------------------------
+
+REPLAY_CELL = ("mandelbrot", "epyc")
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 50, 4
+LEARNED_HIDDEN = 32
+
+
+def learned_state(seed: int = 0):
+    """A learned policy state over random weights from a seeded numpy
+    generator (the trainer's layout: two GELU layers, one output a
+    portfolio algorithm)."""
+    from repro_torch.core import N_ALGORITHMS, N_FEATURES, make_learned_state
+    rng = np.random.default_rng(seed)
+    H = LEARNED_HIDDEN
+    shapes = {"w0": (N_FEATURES, H), "b0": (H,), "w1": (H, H), "b1": (H,),
+              "w2": (H, N_ALGORITHMS), "b2": (N_ALGORITHMS,)}
+    return make_learned_state({k: (0.3 * rng.standard_normal(sh)).astype(
+        np.float32) for k, sh in shapes.items()})
+
+
+def policy_states(run):
+    """Each loop's policy state (``state_dict``, or the expert ladder's
+    position where there is none), as JSON text."""
+    out = {}
+    for nm in run.history:
+        policy = run.service.policy(nm)
+        state = policy.state_dict()
+        if state is None:
+            expert = getattr(policy, "_expert", policy)
+            state = {"current": getattr(expert, "current", None)}
+        out[nm] = json.dumps(state, sort_keys=True)
+    return out
+
+
+def same_campaign(a, b) -> bool:
+    """Two campaign results of one cell: oracle, degradation, and every
+    lane's history, total and policy states, bit for bit."""
+    return (a.oracle_total == b.oracle_total
+            and a.degradation() == b.degradation()
+            and a.selector_runs.keys() == b.selector_runs.keys()
+            and all(r.history == b.selector_runs[k].history
+                    and r.total == b.selector_runs[k].total
+                    and policy_states(r) == policy_states(b.selector_runs[k])
+                    for k, r in a.selector_runs.items()))
+
+
+def whatifs(result):
+    """The distinct ``LoopWhatIf`` pricers of a campaign's SIM lanes."""
+    seen = {}
+    for run in result.selector_runs.values():
+        for nm in run.history:
+            sim = getattr(run.service.policy(nm), "simulator", None)
+            if sim is not None:
+                seen[id(sim)] = sim
+    return list(seen.values())
+
+
+def fused_of(bk):
+    return [a for n, a in bk.core_calls if n == "event_finish_fused"]
+
+
+def replay_campaign(device):
+    """The T = 500 campaign on the kernels: sweep, replay and pricing each
+    on its own backend, so each path's launches and times read apart."""
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.sim import SIM_SELECTOR_GRID, run_campaign
+    sweep_bk, replay_bk, price_bk = (TorchBatchedBackend() for _ in range(3))
+    for b in (sweep_bk, replay_bk, price_bk):
+        b.core_calls = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_campaign([REPLAY_CELL], T=REPLAY_T, reps=3,
+                       selectors=SIM_SELECTOR_GRID, backend=sweep_bk,
+                       selector_backend=replay_bk, sim_backend=price_bk)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()["event_finish_fused"]
+    cr = res[REPLAY_CELL]
+    calls = {"sweep": fused_of(sweep_bk), "replay": fused_of(replay_bk),
+             "pricing": fused_of(price_bk)}
+    for b in (sweep_bk, replay_bk, price_bk):
+        b.core_calls = None
+    require(launches == sum(len(c) for c in calls.values()),
+            f"event_finish_fused launches {launches} != the core calls "
+            f"{ {k: len(c) for k, c in calls.items()} }")
+    require(len(calls["replay"]) > 0 and len(calls["pricing"]) > 0,
+            "the replay or the pricing never launched event_finish_fused")
+    require(len(cr.selector_runs) == 22, f"{len(cr.selector_runs)} lanes")
+    n_loops = len(cr.sweep.runs[(0, "default")].times[0])
+    for key, run in cr.selector_runs.items():
+        require(np.isfinite(run.total) and run.total > 0, f"{key} total")
+        require(sum(len(h) for h in run.history.values())
+                == REPLAY_T * n_loops, f"{key}: trace length")
+    deg = cr.degradation()
+    require(all(np.isfinite(v) for v in deg.values()), "degradation nan")
+    pricers = whatifs(cr)
+    pricing = {"pricers": len(pricers),
+               "calls": sum(w.calls for w in pricers),
+               "misses": sum(w.misses for w in pricers),
+               "wall_s": sum(w.wall_s for w in pricers)}
+    rt = replay_bk.times
+    record = {
+        "phase": "replay", "cell": "/".join(REPLAY_CELL), "T": REPLAY_T,
+        "reps": 3, "lanes": len(cr.selector_runs),
+        "decisions": sum(len(h) for r in cr.selector_runs.values()
+                         for h in r.history.values()),
+        "wall_s": wall, "sweep_s": cr.walls["sweep_s"],
+        "replay_s": cr.walls["replay_s"],
+        "lockstep_calls": rt.lockstep_calls,
+        "fused_launches": {k: len(c) for k, c in calls.items()},
+        "fused_largest_B": {k: max((int(a[-1].shape[0]) for a in c),
+                                   default=0) for k, c in calls.items()},
+        "replay_path_times": dict(vars(rt)),
+        "pricing": pricing,
+        "pricing_path_times": dict(vars(price_bk.times)),
+        "decide_learn_s": cr.walls["replay_s"] - rt.lockstep_s
+        - pricing["wall_s"],
+        "oracle_total": cr.oracle_total,
+        "degradation": {"/".join(str(x) for x in k): v
+                        for k, v in deg.items()}}
+    return record, calls
+
+
+def profile_replay(device, warm: int = 8, steps: int = 4):
+    """Steps ``warm`` to ``warm + steps - 1`` of the T = 500 replay (SIM
+    grid, both chunk modes, pricing on the replay's backend) on the host
+    clock, then the next ``steps`` under ``torch.profiler``: the card's busy
+    time (its kernels' device time) a step, its kernel launches and the
+    kernels that take the most.  The idle share holds the busy time against
+    the untraced step (tracing stretches the host, not the kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.sim import (CHUNK_MODES, SIM_SELECTOR_GRID, CellSpec,
+                                 ReplayBatch)
+    lanes = [CellSpec(*REPLAY_CELL, sel, mode, reward)
+             for mode in CHUNK_MODES for sel, reward in SIM_SELECTOR_GRID]
+    rb = ReplayBatch(lanes, T=REPLAY_T, backend=TorchBatchedBackend())
+    for t in range(warm):
+        rb.step(t)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for t in range(warm, warm + steps):
+        rb.step(t)
+    torch.cuda.synchronize(device)
+    step_s = (time.perf_counter() - t0) / steps
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(warm + steps, warm + 2 * steps):
+            rb.step(t)
+        torch.cuda.synchronize(device)
+    traced_s = (time.perf_counter() - t0) / steps
+    kernels_us = sorted(((device_us(e), e.key, e.count)
+                         for e in prof.key_averages()
+                         if device_us(e) > 0 and not e.key.startswith("aten")),
+                        reverse=True)
+    busy_ms = sum(us for us, _, _ in kernels_us) / steps / 1e3
+    return {"step_s": step_s, "traced_step_s": traced_s,
+            "busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / 1e3 / step_s,
+            "launches_per_step": sum(n for _, _, n in kernels_us) / steps,
+            "top": [(k[:60], us / steps / 1e3, n / steps)
+                    for us, k, n in kernels_us[:8]]}
+
+
+def replay_checks(device):
+    """The grid with two learned lanes: kernels against the plain event core
+    on the card at T = 50, the card against the CPU at T = 4, bit-equal;
+    returns what was compared."""
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.core import set_default_state
+    from repro_torch.sim import SIM_SELECTOR_GRID, run_campaign
+    grid = SIM_SELECTOR_GRID + [("Learned", "LT"), ("LearnedHybrid", "LT")]
+    set_default_state(learned_state())
+    try:
+        out = {}
+        for label, T, a, b in (
+                ("kernels == plain", REPLAY_CHECK_T, TorchBatchedBackend(),
+                 TorchBatchedBackend(event_core="plain")),
+                ("card == CPU", REPLAY_CPU_T, TorchBatchedBackend(),
+                 TorchBatchedBackend(device="cpu"))):
+            t0 = time.perf_counter()
+            ra, rb = (run_campaign([REPLAY_CELL], T=T, reps=3,
+                                   selectors=grid, backend=bk)[REPLAY_CELL]
+                      for bk in (a, b))
+            require(same_campaign(ra, rb), f"replay {label} at T = {T}: "
+                    f"histories, totals or policy states differ")
+            learned = ra.selector_runs[("Learned", "default", "LT")]
+            require(learned.service.policy("L0").trained,
+                    "the learned lane ran without its weights")
+            out[label] = {"T": T, "lanes": len(ra.selector_runs),
+                          "decisions": sum(
+                              len(h) for r in ra.selector_runs.values()
+                              for h in r.history.values()),
+                          "wall_s": time.perf_counter() - t0}
+    finally:
+        set_default_state(None)
+    return out
+
+
+def simpolicy_oracle(backend):
+    """SimPolicy's decision on the noise-free ``tc``/``epyc`` loop against
+    the exhaustive Oracle (every candidate on the noise-free machine, seeds
+    of its own)."""
+    from repro_torch.core import OraclePolicy, SimPolicy
+    from repro_torch.sim import (InstanceSpec, LoopWhatIf, get_application,
+                                 get_system, noise_free)
+    profile = get_application("tc").loops(0)[0]
+    system = get_system("epyc")
+    whatif = LoopWhatIf(system, backend=backend)
+    whatif.set_context(profile, 0)
+    cands = whatif.candidates()
+    specs = [InstanceSpec(profile_id=0, alg=c.alg,
+                          chunk_param=c.chunk_param or 0, seed=(7, i))
+             for i, c in enumerate(cands)]
+    times = backend.run_batch([profile], noise_free(system), specs).loop_time
+    best = int(np.argmin(times))
+    oracle = OraclePolicy(lambda t: cands[best].alg).decide()
+    d = SimPolicy(whatif, reward="LT").decide()
+    gap = np.partition(times, 1)
+    return {"sim": [d.action, d.chunk_param, d.phase],
+            "oracle": [oracle.action, cands[best].chunk_param],
+            "runner_up_gap": float((gap[1] - gap[0]) / gap[0])}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1092,7 +1331,43 @@ def run() -> int:
             f"plain {k['plain_ms']:.4f} ms; library {k['library_ms']})"
             + (f"; kernels {json.dumps(k['parts_ms'])}"
                if "parts_ms" in k else ""))
-    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[11] {time.perf_counter() - t_start:.1f} s so far")
+
+    log("[12] selection-policy layer: run_campaign mandelbrot/epyc, T = 500, "
+        "SIM_SELECTOR_GRID, both chunk modes, on the kernels")
+    replay, replay_calls = replay_campaign(device)
+    log(json.dumps(replay))
+    fused = records[1]
+    fused["launches_by_path"] = {"sweep [4]": fused["launches"],
+                                 **{f"{k} [12]": len(c)
+                                    for k, c in replay_calls.items()}}
+    fused["launches"] = sum(fused["launches_by_path"].values())
+    fused["largest_B_by_path"] = {
+        "sweep [4]": fused["shape"]["B"],
+        **{f"{k} [12]": b for k, b in replay["fused_largest_B"].items()}}
+    big_r = max(replay_calls["replay"],
+                key=lambda a: int(a[-1].long().sum()))
+    at_replay = kernel_record(
+        "event_finish_fused", len(replay_calls["replay"]), big_r, 1,
+        ev.event_finish_fused, ev.event_finish_fused_ref, fused_bound,
+        device, flush, reps=50, plain_reps=5)
+    require(at_replay["max_abs_err"] == 0.0, "event_finish_fused disagrees "
+            "at the replay's largest call")
+    fused["at_replay_call"] = {k: at_replay[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "shape", "chain_steps",
+        "chain_ms", "floor_ms")}
+    log(f"[12] event_finish_fused at the replay's largest call "
+        f"{json.dumps(fused['at_replay_call'])}")
+    log(f"[12] replay steps 8-15 (4 timed, 4 traced): "
+        f"{json.dumps(profile_replay(device))}")
+    checks = replay_checks(device)
+    log(f"[12] bit-equal, with Learned and LearnedHybrid lanes: "
+        f"{json.dumps(checks)}")
+    so = simpolicy_oracle(TorchBatchedBackend())
+    log(f"[12] SimPolicy vs Oracle, tc/epyc noise-free: {json.dumps(so)}")
+    require(so["sim"] == so["oracle"] + ["exploit"],
+            f"SimPolicy's decision is not the Oracle's: {so}")
+    log(f"[12] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records}), flush=True)
     print(json.dumps({"ok": True, "device": {

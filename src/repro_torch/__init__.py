@@ -9,10 +9,13 @@ none; the CPU is used only when a caller passes ``device="cpu"``.
 from .device import KERNEL_CAPABILITY, resolve_device
 from .sim.backends import get_backend, register_backend
 from .sim.backends.torch_batched import TorchBatchedBackend
-from .sim.campaign import PortfolioSweep, run_fixed, sweep_portfolio
+from .sim.campaign import (CellSpec, PortfolioSweep, ReplayBatch,
+                           run_campaign, run_fixed, run_selector,
+                           sweep_portfolio)
 
 __all__ = [
     "KERNEL_CAPABILITY", "resolve_device", "get_backend",
     "register_backend", "TorchBatchedBackend", "PortfolioSweep",
-    "run_fixed", "sweep_portfolio",
+    "run_fixed", "sweep_portfolio", "CellSpec", "ReplayBatch",
+    "run_campaign", "run_selector",
 ]

@@ -1,13 +1,22 @@
 """repro_torch.sim — the batched discrete-event simulator of the paper's
-portfolio sweep, on the card."""
+experiment campaign, on the card: the portfolio sweep, the lockstep
+selector replays, candidate pricing for simulation-assisted selection and
+transition logging."""
 
 from .backends import (EVENT_CAP, BatchResult, InstancePerturb, InstanceSpec,
                        LockstepRequest, SimBackend, backend_names,
                        get_backend, register_backend)
-from .campaign import (CHUNK_MODES, FixedRun, PortfolioSweep,
-                       chunk_param_for, run_fixed, sweep_portfolio)
+from .campaign import (CHUNK_MODES, EXTENDED_SELECTOR_GRID, SELECTOR_GRID,
+                       SIM_SELECTOR_GRID, CampaignResult, CellSpec, FixedRun,
+                       PortfolioSweep, ReplayBatch, SelectorRun,
+                       chunk_param_for, run_campaign, run_campaign_cell,
+                       run_fixed, run_selector, run_selector_sequential,
+                       sweep_portfolio)
 from .systems import (HETERO_SYSTEMS, SYSTEMS, SystemModel, get_system,
                       hetero_system)
+from .translog import (TRANSLOG_VERSION, TransitionLogger, load_shards,
+                       load_translog, save_translog)
+from .whatif import LoopWhatIf, noise_free
 from .workloads import (APPLICATIONS, GRID, Application, LoopProfile,
                         ProfileStack, get_application, profile_digest,
                         stack_prefix_grids)
@@ -15,9 +24,14 @@ from .workloads import (APPLICATIONS, GRID, Application, LoopProfile,
 __all__ = [
     "EVENT_CAP", "BatchResult", "InstancePerturb", "InstanceSpec",
     "LockstepRequest", "SimBackend", "backend_names", "get_backend",
-    "register_backend", "CHUNK_MODES", "FixedRun", "PortfolioSweep",
-    "chunk_param_for", "run_fixed", "sweep_portfolio", "HETERO_SYSTEMS",
-    "SYSTEMS", "SystemModel", "get_system", "hetero_system", "APPLICATIONS",
-    "GRID", "Application", "LoopProfile", "ProfileStack", "get_application",
-    "profile_digest", "stack_prefix_grids",
+    "register_backend", "CHUNK_MODES", "SELECTOR_GRID",
+    "EXTENDED_SELECTOR_GRID", "SIM_SELECTOR_GRID", "CampaignResult",
+    "CellSpec", "FixedRun", "PortfolioSweep", "ReplayBatch", "SelectorRun",
+    "chunk_param_for", "run_campaign", "run_campaign_cell", "run_fixed",
+    "run_selector", "run_selector_sequential", "sweep_portfolio",
+    "HETERO_SYSTEMS", "SYSTEMS", "SystemModel", "get_system",
+    "hetero_system", "TRANSLOG_VERSION", "TransitionLogger", "load_shards",
+    "load_translog", "save_translog", "LoopWhatIf", "noise_free",
+    "APPLICATIONS", "GRID", "Application", "LoopProfile", "ProfileStack",
+    "get_application", "profile_digest", "stack_prefix_grids",
 ]

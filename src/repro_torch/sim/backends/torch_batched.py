@@ -119,6 +119,8 @@ class PathTimes:
     draws_ms: float = 0.0     # threefry jitter / speed / noise draws
     core_ms: float = 0.0      # the event-core calls
     dispatches: int = 0
+    lockstep_s: float = 0.0   # host clock around whole run_lockstep calls
+    lockstep_calls: int = 0
 
     def reset(self) -> None:
         for f in fields(self):
@@ -461,6 +463,7 @@ class TorchBatchedBackend(SimBackend):
         sequential replays because each lane's noise depends only on its
         fold seed, never on batch order or size.
         """
+        t_call = time.perf_counter()
         B = len(requests)
         lt = np.zeros(B)
         lib = np.zeros(B)
@@ -472,9 +475,11 @@ class TorchBatchedBackend(SimBackend):
             profile = profiles[q.profile_id]
             if q.alg == 0 or needs_closed_form(q.alg, profile.N,
                                                q.chunk_param):
+                t0 = time.perf_counter()
                 r = run_closed_form(profile, system, q.alg, q.chunk_param,
                                     q.rng, perturb=q.perturb)
                 lt[i], lib[i], nc[i] = r.loop_time, r.lib, r.n_chunks
+                self.times.closed_s += time.perf_counter() - t0
             else:
                 seed = (int(q.rng.integers(0, 2**31 - 1)),)
                 specs.append(InstanceSpec(profile_id=q.profile_id, alg=q.alg,
@@ -484,6 +489,8 @@ class TorchBatchedBackend(SimBackend):
         if specs:
             mks, libs, _, counts = self._run_events(profiles, system, specs)
             lt[event_ids], lib[event_ids], nc[event_ids] = mks, libs, counts
+        self.times.lockstep_s += time.perf_counter() - t_call
+        self.times.lockstep_calls += 1
         return BatchResult(loop_time=lt, lib=lib, n_chunks=nc)
 
     # ---- single instance (selector path) ----------------------------------
@@ -506,8 +513,13 @@ class TorchBatchedBackend(SimBackend):
         if record_chunks:
             _, sz, _, _ = self._event_rows(spec, profile, system)
             sizes = [int(c) for c in sz]
-        return InstanceResult(loop_time=float(mk[0]), finish=fin[0],
-                              n_chunks=int(counts[0]), chunk_sizes=sizes)
+        res = InstanceResult(loop_time=float(mk[0]), finish=fin[0],
+                             n_chunks=int(counts[0]), chunk_sizes=sizes)
+        # the batch's float32 lib, as run_batch and run_lockstep report it
+        # (InstanceResult would recompute it in float64 from ``finish``), so
+        # a sequential selector replay equals the lockstep one bit for bit
+        res.lib = float(lib[0])
+        return res
 
     # ---- serving what-if ---------------------------------------------------
 

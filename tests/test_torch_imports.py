@@ -37,6 +37,16 @@ SERVING_SLICE = {
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
     "repro_torch.convert", "repro_torch.core.metrics",
 }
+#: the selection-policy slice's modules
+POLICY_SLICE = {
+    "repro_torch.core", "repro_torch.core.rewards", "repro_torch.core.api",
+    "repro_torch.core.agents", "repro_torch.core.fuzzy",
+    "repro_torch.core.drift", "repro_torch.core.selectors",
+    "repro_torch.core.simpolicy", "repro_torch.core.learned",
+    "repro_torch.core.persistence", "repro_torch.core.service",
+    "repro_torch.sim", "repro_torch.sim.whatif", "repro_torch.sim.translog",
+    "repro_torch.sim.campaign",
+}
 
 
 def _env():
@@ -58,8 +68,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, env=_env(), timeout=240)
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["n"] == len(MODULES) >= 36
+    assert rec["n"] == len(MODULES) >= 49
     assert SERVING_SLICE <= set(MODULES)
+    assert POLICY_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 
