@@ -61,7 +61,22 @@ kernels, and prints one JSON line per result.  Phases, in order:
     at T = 50 on the kernels and on the plain event core, and at T = 4 on
     the card and on the CPU, histories, totals and policy states bit-equal;
     and SimPolicy's decision equal to the exhaustive Oracle's on the
-    noise-free ``tc``/``epyc`` loop.
+    noise-free ``tc``/``epyc`` loop;
+13. perturbed and heterogeneous machines: (a) the ``mandelbrot`` portfolio
+    at T = 20 on ``epyc`` and ``epyc_het`` under each kind of perturbation
+    (a PE slowdown, four failed PEs, a noise burst, a ``cov`` workload
+    drift) on the kernels, on the plain event core on the card and on the
+    CPU, loop times, ``lib`` and chunk counts bit-equal, with the fused
+    calls' largest B and K and the lanes forced whole; (b) the Fig. 5 cell
+    ``mandelbrot``/``epyc`` at T = 500 with 20 % of the PEs 8x slower from
+    step 250: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over both
+    chunk modes (26 lanes, 39,000 decisions), its walls, ``PathTimes``,
+    pricing and launches, and every lane's total beside its clean twin's
+    from [12]; steps 8-15 of that grid perturbed from step 0 under
+    ``torch.profiler``; both event-loop kernels timed at the perturbed
+    replay's largest call; (c) that grid at T = 4 with the onset at step 2 on the card and on the
+    CPU, bit-equal; (d) ``simulate_loop`` on the ``event_finish`` kernel for
+    algorithms 1, 2, 3, 4 and 6, the card equal to the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -876,6 +891,8 @@ def model_kernel_records(device, flush, launches):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
+#: the plain event core's check runs at T = 50: its per-chunk torch loop
+#: makes each pricing miss a fraction of a second
 REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 50, 4
 LEARNED_HIDDEN = 32
 
@@ -919,10 +936,10 @@ def same_campaign(a, b) -> bool:
                     for k, r in a.selector_runs.items()))
 
 
-def whatifs(result):
-    """The distinct ``LoopWhatIf`` pricers of a campaign's SIM lanes."""
+def whatifs(runs):
+    """The distinct ``LoopWhatIf`` pricers of the SIM lanes of ``runs``."""
     seen = {}
-    for run in result.selector_runs.values():
+    for run in runs:
         for nm in run.history:
             sim = getattr(run.service.policy(nm), "simulator", None)
             if sim is not None:
@@ -968,7 +985,7 @@ def replay_campaign(device):
                 == REPLAY_T * n_loops, f"{key}: trace length")
     deg = cr.degradation()
     require(all(np.isfinite(v) for v in deg.values()), "degradation nan")
-    pricers = whatifs(cr)
+    pricers = whatifs(cr.selector_runs.values())
     pricing = {"pricers": len(pricers),
                "calls": sum(w.calls for w in pricers),
                "misses": sum(w.misses for w in pricers),
@@ -993,22 +1010,25 @@ def replay_campaign(device):
         "oracle_total": cr.oracle_total,
         "degradation": {"/".join(str(x) for x in k): v
                         for k, v in deg.items()}}
-    return record, calls
+    totals = {k: r.total for k, r in cr.selector_runs.items()}
+    return record, calls, totals
 
 
-def profile_replay(device, warm: int = 8, steps: int = 4):
-    """Steps ``warm`` to ``warm + steps - 1`` of the T = 500 replay (SIM
-    grid, both chunk modes, pricing on the replay's backend) on the host
-    clock, then the next ``steps`` under ``torch.profiler``: the card's busy
-    time (its kernels' device time) a step, its kernel launches and the
-    kernels that take the most.  The idle share holds the busy time against
-    the untraced step (tracing stretches the host, not the kernels)."""
+def profile_replay(device, warm: int = 8, steps: int = 4, lanes=None):
+    """Steps ``warm`` to ``warm + steps - 1`` of the T = 500 replay of
+    ``lanes`` (default: the SIM grid, both chunk modes; pricing on the
+    replay's backend) on the host clock, then the next ``steps`` under
+    ``torch.profiler``: the card's busy time (its kernels' device time) a
+    step, its kernel launches and the kernels that take the most.  The idle
+    share holds the busy time against the untraced step (tracing stretches
+    the host, not the kernels)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import TorchBatchedBackend
     from repro_torch.sim import (CHUNK_MODES, SIM_SELECTOR_GRID, CellSpec,
                                  ReplayBatch)
-    lanes = [CellSpec(*REPLAY_CELL, sel, mode, reward)
-             for mode in CHUNK_MODES for sel, reward in SIM_SELECTOR_GRID]
+    if lanes is None:
+        lanes = [CellSpec(*REPLAY_CELL, sel, mode, reward)
+                 for mode in CHUNK_MODES for sel, reward in SIM_SELECTOR_GRID]
     rb = ReplayBatch(lanes, T=REPLAY_T, backend=TorchBatchedBackend())
     for t in range(warm):
         rb.step(t)
@@ -1095,6 +1115,295 @@ def simpolicy_oracle(backend):
     return {"sim": [d.action, d.chunk_param, d.phase],
             "oracle": [oracle.action, cands[best].chunk_param],
             "runner_up_gap": float((gap[1] - gap[0]) / gap[0])}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: perturbed and heterogeneous machines on the kernels
+# ---------------------------------------------------------------------------
+
+PERTURB_APP, PERTURB_SYSTEMS, PERTURB_SWEEP_T = "mandelbrot", ("epyc",
+                                                              "epyc_het"), 20
+PERTURB_ONSET, PERTURB_CPU_ONSET = 250, 2
+REACTIVE_LANES = [("ReactiveSim", "LT"), ("AwareSim", "LT")]
+SIMULATE_ALGS = (1, 2, 3, 4, 6)
+
+
+def perturb_kinds(P: int):
+    """One ``PerturbationSpec`` of each kind, active from step 0."""
+    from repro_torch.sim.perturb import (PEFailure, PerturbationSpec,
+                                         drift_spec, noise_burst_spec,
+                                         pe_slowdown_spec)
+    return {"pe_slowdown": pe_slowdown_spec(P, 0.2, 8.0),
+            "pe_failure": PerturbationSpec(failures=(
+                PEFailure(pes=(3, P // 3, 2 * P // 3, P - 1)),)),
+            "noise_burst": noise_burst_spec(6.0),
+            "drift_cov": drift_spec("cov", factor=1.8)}
+
+
+def perturbed_sweep(spec, system, backend, T: int):
+    """The portfolio (12 algorithms x both chunk modes) on every loop of
+    ``PERTURB_APP`` at steps 0 .. T-1 under ``spec`` (its drifted loops,
+    its per-step ``InstancePerturb``), in one ``run_batch``."""
+    from repro_torch.core import N_ALGORITHMS
+    from repro_torch.sim import (CHUNK_MODES, InstanceSpec, chunk_param_for,
+                                 get_application)
+    app = get_application(PERTURB_APP)
+    profiles, specs = [], []
+    for t in range(T):
+        ip = spec.instance_perturb(t, system.P)
+        for li, p in enumerate(spec.loops(app, t)):
+            pid = len(profiles)
+            profiles.append(p)
+            specs += [InstanceSpec(pid, alg, chunk_param_for(mode, p.N,
+                                                             system.P),
+                                   seed=(13, t, li, alg, m), perturb=ip)
+                      for alg in range(N_ALGORITHMS)
+                      for m, mode in enumerate(CHUNK_MODES)]
+    res = backend.run_batch(profiles, system, specs)
+    return res, sum(s.perturb is not None for s in specs)
+
+
+def forced_whole(args) -> int:
+    """Lanes of an event_finish_fused call whose every chunk is forced."""
+    forced, count = args[11], args[12]
+    K = forced.shape[1]
+    live = (torch.arange(K, device=forced.device)[None, :]
+            < count.long()[:, None])
+    return int(((count > 0) & ~((forced < 0) & live).any(dim=1)).sum())
+
+
+def perturbed_sweeps(device):
+    """[13a]: every lane set on the kernels, the plain event core on the
+    card and the CPU, bit-equal; what the kernels were given."""
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.sim import get_system
+    bk, pk, ck = (TorchBatchedBackend(), TorchBatchedBackend(
+        event_core="plain"), TorchBatchedBackend(device="cpu"))
+    bk.core_calls = []
+    rows = []
+    kernels.reset_launch_counts()
+    for sysname in PERTURB_SYSTEMS:
+        system = get_system(sysname)
+        for kind, spec in perturb_kinds(system.P).items():
+            t0 = time.perf_counter()
+            n0 = len(bk.core_calls)
+            got, n_pert = perturbed_sweep(spec, system, bk, PERTURB_SWEEP_T)
+            calls = bk.core_calls[n0:]
+            t1 = time.perf_counter()
+            for label, other in (("the plain event core", pk),
+                                 ("the CPU", ck)):
+                want, _ = perturbed_sweep(spec, system, other,
+                                          PERTURB_SWEEP_T)
+                for f in ("loop_time", "lib", "n_chunks"):
+                    require(np.array_equal(getattr(got, f),
+                                           getattr(want, f)),
+                            f"[13a] {sysname}/{kind}: {f} differs between "
+                            f"the kernels and {label}")
+            require(np.all(np.isfinite(got.loop_time))
+                    and np.all(got.loop_time > 0), f"[13a] {kind} times")
+            fused = [a for n, a in calls if n == "event_finish_fused"]
+            rows.append({
+                "system": sysname, "perturb": kind,
+                "instances": len(got.loop_time),
+                "perturbed_instances": n_pert,
+                "fused_calls": len(fused),
+                "largest_B": max(int(a[-1].shape[0]) for a in fused),
+                "largest_K": max(int(a[3].shape[1]) for a in fused),
+                "lanes_forced_whole": sum(forced_whole(a) for a in fused),
+                "largest_speed": max(float(a[7].max()) for a in fused),
+                "kernels_s": t1 - t0,
+                "checks_s": time.perf_counter() - t1})
+    launches = kernels.launch_counts()["event_finish_fused"]
+    n_fused = sum(r["fused_calls"] for r in rows)
+    bk.core_calls = None
+    require(launches == n_fused > 0, f"[13a] {launches} fused launches, "
+            f"{n_fused} core calls")
+    return rows, launches
+
+
+def replay_lanes(onset: int):
+    from repro_torch.sim import CHUNK_MODES, SIM_SELECTOR_GRID, CellSpec
+    from repro_torch.sim.perturb import pe_slowdown_spec
+    spec = pe_slowdown_spec(128, frac=0.2, factor=8.0, t0=onset)
+    return [CellSpec(*REPLAY_CELL, sel, mode, reward, perturb=spec)
+            for mode in CHUNK_MODES
+            for sel, reward in SIM_SELECTOR_GRID + REACTIVE_LANES]
+
+
+def perturbed_replay(device, clean_totals):
+    """[13b]: the perturbed Fig. 5 cell at T = 500 on the kernels, replay
+    and pricing each on a backend of its own; returns the record and the
+    perturbed steps' fused calls."""
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.sim import ReplayBatch
+    lanes = replay_lanes(PERTURB_ONSET)
+    replay_bk, price_bk = TorchBatchedBackend(), TorchBatchedBackend()
+    for b in (replay_bk, price_bk):
+        b.core_calls = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rb = ReplayBatch(lanes, T=REPLAY_T, backend=replay_bk,
+                     sim_backend=price_bk)
+    marks = {}
+    for t in range(REPLAY_T):
+        if t == PERTURB_ONSET:
+            torch.cuda.synchronize(device)
+            marks = {"wall_s": time.perf_counter() - t0,
+                     "replay": len(replay_bk.core_calls),
+                     "pricing": len(price_bk.core_calls)}
+        rb.step(t)
+    runs = [lane.result() for lane in rb.lanes]
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()["event_finish_fused"]
+    calls = {"replay": fused_of(replay_bk), "pricing": fused_of(price_bk)}
+    after = (replay_bk.core_calls[marks["replay"]:]
+             + price_bk.core_calls[marks["pricing"]:])
+    perturbed = [a for n, a in after if n == "event_finish_fused"]
+    for b in (replay_bk, price_bk):
+        b.core_calls = None
+    require(launches == sum(len(c) for c in calls.values()),
+            f"[13b] {launches} fused launches != the core calls")
+    require(len(runs) == 26, f"[13b] {len(runs)} lanes")
+    n_loops = len(runs[0].history)
+    lanes_out = {}
+    for spec, run in zip(lanes, runs):
+        require(np.isfinite(run.total) and run.total > 0,
+                f"[13b] {spec.key} total")
+        require(sum(len(h) for h in run.history.values())
+                == REPLAY_T * n_loops, f"[13b] {spec.key}: trace length")
+        after_onset = sum(h[1] for hist in run.history.values()
+                          for h in hist[PERTURB_ONSET:])
+        clean = clean_totals.get(spec.key)
+        lanes_out["/".join(str(x) for x in spec.key)] = {
+            "total": run.total, "clean_total": clean,
+            "ratio": None if clean is None else run.total / clean,
+            "after_onset": after_onset}
+    pricers = whatifs(runs)
+    pricing = {"pricers": len(pricers),
+               "calls": sum(w.calls for w in pricers),
+               "misses": sum(w.misses for w in pricers),
+               "wall_s": sum(w.wall_s for w in pricers)}
+    rt = replay_bk.times
+    record = {
+        "phase": "perturbed replay", "cell": "/".join(REPLAY_CELL),
+        "T": REPLAY_T, "perturb": f"pe_slowdown_spec(128, 0.2, 8.0, "
+        f"t0={PERTURB_ONSET})", "lanes": len(runs),
+        "decisions": sum(len(h) for r in runs for h in r.history.values()),
+        "wall_s": wall, "wall_before_onset_s": marks["wall_s"],
+        "lockstep_calls": rt.lockstep_calls,
+        "fused_launches": {k: len(c) for k, c in calls.items()},
+        "fused_largest_B": {k: max((int(a[-1].shape[0]) for a in c),
+                                   default=0) for k, c in calls.items()},
+        "perturbed_calls": len(perturbed),
+        "perturbed_lanes_forced_whole": sum(forced_whole(a)
+                                            for a in perturbed),
+        "replay_path_times": dict(vars(rt)),
+        "pricing": pricing,
+        "pricing_path_times": dict(vars(price_bk.times)),
+        "decide_learn_s": wall - rt.lockstep_s - pricing["wall_s"],
+        "lanes_by_key": lanes_out}
+    return record, calls, perturbed
+
+
+def perturbed_card_vs_cpu():
+    """[13c]: the perturbed grid at T = 4, onset at step 2, card == CPU."""
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.sim import ReplayBatch
+    t0 = time.perf_counter()
+    lanes = replay_lanes(PERTURB_CPU_ONSET)
+    card, cpu = (ReplayBatch(lanes, T=REPLAY_CPU_T, backend=bk).run()
+                 for bk in (TorchBatchedBackend(),
+                            TorchBatchedBackend(device="cpu")))
+    for spec, a, b in zip(lanes, card, cpu):
+        require(a.history == b.history and a.total == b.total
+                and policy_states(a) == policy_states(b),
+                f"[13c] {spec.key}: card and CPU differ")
+    return {"T": REPLAY_CPU_T, "onset": PERTURB_CPU_ONSET,
+            "lanes": len(lanes), "wall_s": time.perf_counter() - t0}
+
+
+def simulate_loops(device):
+    """[13d]: ``simulate_loop`` on the card against the CPU for the
+    non-adaptive algorithms on the first ``mandelbrot`` loop on ``epyc``;
+    returns the rows and the kernel's calls."""
+    from repro_torch import kernels
+    from repro_torch.sim import get_application, get_system
+    from repro_torch.sim.engine_torch import simulate_loop
+    profile = get_application(PERTURB_APP).loops(0)[0]
+    system = get_system("epyc")
+    grid = np.asarray(profile.prefix_grid, np.float32)
+    jitter = (np.random.default_rng(13).random(system.P)
+              * system.jitter).astype(np.float32)
+    rows = []
+    kernels.reset_launch_counts()
+    for alg in SIMULATE_ALGS:
+        t0 = time.perf_counter()
+        mk, fin, n = simulate_loop(alg, grid, profile.N, system.P, 64,
+                                   h=system.h, jitter=jitter)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        _, fin_cpu, n_cpu = simulate_loop(alg, grid, profile.N, system.P,
+                                          64, h=system.h, jitter=jitter,
+                                          device="cpu")
+        require(n == n_cpu and torch.equal(fin.cpu(), fin_cpu),
+                f"[13d] simulate_loop alg {alg}: card and CPU differ")
+        rows.append({"alg": alg, "chunks": n, "makespan": float(mk),
+                     "wall_ms": wall * 1e3})
+    launches = kernels.launch_counts()["event_finish"]
+    require(launches == len(SIMULATE_ALGS),
+            f"[13d] {launches} event_finish launches")
+    return rows, launches
+
+
+def phase_perturbed(device, flush, records, clean_totals):
+    """Phase [13]; adds the perturbed paths' launches and the kernels'
+    times at the perturbed replay's largest call to ``records``."""
+    from repro_torch.kernels import event_loop as ev
+    t0 = time.perf_counter()
+    rows, sweep_launches = perturbed_sweeps(device)
+    for r in rows:
+        log(f"[13a] {json.dumps(r)}")
+    log(f"[13a] kernels == plain on the card == CPU on {len(rows)} lane "
+        f"sets, {sweep_launches} fused launches, "
+        f"{time.perf_counter() - t0:.1f} s")
+    replay, calls, perturbed = perturbed_replay(device, clean_totals)
+    log(json.dumps(replay))
+    log(f"[13b] perturbed replay from step 0, steps 8-15 (4 timed, 4 "
+        f"traced): {json.dumps(profile_replay(device, lanes=replay_lanes(0)))}")
+    card_cpu = perturbed_card_vs_cpu()
+    log(f"[13c] card == CPU: {json.dumps(card_cpu)}")
+    sim_rows, sim_launches = simulate_loops(device)
+    log(f"[13d] simulate_loop card == CPU: {json.dumps(sim_rows)}")
+
+    big = max(perturbed, key=lambda a: int(a[-1].long().sum()))
+    at_fused = kernel_record(
+        "event_finish_fused", len(perturbed), big, 1, ev.event_finish_fused,
+        ev.event_finish_fused_ref, fused_bound, device, flush, reps=50,
+        plain_reps=3)
+    eff_args = [ev.prefix_costs(*big[:7])] + list(big[7:])
+    at_plain = kernel_record(
+        "event_finish", len(perturbed), eff_args, 0, ev.event_finish,
+        ev.event_finish_ref, plain_bound, device, flush, reps=50,
+        plain_reps=3)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "shape",
+            "chain_steps", "chain_ms", "floor_ms", "max_abs_err")
+    for rec, at in ((records[1], at_fused), (records[0], at_plain)):
+        require(at["max_abs_err"] == 0.0, f"{rec['name']} disagrees at the "
+                f"perturbed replay's largest call")
+        rec["at_perturbed_call"] = {k: at[k] for k in keys}
+        rec["at_perturbed_call"]["lanes_forced_whole"] = forced_whole(big)
+        log(f"[13] {rec['name']} at the perturbed replay's largest call "
+            f"{json.dumps(rec['at_perturbed_call'])}")
+    fused = records[1]
+    fused["launches_by_path"].update({
+        "perturbed sweeps [13a]": sweep_launches,
+        **{f"perturbed {k} [13b]": len(c) for k, c in calls.items()}})
+    fused["launches"] = sum(fused["launches_by_path"].values())
+    plain = records[0]
+    plain["launches_by_path"] = {"what-if [5]": plain["launches"],
+                                 "simulate_loop [13d]": sim_launches}
+    plain["launches"] = sum(plain["launches_by_path"].values())
 
 
 # ---------------------------------------------------------------------------
@@ -1335,7 +1644,7 @@ def run() -> int:
 
     log("[12] selection-policy layer: run_campaign mandelbrot/epyc, T = 500, "
         "SIM_SELECTOR_GRID, both chunk modes, on the kernels")
-    replay, replay_calls = replay_campaign(device)
+    replay, replay_calls, clean_totals = replay_campaign(device)
     log(json.dumps(replay))
     fused = records[1]
     fused["launches_by_path"] = {"sweep [4]": fused["launches"],
@@ -1367,7 +1676,11 @@ def run() -> int:
     log(f"[12] SimPolicy vs Oracle, tc/epyc noise-free: {json.dumps(so)}")
     require(so["sim"] == so["oracle"] + ["exploit"],
             f"SimPolicy's decision is not the Oracle's: {so}")
-    log(f"[12] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[12] {time.perf_counter() - t_start:.1f} s so far")
+
+    log("[13] perturbed and heterogeneous machines on the kernels")
+    phase_perturbed(device, flush, records, clean_totals)
+    log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records}), flush=True)
     print(json.dumps({"ok": True, "device": {

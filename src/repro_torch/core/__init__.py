@@ -8,8 +8,11 @@ the reference; only the simulator they drive touches the card."""
 from .metrics import (coefficient_of_variation, execution_imbalance,
                       percent_load_imbalance)
 from .portfolio import (ADAPTIVE_SET, ALGORITHM_NAMES, DIRECT_CHUNK_SET,
-                        N_ALGORITHMS, apply_chunk_floor, exp_chunk)
-from .sched import SCHEDULABLE, chunk_schedule, staticsteal_schedule
+                        N_ALGORITHMS, ChunkAlgorithm, alg_index,
+                        apply_chunk_floor, exp_chunk, make_algorithm,
+                        make_portfolio)
+from .sched import (ADAPTIVE_SCHEDULABLE, SCHEDULABLE, chunk_schedule,
+                    staticsteal_schedule, weighted_adaptive_schedule)
 from .rewards import (RewardTracker, REWARD_POSITIVE, REWARD_NEUTRAL,
                       REWARD_NEGATIVE, REWARD_TYPES)
 from .api import (Observation, Decision, SelectionPolicy, register_reward,
@@ -41,8 +44,10 @@ from .persistence import (AgentStatsLogger, save_agent, load_agent,
 __all__ = [
     "coefficient_of_variation", "execution_imbalance",
     "percent_load_imbalance", "ADAPTIVE_SET", "ALGORITHM_NAMES",
-    "DIRECT_CHUNK_SET", "N_ALGORITHMS", "apply_chunk_floor",
-    "exp_chunk", "SCHEDULABLE", "chunk_schedule", "staticsteal_schedule",
+    "DIRECT_CHUNK_SET", "N_ALGORITHMS", "ChunkAlgorithm", "alg_index",
+    "apply_chunk_floor", "exp_chunk", "make_algorithm", "make_portfolio",
+    "ADAPTIVE_SCHEDULABLE", "SCHEDULABLE", "chunk_schedule",
+    "staticsteal_schedule", "weighted_adaptive_schedule",
     "RewardTracker", "REWARD_POSITIVE", "REWARD_NEUTRAL", "REWARD_NEGATIVE",
     "REWARD_TYPES",
     # structured selection API

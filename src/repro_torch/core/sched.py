@@ -18,6 +18,10 @@ weights pinned at 1):
 event loop (noise-free, uniform cost) and yields explicit (start, size, pe)
 triples, since stolen chunks are not contiguous in iteration space.
 
+``weighted_adaptive_schedule`` emits the adaptive algorithms' schedules at a
+converged, non-uniform weight vector (perturbed or heterogeneous PE speeds),
+with every chunk forced to the PE that requests it.
+
 The recurrences run on Python integers, so they cannot wrap; N is still held
 to int32 (``ValueError`` above ``2**31 - 1``), the range the reference
 accepts with 64-bit integers off.  The StaticSteal replay keeps the PEs'
@@ -218,3 +222,73 @@ def staticsteal_schedule(N: int, P: int, chunk_param: int,
         remaining -= c
         i += 1
     return starts, sizes, pes, own, i
+
+
+# ---------------------------------------------------------------------------
+# weighted adaptive surrogates (the two-pass re-estimation's second pass)
+# ---------------------------------------------------------------------------
+
+#: adaptive algorithms the weighted surrogate covers (AWF-B/C/D/E, mAF)
+ADAPTIVE_SCHEDULABLE = frozenset({7, 8, 9, 10, 11})
+
+
+def weighted_adaptive_schedule(alg: int, N: int, P: int, chunk_param: int,
+                               weights):
+    """Chunk schedule of an adaptive algorithm at a *converged weight
+    vector* — the second pass of the adaptive-surrogate scheme.
+
+    The telemetry-free surrogates above pin every AWF/mAF weight at 1,
+    which is exact only when per-PE rates are homogeneous.  Under PE
+    slowdowns / heterogeneous systems the host classes converge to
+    mean-1-normalized inverse time-per-iteration weights and deliver
+    ``max(1, round(w[pe] * Cs))`` to each requesting PE; this emits that
+    fixed-point sequence directly (simulate -> re-estimate weights from the
+    perturbed rate table -> re-simulate), host-side in numpy.
+
+    Because weighted chunk sizes are *per-PE*, the assignment is part of
+    the schedule: returns ``(sizes int64, pes int32)`` with every chunk
+    force-assigned to its requesting PE (fastest PEs request first within a
+    batch — they drain their chunks soonest).  At ``weights == 1`` the
+    sizes reduce to the unweighted surrogate recurrences.
+    """
+    if alg not in ADAPTIVE_SCHEDULABLE:
+        raise ValueError(f"weighted_adaptive_schedule: {alg} is not an "
+                         f"adaptive algorithm ({sorted(ADAPTIVE_SCHEDULABLE)})")
+    w = np.asarray(weights, np.float64)
+    if w.shape != (P,) or not np.all(w > 0):
+        raise ValueError("weights must be a positive (P,) vector")
+    order = [int(p) for p in np.argsort(-w, kind="stable")]
+    floor = max(1, int(chunk_param))
+    sizes: list = []
+    pes: list = []
+    R = int(N)
+    if alg == 11:               # mAF: probe chunk, then Cs = R // P
+        probe = min(100, max(1, R // P))
+        c = min(R, max(probe, floor))
+        sizes.append(c)
+        pes.append(order[0])
+        R -= c
+        while R > 0:
+            for p in order:
+                if R <= 0:
+                    break
+                raw = max(1, int(round((R // P) * w[p])))
+                c = min(R, max(raw, floor))
+                sizes.append(c)
+                pes.append(p)
+                R -= c
+    else:                       # AWF-B/D batched, AWF-C/E per-request
+        per_request = alg in (8, 10)
+        while R > 0:
+            Cs = -(-R // (2 * P))
+            for p in order:
+                if R <= 0:
+                    break
+                if per_request:
+                    Cs = -(-R // (2 * P))
+                raw = max(1, int(round(Cs * w[p])))
+                c = min(R, max(raw, floor))
+                sizes.append(c)
+                pes.append(p)
+                R -= c
+    return np.asarray(sizes, np.int64), np.asarray(pes, np.int32)

@@ -1,11 +1,16 @@
-"""repro_torch.sim — the batched discrete-event simulator of the paper's
-experiment campaign, on the card: the portfolio sweep, the lockstep
+"""repro_torch.sim — the discrete-event simulator of the paper's experiment
+campaign: the batched engine on the card (the portfolio sweep, the lockstep
 selector replays, candidate pricing for simulation-assisted selection and
-transition logging."""
+transition logging), the reference Python event loop on the host, and the
+perturbations and heterogeneous machines that make a cell non-stationary."""
 
 from .backends import (EVENT_CAP, BatchResult, InstancePerturb, InstanceSpec,
                        LockstepRequest, SimBackend, backend_names,
                        get_backend, register_backend)
+from .engine import InstanceResult, run_instance
+from .perturb import (NoiseBurst, PEFailure, PESlowdown, PerturbationSpec,
+                      WorkloadDrift, drift_spec, noise_burst_spec,
+                      pe_slowdown_spec)
 from .campaign import (CHUNK_MODES, EXTENDED_SELECTOR_GRID, SELECTOR_GRID,
                        SIM_SELECTOR_GRID, CampaignResult, CellSpec, FixedRun,
                        PortfolioSweep, ReplayBatch, SelectorRun,
@@ -24,7 +29,10 @@ from .workloads import (APPLICATIONS, GRID, Application, LoopProfile,
 __all__ = [
     "EVENT_CAP", "BatchResult", "InstancePerturb", "InstanceSpec",
     "LockstepRequest", "SimBackend", "backend_names", "get_backend",
-    "register_backend", "CHUNK_MODES", "SELECTOR_GRID",
+    "register_backend", "InstanceResult", "run_instance",
+    "PerturbationSpec", "PESlowdown", "PEFailure", "NoiseBurst",
+    "WorkloadDrift", "pe_slowdown_spec", "noise_burst_spec", "drift_spec",
+    "CHUNK_MODES", "SELECTOR_GRID",
     "EXTENDED_SELECTOR_GRID", "SIM_SELECTOR_GRID", "CampaignResult",
     "CellSpec", "FixedRun", "PortfolioSweep", "ReplayBatch", "SelectorRun",
     "chunk_param_for", "run_campaign", "run_campaign_cell", "run_fixed",

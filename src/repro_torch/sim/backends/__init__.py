@@ -2,16 +2,25 @@
 
 >>> from repro_torch.sim.backends import get_backend
 >>> get_backend("torch")       # batched engine on the card (CUDA kernels)
+>>> get_backend("python")      # reference event-loop engine (host numpy)
 
-``get_backend(None)`` resolves ``"torch"``.  Backends are process-wide
-singletons, so the schedule caches persist across sweeps.  An instance of
-``SimBackend`` passes through unchanged, which is how a caller picks the
-device or the plain event core:
+``get_backend(None)`` resolves the default from the ``REPRO_SIM_BACKEND``
+environment variable, falling back to ``"torch"`` — the port's entry points
+run on the card (the reference falls back to its ``"python"`` engine).  A
+name that is not registered raises ``ValueError``.  Backends are
+process-wide singletons, so the schedule caches persist across sweeps.  An
+instance of ``SimBackend`` passes through unchanged, which is how a caller
+picks the device or the plain event core:
 ``sweep_portfolio(..., backend=TorchBatchedBackend(device="cpu"))``.
+
+The batched engine's event core is itself selectable
+(``TorchBatchedBackend(event_core=...)`` / ``REPRO_EVENT_CORE``): the CUDA
+kernels through their wrappers, or their plain versions.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Union
 
 from .base import (EVENT_CAP, BatchResult, InstancePerturb, InstanceSpec,
@@ -21,6 +30,8 @@ from .base import (EVENT_CAP, BatchResult, InstancePerturb, InstanceSpec,
 _FACTORIES: Dict[str, Callable[[], SimBackend]] = {}
 _INSTANCES: Dict[str, SimBackend] = {}
 
+#: env var naming the default backend
+BACKEND_ENV = "REPRO_SIM_BACKEND"
 DEFAULT_BACKEND = "torch"
 
 
@@ -36,7 +47,9 @@ def get_backend(name: Union[str, SimBackend, None] = None) -> SimBackend:
     """Resolve a backend by name (or pass an instance through)."""
     if isinstance(name, SimBackend):
         return name
-    name = (name or DEFAULT_BACKEND).lower()
+    if name is None:
+        name = os.environ.get(BACKEND_ENV, DEFAULT_BACKEND)
+    name = name.lower()
     if name not in _FACTORIES:
         raise ValueError(
             f"unknown simulation backend {name!r}; "
@@ -51,11 +64,17 @@ def _make_torch() -> SimBackend:
     return TorchBatchedBackend()
 
 
+def _make_python() -> SimBackend:
+    from .python import PythonBackend
+    return PythonBackend()
+
+
 register_backend("torch", _make_torch)
+register_backend("python", _make_python)
 
 __all__ = [
     "EVENT_CAP", "BatchResult", "InstancePerturb", "InstanceSpec",
     "LockstepRequest", "SimBackend", "combined_pe_scale", "needs_closed_form",
     "sigma_scale_of", "get_backend", "register_backend", "backend_names",
-    "DEFAULT_BACKEND",
+    "BACKEND_ENV", "DEFAULT_BACKEND",
 ]

@@ -41,9 +41,9 @@ def needs_closed_form(alg: int, N: int, chunk_param: int,
 
 @dataclass(frozen=True)
 class InstancePerturb:
-    """Per-instance view of an injected perturbation (the reference resolves
-    a time-windowed perturbation spec into one of these per time step; the
-    port's batched engine does not take perturbed event lanes yet).
+    """Per-instance view of an injected perturbation (``repro_torch.sim.
+    perturb`` resolves a time-windowed :class:`PerturbationSpec` into one of
+    these per time step).
 
     ``pe_scale`` multiplies each PE's execution time (1.0 nominal, > 1
     slower, ~1e4 models a failed PE the dynamic algorithms must route

@@ -10,8 +10,9 @@ Two execution paths need no event loop:
   iterations: the paper's orders-of-magnitude blowup, computed analytically).
 
 They stay numpy on the host, driven by the same numpy rng streams as the
-reference, so these results are bit-identical to it.  The reference's
-Python event loop (everything else) is not ported yet.
+reference, so these results are bit-identical to it.  Both engines share
+them: the batched one (``torch_batched``) and the Python event loop
+(``python``), which runs everything else on the host.
 """
 
 from __future__ import annotations

@@ -23,20 +23,28 @@ rep x time-step) — at once:
     it exists so that a run on the card can hold the whole path against
     them, and is never chosen on its own.
 
+Heterogeneous machines (``SystemModel.pe_speeds``) and injected
+perturbations (``InstancePerturb``) enter as two more lanes of the shared
+precompute: per-PE execution-time multipliers ``pe_mult`` (B, P) applied to
+the drawn speeds after their clamp, and a per-lane noise-sigma scale.  Both
+are exactly 1.0 on clean lanes, so those stay bit-identical.  Under a
+non-uniform PE scale the adaptive algorithms (AWF-B/C/D/E, mAF) take their
+weighted schedules (``weighted_adaptive_schedule``), whose every chunk is
+forced to the PE that requests it (``REPRO_ADAPTIVE_REWEIGHT=0`` keeps the
+unweighted recurrences).
+
 STATIC and over-``EVENT_CAP`` SS/StaticSteal instances are delegated to the
 reference closed forms with the *same* numpy rng streams, so those results
 are bit-identical to the reference.  Serving what-ifs gather their per-chunk
 request costs from the float64 host prefix (exact integer indexing) before
-the float32 device recurrence (``event_finish``).
-
-Not ported yet: lanes on heterogeneous or perturbed machines (they need the
-weighted adaptive schedules) raise ``NotImplementedError``; lanes run on one
-device, synchronously.
+the float32 device recurrence (``event_finish``).  Lanes run on one device,
+synchronously.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, fields
@@ -46,7 +54,9 @@ import numpy as np
 import torch
 
 from ...core.metrics import xla_row_mean
-from ...core.sched import chunk_schedule, staticsteal_schedule
+from ...core.portfolio import ADAPTIVE_SET
+from ...core.sched import (chunk_schedule, staticsteal_schedule,
+                           weighted_adaptive_schedule)
 from ...device import resolve_device
 from ...kernels.event_loop import (event_finish, event_finish_fused,
                                    event_finish_fused_ref, event_finish_ref)
@@ -54,7 +64,8 @@ from .. import rng
 from ..workloads import profile_digest as _profile_digest
 from ..workloads import stack_prefix_grids
 from .base import (BatchResult, InstancePerturb, InstanceSpec,
-                   LockstepRequest, SimBackend, needs_closed_form)
+                   LockstepRequest, SimBackend, combined_pe_scale,
+                   needs_closed_form, sigma_scale_of)
 from .closed_form import InstanceResult, _h_eff, run_closed_form
 
 #: schedule-length buckets (powers of four bound the number of distinct
@@ -65,6 +76,41 @@ _K_BUCKETS = (256, 1024, 4096, 16384, 65536, 262144)
 _MAX_ELEMS = 1 << 22
 
 EVENT_CORES = ("kernel", "plain")
+#: env var naming the event core when ``event_core=None``; the reference's
+#: names map onto the port's: ``auto``/``kernel``/``pallas`` -> ``"kernel"``,
+#: ``plain``/``while_loop`` -> ``"plain"``
+EVENT_CORE_ENV = "REPRO_EVENT_CORE"
+_EVENT_CORE_NAMES = {"auto": "kernel", "kernel": "kernel", "pallas": "kernel",
+                     "plain": "plain", "while_loop": "plain"}
+#: env var toggling the weighted adaptive schedules under perturbed /
+#: heterogeneous PE speeds ("0" keeps the weights-at-1 recurrences)
+ADAPTIVE_REWEIGHT_ENV = "REPRO_ADAPTIVE_REWEIGHT"
+
+
+def resolve_event_core(event_core: Optional[str] = None) -> str:
+    """The event core: ``event_core`` when given (``"kernel"`` or
+    ``"plain"``), else ``REPRO_EVENT_CORE`` mapped by name, else
+    ``"kernel"``; any other name raises ``ValueError``."""
+    if event_core is not None:
+        if event_core not in EVENT_CORES:
+            raise ValueError(f"unknown event core {event_core!r}; "
+                             f"available: {list(EVENT_CORES)}")
+        return event_core
+    env = os.environ.get(EVENT_CORE_ENV)
+    if env is None:
+        return "kernel"
+    name = _EVENT_CORE_NAMES.get(env.lower())
+    if name is None:
+        raise ValueError(f"unknown event core {env!r} in {EVENT_CORE_ENV}; "
+                         f"available: {sorted(_EVENT_CORE_NAMES)}")
+    return name
+
+
+def resolve_adaptive_reweight(adaptive_reweight: Optional[bool] = None
+                              ) -> bool:
+    if adaptive_reweight is None:
+        return os.environ.get(ADAPTIVE_REWEIGHT_ENV, "1") != "0"
+    return bool(adaptive_reweight)
 
 
 def _next_bucket(n: int) -> int:
@@ -127,39 +173,35 @@ class PathTimes:
             setattr(self, f.name, type(getattr(self, f.name))())
 
 
-def _unsupported(system, perturb: Optional[InstancePerturb]) -> None:
-    if getattr(system, "pe_speeds", None) is not None or (
-            perturb is not None and not perturb.neutral):
-        raise NotImplementedError(
-            "heterogeneous or perturbed machines need the weighted adaptive "
-            "schedules, which the torch backend does not have yet")
-
-
 class TorchBatchedBackend(SimBackend):
     """Campaign-scale batched engine (see module docstring).
 
     ``device`` defaults to ``cuda`` and raises when there is no card; pass
     ``device="cpu"`` for the plain CPU path.  ``event_core`` is ``"kernel"``
     (the wrappers: CUDA kernels on a card, plain versions on the CPU) or
-    ``"plain"`` (the plain versions on any device).
+    ``"plain"`` (the plain versions on any device); ``None`` resolves
+    ``REPRO_EVENT_CORE``.  ``adaptive_reweight`` (``None`` resolves
+    ``REPRO_ADAPTIVE_REWEIGHT``, default on) gives the adaptive algorithms
+    their weighted schedules under non-uniform PE speeds.
     """
 
     name = "torch"
 
     def __init__(self, device: Union[str, torch.device, None] = None,
-                 event_core: str = "kernel"):
-        if event_core not in EVENT_CORES:
-            raise ValueError(f"unknown event core {event_core!r}; "
-                             f"available: {list(EVENT_CORES)}")
+                 event_core: Optional[str] = None,
+                 adaptive_reweight: Optional[bool] = None):
+        event_core = resolve_event_core(event_core)
         self.device = resolve_device(device)
         self.event_core = event_core
         if event_core != "kernel":
             self.name = f"torch-{event_core}"
+        self.adaptive_reweight = resolve_adaptive_reweight(adaptive_reweight)
         # (alg, N, P, cp) -> sizes ndarray, for central-queue algorithms
         self._sched_cache = _LRU(512)
         # StaticSteal replays keyed additionally by the cost/locality params
         self._steal_cache = _LRU(128)
-        # (alg, N, P, cp, locality, machine[, loop costs]) -> event rows
+        # (alg, N, P, cp, locality, machine[, loop costs][, weights]) ->
+        # event rows; weighted schedules live only here, under their weights
         self._rows_cache = _LRU(512)
         # profile-stack digest -> padded device-resident (Sp, G+1) grids
         self._grids_cache = _LRU(4)
@@ -209,9 +251,24 @@ class TorchBatchedBackend(SimBackend):
             self._steal_cache.put(key, out)
         return out
 
-    def _event_rows(self, spec: InstanceSpec, profile, system):
-        """(starts, sizes, loc, forced) numpy rows for one event instance,
-        cached: every rep and time step of a loop shares them."""
+    def _weights(self, alg: int, system, scale) -> Optional[np.ndarray]:
+        """The mean-1 inverse-speed weights of an adaptive algorithm's
+        weighted schedule under the lane's PE ``scale``, or None when the
+        lane takes the unweighted one (not adaptive, reweighting off, or
+        uniform PE speeds)."""
+        if not (self.adaptive_reweight and alg in ADAPTIVE_SET):
+            return None
+        if scale is None or np.all(scale == 1.0):
+            return None
+        w = 1.0 / scale
+        w *= system.P / w.sum()
+        return w
+
+    def _event_rows(self, spec: InstanceSpec, profile, system, scale):
+        """(starts, sizes, loc, forced) numpy rows for one event instance
+        whose PEs run at ``scale`` (``combined_pe_scale``; None = uniform),
+        cached: every rep and time step of a loop shares them.  A weighted
+        lane's key holds its weights, so it never poisons its clean twin."""
         N, P = profile.N, system.P
         ls, c_loc = profile.locality_sens, profile.c_loc
         key = (spec.alg, N, P, spec.chunk_param, ls, c_loc,
@@ -220,12 +277,23 @@ class TorchBatchedBackend(SimBackend):
             key += (round(profile.total / N, 18),
                     round(profile.memory_bound, 6), system.name, system.h,
                     system.boundary_cost)
+        w = self._weights(spec.alg, system, scale)
+        if w is not None:   # the weighted schedule depends on the speeds
+            key += (tuple(np.round(w, 9)),)
         hit = self._rows_cache.get(key)
         if hit is not None:
             return hit
         base_infl = 1.0 + ls * system.dyn_locality
         amp = ls * system.loc_amp
-        if spec.alg == 5:
+        if w is not None:
+            sizes, pes = weighted_adaptive_schedule(spec.alg, N, P,
+                                                    spec.chunk_param, w)
+            starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(
+                np.int32)
+            loc = (base_infl + amp * c_loc / (sizes + c_loc)).astype(
+                np.float32)
+            rows = (starts, sizes.astype(np.int32), loc, pes)
+        elif spec.alg == 5:
             starts, sizes, pes, own = self._steal_schedule(
                 N, P, spec.chunk_param, profile, system)
             loc = np.where(own, 1.0,
@@ -297,11 +365,14 @@ class TorchBatchedBackend(SimBackend):
             return fn(*args)
 
     def _batched_events(self, P: int, grids, gid, inv_n, starts, sizes, loc,
-                        count, forced, seeds, h_eff, bcost, sigma: float,
-                        jitter_max: float, speed_spread: float):
+                        count, forced, seeds, h_eff, bcost, pe_mult,
+                        noise_scale, jitter_max: float, speed_spread: float):
         """Shared precompute + one event-core call for one packed batch.
 
-        sigma/jitter_max/speed_spread are float32-representable scalars.
+        ``pe_mult`` (B, P) f32 multiplies the drawn PE speeds after their
+        clamp; ``noise_scale`` (B,) f32 is each lane's folded noise factor
+        ``(sigma * sigma_scale) * sqrt(2)``.
+        jitter_max/speed_spread are float32-representable scalars.
         Returns (makespan (B,), lib (B,), finish (B, P)) device tensors."""
         G = grids.shape[1] - 1
         K = starts.shape[1]
@@ -314,8 +385,10 @@ class TorchBatchedBackend(SimBackend):
             speed = torch.clamp(
                 torch.addcmul(torch.ones_like(e_s), e_s, torch.full_like(
                     e_s, rng.folded_scale(speed_spread))), 0.8, 1.25)
+            # heterogeneity / perturbation: all-1.0 rows are exact no-ops
+            speed = speed * pe_mult
             noise = rng.exp(rng.erf_inv_uniform(kn, K)
-                            * rng.folded_scale(sigma))
+                            * noise_scale[:, None])
         gscale = inv_n * float(G)
         core = (event_finish_fused_ref if self.event_core == "plain"
                 else event_finish_fused)
@@ -355,7 +428,6 @@ class TorchBatchedBackend(SimBackend):
         nc = np.zeros(B, np.int64)
         event_ids: List[int] = []
         for i, s in enumerate(specs):
-            _unsupported(system, s.perturb)
             profile = profiles[s.profile_id]
             if s.alg == 0 or needs_closed_form(s.alg, profile.N,
                                                s.chunk_param):
@@ -379,8 +451,9 @@ class TorchBatchedBackend(SimBackend):
         P = system.P
         t0 = time.perf_counter()
         grids_dev = self._grids_dev(profiles)
-        rows = [self._event_rows(s, profiles[s.profile_id], system)
-                for s in specs]
+        scales = [combined_pe_scale(system, s.perturb) for s in specs]
+        rows = [self._event_rows(s, profiles[s.profile_id], system, sc)
+                for s, sc in zip(specs, scales)]
         counts = np.array([len(r[1]) for r in rows], np.int32)
         B = len(specs)
         mk = np.zeros(B)
@@ -397,13 +470,25 @@ class TorchBatchedBackend(SimBackend):
         bc_all = np.fromiter(
             (profiles[s.profile_id].memory_bound * system.boundary_cost
              for s in specs), np.float32, B)
+        # perturbation lanes: per-PE multipliers and noise scales (exactly
+        # 1.0 and the machine's own folded sigma on clean lanes)
+        pm_all = np.ones((B, P), np.float32)
+        ss_all = np.ones(B, np.float32)
+        for i, (s, sc) in enumerate(zip(specs, scales)):
+            if sc is not None:
+                pm_all[i] = sc
+            ss_all[i] = sigma_scale_of(s.perturb)
+        # each lane's factor of erf_inv(u) in its noise exponent, in the
+        # reference's compiled order: (sigma * sigma_scale) * sqrt(2), each
+        # product rounded to float32 (folded_scale(sigma) on clean lanes)
+        ns_all = rng.folded_scales(np.float32(system.noise_sigma) * ss_all)
         by_bucket: Dict[int, List[int]] = {}
         for i, c in enumerate(counts):
             by_bucket.setdefault(_next_bucket(int(c)), []).append(i)
         self.times.rows_s += time.perf_counter() - t0
 
         scalars = tuple(float(np.float32(x)) for x in (
-            system.noise_sigma, system.jitter, system.speed_spread))
+            system.jitter, system.speed_spread))
         for K, ids in sorted(by_bucket.items()):
             max_rows = max(8, _MAX_ELEMS // K)
             for off in range(0, len(ids), max_rows):
@@ -431,17 +516,19 @@ class TorchBatchedBackend(SimBackend):
                                       (counts, 0, np.int32),
                                       (seed_all, 0, np.int64),
                                       (h_all, 0.0, np.float32),
-                                      (bc_all, 0.0, np.float32)):
-                    col = np.full(Bp, fill, dt)
+                                      (bc_all, 0.0, np.float32),
+                                      (pm_all, 1.0, np.float32),
+                                      (ns_all, 0.0, np.float32)):
+                    col = np.full((Bp,) + arr.shape[1:], fill, dt)
                     col[:n] = arr[sub]
                     lanes.append(col)
-                gid, inv_n, cnt, seeds, h_eff, bcost = lanes
+                gid, inv_n, cnt, seeds, h_eff, bcost, pe_mult, nscale = lanes
                 t1 = time.perf_counter()
                 self.times.pack_s += t1 - t0
                 with self._device_timer("h2d_ms"):
                     dev = [self._to_dev(a) for a in (
                         gid, inv_n, starts, sizes, loc, cnt, forced, seeds,
-                        h_eff, bcost)]
+                        h_eff, bcost, pe_mult, nscale)]
                 res = self._batched_events(P, grids_dev, *dev, *scalars)
                 m, l, f = (x.cpu().numpy() for x in res)
                 self._read_timers()
@@ -471,7 +558,6 @@ class TorchBatchedBackend(SimBackend):
         event_ids: List[int] = []
         specs: List[InstanceSpec] = []
         for i, q in enumerate(requests):
-            _unsupported(system, q.perturb)
             profile = profiles[q.profile_id]
             if q.alg == 0 or needs_closed_form(q.alg, profile.N,
                                                q.chunk_param):
@@ -499,7 +585,6 @@ class TorchBatchedBackend(SimBackend):
                      rng, record_chunks: bool = False,
                      perturb: Optional[InstancePerturb] = None
                      ) -> InstanceResult:
-        _unsupported(system, perturb)
         if alg == 0 or needs_closed_form(alg, profile.N, chunk_param):
             return run_closed_form(profile, system, alg, chunk_param, rng,
                                    record_chunks, perturb)
@@ -511,7 +596,8 @@ class TorchBatchedBackend(SimBackend):
         mk, lib, fin, counts = self._run_events([profile], system, [spec])
         sizes = None
         if record_chunks:
-            _, sz, _, _ = self._event_rows(spec, profile, system)
+            _, sz, _, _ = self._event_rows(
+                spec, profile, system, combined_pe_scale(system, perturb))
             sizes = [int(c) for c in sz]
         res = InstanceResult(loop_time=float(mk[0]), finish=fin[0],
                              n_chunks=int(counts[0]), chunk_sizes=sizes)

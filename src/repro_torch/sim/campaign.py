@@ -18,9 +18,11 @@ Two batched layers put the whole campaign on the active ``SimBackend``:
 
 Decisions are host numpy (the policies of ``repro_torch.core``); only the
 backend touches the card.  With no backend given, everything runs on the
-torch engine on the card.  Perturbed lanes (``CellSpec.perturb``) wait for
-the port of the reference's ``sim/perturb.py`` and raise
-``NotImplementedError``.
+torch engine on the card.  A lane's ``CellSpec.perturb``
+(:class:`~repro_torch.sim.perturb.PerturbationSpec`) makes it
+non-stationary: PE slowdowns, failures and noise bursts reach the backend
+per step as an ``InstancePerturb``, workload drift transforms the lane's
+loop profiles.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from ..core import (ALGORITHM_NAMES, N_ALGORITHMS, SelectionService,
 from ..core.api import Observation
 from ..core.learned import LoopFeaturizer
 from ..core.simpolicy import _SIM_ALIASES
-from .backends import InstanceSpec, LockstepRequest, get_backend
+from .backends import (InstancePerturb, InstanceSpec, LockstepRequest,
+                       get_backend)
+from .perturb import PerturbationSpec
 from .systems import SystemModel, get_system
 from .whatif import LoopWhatIf
 from .workloads import Application, get_application
@@ -192,16 +196,6 @@ def sweep_portfolio(app_name: str, system_name: str, T: Optional[int] = None,
 # selector runs
 # ---------------------------------------------------------------------------
 
-def _no_perturbation(perturb) -> None:
-    """Perturbed lanes need the reference's ``sim/perturb.py``
-    (``PerturbationSpec``), which the port does not have yet."""
-    if perturb is not None:
-        raise NotImplementedError(
-            "perturbed replay lanes need PerturbationSpec (the reference's "
-            "sim/perturb.py), which repro_torch does not have yet; pass "
-            "perturb=None")
-
-
 @dataclass
 class SelectorRun:
     selector: str
@@ -282,13 +276,13 @@ def run_selector_sequential(app_name: str, system_name: str, selector: str,
                             T: Optional[int] = None, seed: int = 0,
                             sweep: Optional[PortfolioSweep] = None,
                             backend=None, sim_backend=None,
-                            perturb=None) -> SelectorRun:
+                            perturb: Optional[PerturbationSpec] = None
+                            ) -> SelectorRun:
     """Reference replay: one cell, one instance at a time.
 
     The bit-exactness oracle for the lockstep engine: ``run_selector``
     routes through :class:`ReplayBatch` and must reproduce this loop
-    exactly.  ``perturb`` must be None (see the module docstring)."""
-    _no_perturbation(perturb)
+    exactly."""
     bk = get_backend(backend)
     app = get_application(app_name)
     system = get_system(system_name)
@@ -302,17 +296,20 @@ def run_selector_sequential(app_name: str, system_name: str, selector: str,
     rng = _lane_rng(app_name, system, selector, chunk_mode, reward, seed)
     total = 0.0
     for t in range(T):
-        for li, profile in enumerate(app.loops(t)):
+        ip = None if perturb is None else perturb.instance_perturb(t,
+                                                                   system.P)
+        loops = app.loops(t) if perturb is None else perturb.loops(app, t)
+        for li, profile in enumerate(loops):
             nm = app.loop_names[li]
             cp = chunk_param_for(chunk_mode, profile.N, system.P)
             if whatif is not None:      # bind the loop the decision is about
-                whatif.set_context(profile, cp)
+                whatif.set_context(profile, cp, perturb=ip)
             with service.instance(nm) as inst:
                 # a policy may steer the chunk parameter; the campaign's
                 # chunk mode fills the default
                 d = inst.decision.with_instance_defaults(cp)
                 res = bk.run_instance(profile, system, d.action,
-                                      d.chunk_param, rng)
+                                      d.chunk_param, rng, perturb=ip)
                 inst.report(loop_time=res.loop_time, lib=res.lib)
             total += res.loop_time
     # the service's per-region records ARE the selection traces
@@ -329,16 +326,17 @@ def run_selector_sequential(app_name: str, system_name: str, selector: str,
 @dataclass(frozen=True)
 class CellSpec:
     """One replay lane of the factorial campaign: which application on which
-    system, driven by which selection method.  ``perturb`` is the
-    reference's non-stationarity hook; the port accepts only None until it
-    has ``PerturbationSpec``."""
+    system, driven by which selection method.  ``perturb`` makes the lane
+    non-stationary (``repro_torch.sim.perturb``); it is deliberately NOT part
+    of the lane's rng identity, so a perturbed lane consumes the exact noise
+    stream of its clean twin (paired comparisons by construction)."""
 
     app: str
     system: str
     selector: str
     chunk_mode: str = "default"
     reward: Optional[str] = None
-    perturb: Optional[object] = None
+    perturb: Optional[PerturbationSpec] = None
 
     @property
     def key(self) -> Tuple[str, str, Optional[str]]:
@@ -351,12 +349,11 @@ class _Lane:
     private noise stream, and the running total."""
 
     __slots__ = ("spec", "app", "system", "T", "service", "whatif", "rng",
-                 "total")
+                 "total", "_ip_cache")
 
     def __init__(self, spec: CellSpec, app: Application, system: SystemModel,
                  T: int, seed: int, sweep: Optional[PortfolioSweep],
                  sim_backend=None):
-        _no_perturbation(spec.perturb)
         self.spec = spec
         self.app = app
         self.system = system
@@ -367,6 +364,19 @@ class _Lane:
         self.rng = _lane_rng(spec.app, system, spec.selector,
                              spec.chunk_mode, spec.reward, seed)
         self.total = 0.0
+        self._ip_cache: Dict[int, Optional[InstancePerturb]] = {}
+
+    def perturb_at(self, t: int) -> Optional[InstancePerturb]:
+        """The lane's resolved execution-side perturbation at step ``t``
+        (memoized — every loop of the step shares one resolution)."""
+        if self.spec.perturb is None:
+            return None
+        ip = self._ip_cache.get(t, False)
+        if ip is False:
+            ip = self.spec.perturb.instance_perturb(t, self.system.P)
+            self._ip_cache.clear()      # only the current step is ever hot
+            self._ip_cache[t] = ip
+        return ip
 
     def result(self) -> SelectorRun:
         history = {nm: list(self.service.history(nm))
@@ -385,19 +395,21 @@ class _StepGroup:
     def __init__(self, system: SystemModel):
         self.system = system
         self.profiles: List = []
-        self._pids: Dict[str, List[int]] = {}
+        self._pids: Dict[Tuple, List[int]] = {}
         self.requests: List[LockstepRequest] = []
         self.pending: List = []          # (lane, RegionInstance) per request
         self.trans: List = []            # translog row index per request
 
-    def register(self, app_name: str, loops) -> List[int]:
-        """Share profile rows between lanes on the same application."""
-        pids = self._pids.get(app_name)
+    def register(self, key: Tuple, loops) -> List[int]:
+        """Share profile rows between lanes with identical loop content —
+        keyed on (app name, active drift), so a drifted lane never aliases
+        its clean sibling's profiles."""
+        pids = self._pids.get(key)
         if pids is None:
             pids = list(range(len(self.profiles),
                               len(self.profiles) + len(loops)))
             self.profiles.extend(loops)
-            self._pids[app_name] = pids
+            self._pids[key] = pids
         return pids
 
 
@@ -443,6 +455,7 @@ class ReplayBatch:
             sim_backend = backend
         sweeps = sweeps or {}
         apps: Dict[str, Application] = {}
+        self._apps = apps
         self.lanes: List[_Lane] = []
         for spec in lanes:
             app = apps.get(spec.app)
@@ -454,9 +467,19 @@ class ReplayBatch:
                 sim_backend=sim_backend))
         self.T_max = max((lane.T for lane in self.lanes), default=0)
 
+    def _loops(self, cache: Dict[Tuple, List], app_name: str, t: int,
+               drift: Optional[PerturbationSpec] = None) -> List:
+        key = (app_name, drift)
+        loops = cache.get(key)
+        if loops is None:
+            app = self._apps[app_name]
+            loops = cache[key] = (app.loops(t) if drift is None
+                                  else drift.loops(app, t))
+        return loops
+
     def step(self, t: int) -> None:
         """One decide / execute / learn cycle over all active lanes."""
-        loops_cache: Dict[str, List] = {}
+        loops_cache: Dict[Tuple, List] = {}
         groups: Dict[str, _StepGroup] = {}
         for lane in self.lanes:                               # decide
             if t >= lane.T:
@@ -464,24 +487,25 @@ class ReplayBatch:
             g = groups.get(lane.spec.system)
             if g is None:
                 g = groups[lane.spec.system] = _StepGroup(lane.system)
-            loops = loops_cache.get(lane.spec.app)
-            if loops is None:
-                loops = loops_cache[lane.spec.app] = lane.app.loops(t)
-            pids = g.register(lane.spec.app, loops)
+            pz = lane.spec.perturb
+            drift = pz if (pz is not None and pz.has_drift) else None
+            ip = lane.perturb_at(t)
+            loops = self._loops(loops_cache, lane.spec.app, t, drift)
+            pids = g.register((lane.spec.app, drift), loops)
             for li, profile in enumerate(loops):
                 cp = chunk_param_for(lane.spec.chunk_mode, profile.N,
                                      lane.system.P)
                 if lane.whatif is not None:
-                    lane.whatif.set_context(profile, cp)
+                    lane.whatif.set_context(profile, cp, perturb=ip)
                 inst = lane.service.instance(lane.app.loop_names[li])
                 d = inst.decision.with_instance_defaults(cp)
                 g.requests.append(LockstepRequest(
                     profile_id=pids[li], alg=d.action,
-                    chunk_param=d.chunk_param, rng=lane.rng))
+                    chunk_param=d.chunk_param, rng=lane.rng, perturb=ip))
                 g.pending.append((lane, inst))
                 if self.translog is not None:
                     g.trans.append(self.translog.log_decision(
-                        lane, t, profile, cp, None, d))
+                        lane, t, profile, cp, ip, d))
         for g in groups.values():                             # execute
             res = self.bk.run_lockstep(g.profiles, g.system, g.requests)
             obs = Observation.batch(res.loop_time, res.lib)
@@ -504,7 +528,8 @@ def run_selector(app_name: str, system_name: str, selector: str,
                  chunk_mode: str = "default", reward: Optional[str] = None,
                  T: Optional[int] = None, seed: int = 0,
                  sweep: Optional[PortfolioSweep] = None,
-                 backend=None, sim_backend=None, perturb=None,
+                 backend=None, sim_backend=None,
+                 perturb: Optional[PerturbationSpec] = None,
                  translog=None) -> SelectorRun:
     """Execute one selection method over the full time-stepped application.
 
@@ -629,12 +654,10 @@ def run_campaign_cell(app_name: str, system_name: str,
                       sim_backend=None) -> CampaignResult:
     """One Fig. 5 cell (a ``run_campaign`` of a single (app, system) pair).
 
-    ``backend`` picks the simulation engine for the portfolio sweep and,
-    by default, the selector replays.  The reference defaults
-    ``selector_backend`` to its Python event loop for exact-telemetry
-    adaptivity; the port has no such engine yet, so its default is
-    ``None``: the replays run on ``backend`` (the torch engine on the card
-    when that is None too)."""
+    ``backend`` picks the simulation engine for the heavy portfolio sweep
+    (the torch engine on the card when None); the selector replays and
+    their pricing follow it unless ``selector_backend`` names another —
+    ``"python"`` for the exact-telemetry host engine."""
     return run_campaign([(app_name, system_name)], T=T, reps=reps, seed=seed,
                         selectors=selectors, chunk_modes=chunk_modes,
                         backend=backend,

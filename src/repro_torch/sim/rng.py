@@ -219,3 +219,9 @@ def folded_scale(scale: float) -> float:
     sqrt(2))`` in float32, which can differ from ``scale * normal`` in the
     last bit."""
     return float(np.float32(scale) * np.float32(_SQRT2))
+
+
+def folded_scales(scale: np.ndarray) -> np.ndarray:
+    """:func:`folded_scale` of each entry of a float32 array, as a float32
+    array (a per-lane factor)."""
+    return np.asarray(scale, np.float32) * np.float32(_SQRT2)

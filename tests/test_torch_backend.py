@@ -19,11 +19,12 @@ torch = pytest.importorskip("torch")
 
 from repro.sim import get_application, get_system  # noqa: E402
 from repro.sim.backends import InstanceSpec as JSpec  # noqa: E402
-from repro.sim.backends import InstancePerturb  # noqa: E402
+from repro.sim.backends import InstancePerturb as JIP  # noqa: E402
 from repro.sim.backends import LockstepRequest as JReq  # noqa: E402
 from repro.sim.backends.jax_batched import JaxBatchedBackend  # noqa: E402
 from repro.sim.campaign import chunk_param_for  # noqa: E402
 from repro_torch import TorchBatchedBackend, convert  # noqa: E402
+from repro_torch.sim.backends import InstancePerturb  # noqa: E402
 from repro_torch.sim.backends import InstanceSpec as TSpec  # noqa: E402
 from repro_torch.sim.backends import LockstepRequest as TReq  # noqa: E402
 
@@ -168,16 +169,25 @@ def test_what_if_routes_agrees():
 
 
 def test_perturbed_and_heterogeneous_lanes_are_refused():
+    """Perturbed and heterogeneous lanes, once refused, now run: the same
+    inputs give the reference's results bit for bit, and a neutral
+    perturbation is exactly no perturbation."""
     system = get_system("epyc")
     app = get_application("tc")
-    _, tp, ts = _both(system, app, (0,))
-    slow = InstancePerturb(pe_scale=(2.0,) + (1.0,) * 127)
-    with pytest.raises(NotImplementedError):
-        TORCH.run_batch(tp, ts, [TSpec(0, 2, 0, (1,), perturb=slow)])
-    het = convert.system_from_state(
-        convert.system_state(get_system("epyc_het")))
-    with pytest.raises(NotImplementedError):
-        TORCH.run_instance(tp[0], het, 2, 0, np.random.default_rng(0))
+    jp, tp, ts = _both(system, app, (0,))
+    pe_scale = (2.0,) + (1.0,) * 127
+    jr = JAX.run_batch(jp, system, [JSpec(0, a, 0, (1,), perturb=JIP(
+        pe_scale=pe_scale)) for a in (2, 7)])
+    slow = InstancePerturb(pe_scale=pe_scale)
+    tr = TORCH.run_batch(tp, ts, [TSpec(0, a, 0, (1,), perturb=slow)
+                                  for a in (2, 7)])
+    _assert_batches_equal(jr, tr)
+    jhet = get_system("epyc_het")
+    het = convert.system_from_state(convert.system_state(jhet))
+    a = TORCH.run_instance(tp[0], het, 2, 0, np.random.default_rng(0))
+    b = JAX.run_instance(jp[0], jhet, 2, 0, np.random.default_rng(0))
+    assert a.loop_time == b.loop_time and a.n_chunks == b.n_chunks
+    np.testing.assert_array_equal(a.finish, b.finish)
     # a neutral perturbation is exactly no perturbation
     neutral = InstancePerturb(pe_scale=(1.0,) * 128)
     a = TORCH.run_batch(tp, ts, [TSpec(0, 2, 0, (1,), perturb=neutral)])

@@ -47,6 +47,11 @@ POLICY_SLICE = {
     "repro_torch.sim", "repro_torch.sim.whatif", "repro_torch.sim.translog",
     "repro_torch.sim.campaign",
 }
+#: the perturbation / Python-engine slice's modules
+ENGINE_SLICE = {
+    "repro_torch.sim.perturb", "repro_torch.sim.backends.python",
+    "repro_torch.sim.engine", "repro_torch.sim.engine_torch",
+}
 
 
 def _env():
@@ -68,9 +73,10 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, env=_env(), timeout=240)
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["n"] == len(MODULES) >= 49
+    assert rec["n"] == len(MODULES) >= 53
     assert SERVING_SLICE <= set(MODULES)
     assert POLICY_SLICE <= set(MODULES)
+    assert ENGINE_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 

@@ -96,6 +96,66 @@ def test_kernel_equals_plain_version(card, P, K, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("system", ["broadwell", "epyc", "epyc_het"])
+def test_perturbed_backend_calls_equal_plain_versions(card, system):
+    """A perturbed portfolio (four failed PEs: speeds near 1e4, the adaptive
+    algorithms' weighted lanes forced whole, a noise burst) through the
+    backend on the card; each recorded fused call, and the same call on
+    precomputed costs, kernel against plain version."""
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.sim import InstancePerturb, InstanceSpec, get_system
+    sysm = get_system(system)
+    P = sysm.P
+    ip = InstancePerturb(pe_scale=tuple(
+        1e4 if p in (1, P // 2, P - 2, P - 1) else 1.0 for p in range(P)),
+        sigma_scale=6.0)
+    profiles = get_application("mandelbrot").loops(0)
+    specs = [InstanceSpec(li, alg, cp, (li, alg, cp), perturb=ip)
+             for li in range(len(profiles)) for alg in range(1, 12)
+             for cp in (0, 97)]
+    bk = TorchBatchedBackend(device=card)
+    bk.core_calls = []
+    bk.run_batch(profiles, sysm, specs)
+    calls = [a for n, a in bk.core_calls if n == "event_finish_fused"]
+    assert calls
+    whole = 0
+    for args in calls:
+        torch.testing.assert_close(T.event_finish_fused(*args),
+                                   T.event_finish_fused_ref(*args),
+                                   rtol=0, atol=0)
+        eargs = [T.prefix_costs(*args[:7])] + list(args[7:])
+        torch.testing.assert_close(T.event_finish(*eargs),
+                                   T.event_finish_ref(*eargs), rtol=0,
+                                   atol=0)
+        forced, count = args[11], args[12]
+        live = (torch.arange(forced.shape[1], device=card)[None, :]
+                < count.long()[:, None])
+        whole += int(((count > 0) & ~((forced < 0) & live).any(1)).sum())
+        assert float(args[7].max()) > 1e4 * 0.8
+    assert whole >= 5 * len(profiles)      # the weighted adaptive lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,K,B", [(128, 4096, 64), (20, 1024, 33)])
+def test_forced_whole_lanes_with_failed_pes(card, P, K, B):
+    """Every chunk of every lane forced, PE speeds up to 1.25e4."""
+    args = _inputs(P, K, B, card)
+    rng = np.random.default_rng(P + K)
+    count = args[-1]
+    args[-2] = torch.from_numpy(rng.integers(0, P, (B, K)).astype(
+        np.int32)).to(card)
+    mult = np.where(rng.random((B, P)) < 0.1, 1e4, 1.0).astype(np.float32)
+    args[7] = args[7] * torch.from_numpy(mult).to(card)
+    torch.testing.assert_close(T.event_finish_fused(*args),
+                               T.event_finish_fused_ref(*args), rtol=0,
+                               atol=0)
+    eargs = [T.prefix_costs(*args[:7])] + args[7:]
+    torch.testing.assert_close(T.event_finish(*eargs),
+                               T.event_finish_ref(*eargs), rtol=0, atol=0)
+    assert int(count.max()) == K
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     args = _inputs(8, 256, 12, card)
     eff = [T.prefix_costs(*args[:7])] + args[7:]

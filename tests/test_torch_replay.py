@@ -3,8 +3,8 @@ lockstep ``ReplayBatch``, ``run_selector``, ``run_campaign`` (Fig. 5),
 ``LoopWhatIf`` pricing and ``TransitionLogger`` logs of ``repro_torch.sim``
 equal those of ``repro.sim`` on the JAX batched backend, bit for bit —
 histories, totals, Q-tables and the expert ladder's position — and in the
-port the lockstep replay equals the sequential one.  Perturbed lanes and
-heterogeneous machines are not ported yet and must say so."""
+port the lockstep replay equals the sequential one, on clean, perturbed
+and heterogeneous lanes alike."""
 
 import dataclasses
 import inspect
@@ -35,6 +35,8 @@ from repro_torch.sim import campaign as PC  # noqa: E402
 from repro_torch.sim import (get_application, get_backend,  # noqa: E402
                              get_system, load_translog)
 from repro_torch.sim.backends import InstanceSpec as PSpec  # noqa: E402
+from repro_torch.sim.perturb import (  # noqa: E402
+    pe_slowdown_spec as P_pe_slowdown_spec)
 from repro_torch.sim.whatif import LoopWhatIf, noise_free  # noqa: E402
 
 JAX = JaxBatchedBackend(kernel="while_loop")
@@ -163,6 +165,7 @@ def test_run_campaign_fig5_bit_equal_to_reference():
     assert set(p.walls) == {"sweep_s", "replay_s"}
     # one cell through run_campaign_cell gives the same table
     cell = PC.run_campaign_cell("tc", "epyc", backend=TORCH,
+                                selector_backend=TORCH,
                                 selectors=PC.SELECTOR_GRID[:3], T=4, reps=1)
     assert cell.degradation() == {
         k: v for k, v in p.degradation().items() if k[0] in (
@@ -257,33 +260,46 @@ def test_translog_arrays_bit_equal_to_reference(tmp_path):
 
 
 def test_perturbed_and_heterogeneous_lanes_are_not_ported_yet():
-    spec = pe_slowdown_spec(128, factor=3.0, t0=0, t1=2)
-    with pytest.raises(NotImplementedError, match="perturb"):
-        PReplay([PCell("tc", "epyc", "QLearn", reward="LT", perturb=spec)],
-                T=2, backend=TORCH)
-    with pytest.raises(NotImplementedError, match="perturb"):
-        PC.run_selector("tc", "epyc", "QLearn", T=2, perturb=spec,
-                        backend=TORCH)
-    with pytest.raises(NotImplementedError, match="perturb"):
-        PC.run_selector_sequential("tc", "epyc", "QLearn", T=2,
-                                   perturb=spec, backend=TORCH)
+    """Perturbed lanes and heterogeneous machines, once refused, now replay
+    as the reference's do, bit for bit: lockstep, one-lane and sequential,
+    the sequential replay equal to the lockstep one."""
+    jspec = pe_slowdown_spec(128, factor=3.0, t0=0, t1=2)
+    pspec = P_pe_slowdown_spec(128, factor=3.0, t0=0, t1=2)
     het = sorted(HETERO_SYSTEMS)[0]
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        PReplay([PCell("tc", het, "QLearn", reward="LT")], T=2,
-                backend=TORCH).run()
+    lanes = [("tc", "epyc", "QLearn", "default", "LT"),
+             ("tc", het, "QLearn", "expChunk", "LT")]
+    ref = JReplay([JCell(*lanes[0], perturb=jspec), JCell(*lanes[1])],
+                  T=3, backend=JAX).run()
+    port = PReplay([PCell(*lanes[0], perturb=pspec), PCell(*lanes[1])],
+                   T=3, backend=TORCH).run()
+    for c, a, b in zip(lanes, port, ref):
+        assert_runs_equal(a, b, c)
+    one = PC.run_selector("tc", "epyc", "QLearn", reward="LT", T=3,
+                          perturb=pspec, backend=TORCH)
+    assert_runs_equal(one, ref[0])
+    seq = PC.run_selector_sequential("tc", "epyc", "QLearn", reward="LT",
+                                     T=3, perturb=pspec, backend=TORCH)
+    assert_runs_equal(seq, ref[0])
 
 
-def test_entry_points_run_on_the_card_by_default():
+def test_entry_points_run_on_the_card_by_default(monkeypatch):
+    # the cell's replays follow its sweep backend (the card) unless asked
     assert inspect.signature(PC.run_campaign_cell).parameters[
         "selector_backend"].default is None
+    assert get_backend("python").name == "python"
+    monkeypatch.setenv("REPRO_SIM_BACKEND", "jax")
     with pytest.raises(ValueError, match="unknown simulation backend"):
-        get_backend("python")
+        get_backend(None)
+    monkeypatch.delenv("REPRO_SIM_BACKEND")
     if torch.cuda.is_available():
+        assert get_backend(None).device.type == "cuda"
         pytest.skip("a CUDA device is present")
     lane = PCell("tc", "epyc", "QLearn", reward="LT")
-    for call in (lambda: PReplay([lane], T=1),
+    for call in (lambda: get_backend(None),
+                 lambda: PReplay([lane], T=1),
                  lambda: PC.run_selector("tc", "epyc", "QLearn", T=1),
                  lambda: PC.run_campaign([("tc", "epyc")], T=1, reps=1),
+                 lambda: PC.run_campaign_cell("tc", "epyc", T=1, reps=1),
                  lambda: LoopWhatIf(get_system("epyc"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
