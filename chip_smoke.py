@@ -76,7 +76,23 @@ kernels, and prints one JSON line per result.  Phases, in order:
     ``torch.profiler``; both event-loop kernels timed at the perturbed
     replay's largest call; (c) that grid at T = 4 with the onset at step 2 on the card and on the
     CPU, bit-equal; (d) ``simulate_loop`` on the ``event_finish`` kernel for
-    algorithms 1, 2, 3, 4 and 6, the card equal to the CPU.
+    algorithms 1, 2, 3, 4 and 6, the card equal to the CPU;
+14. the serving dispatcher and the fleet: (a) ``launch.serve.dispatch`` at
+    2,048 requests over 16 replicas with the per-token cost of [8]'s
+    decode, QLearn and SimPolicy (every wave priced on ``event_finish``);
+    (b) the fleet benchmark's tier-1 regime (4 x 8 replicas of SimPolicy
+    groups, the bursty trace of 120,000 requests) under round-robin and
+    what-if routing, each summary equal to ``results/bench_fleet.json``
+    (read as data) and the benchmark's gates, with walls, what-if calls,
+    ``PathTimes`` and host walls by layer, then about 20 waves under
+    ``torch.profiler``; (c) the fault benchmark's tier-1 regime (60,000
+    requests, group 1 down for [0.65, 0.95] of the trace), recovery on and
+    off, equal to ``results/bench_faults.json`` with its gates; (d) a
+    journaled 6,000-request faulty fleet resumed from an early, a middle
+    and the last snapshot, bit-equal; (e) a 6,000-request fleet under every
+    kind of fleet perturbation with hedged recovery, the kernels equal to
+    the plain event core on the card and to the CPU; (f) ``event_finish``
+    timed at the largest route call of (b).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -1407,6 +1423,418 @@ def phase_perturbed(device, flush, records, clean_totals):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the serving dispatcher and the fleet
+# ---------------------------------------------------------------------------
+
+#: the fleet benchmark's tier-1 regime (``results/bench_fleet.json``): 4
+#: groups x 8 replicas of SimPolicy dispatchers, 1024 requests a group a
+#: wave, the bursty trace of 120,000 requests from seed 0
+FLEET = dict(n_groups=4, replicas_per_group=8, selector="SimPolicy")
+FLEET_QUOTA = 1024
+FLEET_BURSTY = dict(base_rate=2000.0, burst_factor=6.0, p_enter=0.015,
+                    p_exit=0.05)
+FLEET_N = 120_000
+#: the fault benchmark's tier-1 regime (``results/bench_faults.json``):
+#: the same fleet on 60,000 requests, group 1 down for [0.65, 0.95] of the
+#: trace's duration, recovery with 6 retries against recovery off
+FAULTS_N = 60_000
+FAIL_GROUP, FAIL_WINDOW = 1, (0.65, 0.95)
+#: (d) and (e): journaled resume and card == plain card core == CPU
+FLEET_SMALL_N = 6_000
+#: requests of the profiled fleet window (about 20 waves)
+PROFILE_N = 2_500
+
+
+@contextlib.contextmanager
+def counting_what_ifs(bk):
+    """Count ``bk``'s what-if calls by kind and their host wall while the
+    context is open, and keep the ``event_finish`` arguments and host wall
+    of its largest ``what_if_routes`` call (by live chunks)."""
+    stats = {"what_if_wave": 0, "what_if_routes": 0, "wave_s": 0.0,
+             "routes_s": 0.0, "largest_routes": None}
+    wave, routes = bk.what_if_wave, bk.what_if_routes
+
+    def count_wave(*a, **k):
+        t0 = time.perf_counter()
+        out = wave(*a, **k)
+        stats["wave_s"] += time.perf_counter() - t0
+        stats["what_if_wave"] += 1
+        return out
+
+    def count_routes(*a, **k):
+        bk.core_calls = []
+        t0 = time.perf_counter()
+        out = routes(*a, **k)
+        wall = time.perf_counter() - t0
+        calls, bk.core_calls = bk.core_calls, None
+        stats["routes_s"] += wall
+        stats["what_if_routes"] += 1
+        for _, args in calls:
+            live = int(args[-1].long().sum())
+            best = stats["largest_routes"]
+            if best is None or live > best[0]:
+                stats["largest_routes"] = (live, args, wall, len(a[-1]))
+        return out
+
+    bk.what_if_wave, bk.what_if_routes = count_wave, count_routes
+    try:
+        yield stats
+    finally:
+        del bk.what_if_wave, bk.what_if_routes
+
+
+def call_counts(stats):
+    return {k: stats[k] for k in ("what_if_wave", "what_if_routes",
+                                  "wave_s", "routes_s")}
+
+
+def phase_dispatch(per_tok):
+    """[14a]: ``launch.serve.dispatch`` at the reference's 2,048 requests
+    over 16 replicas, QLearn and SimPolicy; SimPolicy prices every wave on
+    the default backend, the kernel."""
+    from repro_torch import kernels
+    from repro_torch.core import ALGORITHM_NAMES
+    from repro_torch.launch.serve import dispatch
+    from repro_torch.sim import get_backend
+    rows = []
+    for selector in ("QLearn", "SimPolicy"):
+        with counting_what_ifs(get_backend(None)) as stats:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary, shares = dispatch(per_tok, selector=selector)
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()["event_finish"]
+        top = max(shares, key=shares.get)
+        rows.append({"selector": selector, "per_token_s": per_tok,
+                     **summary, "mostly": ALGORITHM_NAMES[top],
+                     "shares": {ALGORITHM_NAMES[a]: n
+                                for a, n in sorted(shares.items())},
+                     **call_counts(stats), "event_finish": launches,
+                     "wall_s": wall})
+        require(summary["waves"] == 8 and np.isfinite(
+            summary["total_makespan"]) and summary["total_makespan"] > 0,
+            f"[14a] dispatch {selector}: {summary}")
+    q, s = rows
+    require(q["what_if_wave"] == 0 and q["event_finish"] == 0,
+            "[14a] QLearn priced a wave")
+    require(s["what_if_wave"] == 2 * s["waves"] and s["event_finish"] > 0,
+            f"[14a] SimPolicy: {s['what_if_wave']} what_if_wave calls, "
+            f"{s['event_finish']} event_finish launches over "
+            f"{s['waves']} waves")
+    return rows, s["event_finish"]
+
+
+def summary_diff(got, want):
+    return {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+            if got.get(k) != want.get(k)}
+
+
+def timing(obj, name, acc):
+    """Add the host wall of every outermost ``obj.name(...)`` call to
+    ``acc[name]`` (an instance attribute over the method; a call that
+    recurses, as ``WhatIfRouter.route`` on a sub-fleet, counts once)."""
+    fn = getattr(obj, name)
+    acc.setdefault(name, 0.0)
+    depth = [0]
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        depth[0] += 1
+        try:
+            return fn(*a, **k)
+        finally:
+            depth[0] -= 1
+            if not depth[0]:
+                acc[name] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def fleet_run(trace, router, **kw):
+    """One fleet run on a fresh backend on the card: the report, the
+    router and a record of the run's wall, launches, what-if calls,
+    ``PathTimes`` and host walls by layer (``route``: the router, its
+    pricing call included; ``run_wave``: the groups' dispatch waves, their
+    policies and wave pricing included); the what-if stats keep the
+    largest route call."""
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.serving import AdmissionControl, FleetSimulator
+    bk = TorchBatchedBackend()
+    fleet = FleetSimulator(router=router, backend=bk,
+                           admission=AdmissionControl(wave_quota=FLEET_QUOTA),
+                           **FLEET, **kw)
+    layers = {}
+    timing(fleet.router, "route", layers)
+    for sim in fleet.groups:
+        timing(sim, "run_wave", layers)
+    with counting_what_ifs(bk) as stats:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = fleet.run(trace, keep_latencies=True)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()["event_finish"]
+    require(launches > 0, f"[14] fleet {router} never launched event_finish")
+    return rep, fleet.router, stats, {
+        "router": router, "n": len(trace), "wall_s": wall,
+        "wall_ms_per_wave": wall * 1e3 / rep.waves,
+        "event_finish": launches, **call_counts(stats),
+        "layers_s": {**layers,
+                     "fleet_loop": wall - sum(layers.values())},
+        "path_times": dict(vars(bk.times))}
+
+
+def golden(path, *keys):
+    rec = json.loads((ROOT / "results" / path).read_text())
+    for k in keys:
+        rec = rec[k]
+    return rec
+
+
+def check_golden(name, got, want):
+    want = {k: v for k, v in want.items() if k != "wall_s"}
+    require(got == want, f"[14] {name} differs from the committed record: "
+            f"{summary_diff(got, want)}")
+
+
+def phase_fleet():
+    """[14b]: the fleet benchmark's tier-1 bursty regime, round-robin and
+    what-if routing, against ``results/bench_fleet.json``."""
+    from repro_torch.serving import make_trace
+    bench = golden("bench_fleet.json", "traces", "bursty")
+    require(bench["n"] == FLEET_N and bench["params"] == FLEET_BURSTY,
+            f"bench_fleet.json holds another regime: {bench['params']}")
+    trace = make_trace("bursty", FLEET_N, seed=0, **FLEET_BURSTY)
+    out, largest, launches = {}, None, {}
+    for router in ("round_robin", "whatif"):
+        rep, _, stats, rec = fleet_run(trace, router)
+        s = rep.summary()
+        check_golden(f"fleet {router}", s, bench["routers"][router])
+        require(s["throughput"] >= 0.9 * trace.mean_rate,
+                f"[14b] {router} throughput {s['throughput']} below 0.9 x "
+                f"{trace.mean_rate}")
+        out[router] = {**rec, "summary": s}
+        launches[f"fleet {router} [14b]"] = rec["event_finish"]
+        if router == "whatif":
+            largest = stats["largest_routes"]
+    rr, wi = out["round_robin"]["summary"], out["whatif"]["summary"]
+    require(wi["makespan"] < rr["makespan"] and wi["p95"] < rr["p95"],
+            f"[14b] whatif does not beat round-robin: {wi} vs {rr}")
+    return out, largest, launches, trace
+
+
+def profile_fleet(device, trace):
+    """About 20 waves of the what-if-routed fleet (the first
+    ``PROFILE_N`` requests of the bursty trace): the run on the host
+    clock, then a fresh fleet on the same backend (warm schedule caches)
+    under ``torch.profiler``: launches a wave, the card's busy ms a wave
+    and its idle share against the untraced wave."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.serving import AdmissionControl, FleetSimulator
+    reqs = trace.requests[:PROFILE_N]
+    bk = TorchBatchedBackend()
+
+    def fleet():
+        return FleetSimulator(router="whatif", backend=bk, **FLEET,
+                              admission=AdmissionControl(
+                                  wave_quota=FLEET_QUOTA))
+
+    fleet().run(reqs)                               # warm-up, not kept
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    rep = fleet().run(reqs)
+    wave_s = (time.perf_counter() - t0) / rep.waves
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced = fleet().run(reqs)
+        torch.cuda.synchronize(device)
+    kernels_us = sorted(((device_us(e), e.key, e.count)
+                         for e in prof.key_averages()
+                         if device_us(e) > 0 and not e.key.startswith("aten")),
+                        reverse=True)
+    busy_ms = sum(us for us, _, _ in kernels_us) / traced.waves / 1e3
+    return {"requests": PROFILE_N, "waves": rep.waves,
+            "wave_ms": wave_s * 1e3, "busy_ms_per_wave": busy_ms,
+            "idle_share": 1.0 - busy_ms / 1e3 / wave_s,
+            "launches_per_wave": sum(n for _, _, n in kernels_us)
+            / traced.waves,
+            "top": [(k[:60], us / traced.waves / 1e3, n / traced.waves)
+                    for us, k, n in kernels_us[:6]]}
+
+
+def outage(duration, window=FAIL_WINDOW):
+    from repro_torch.sim import FleetPerturb, ReplicaFailure
+    return FleetPerturb(failures=(ReplicaFailure(
+        group=FAIL_GROUP, t0=duration * window[0],
+        t1=duration * window[1]),))
+
+
+def phase_faults():
+    """[14c]: the fault benchmark's tier-1 regime, recovery on and off,
+    against ``results/bench_faults.json``."""
+    from repro_torch.serving import RecoveryPolicy, make_trace
+    cfg = golden("bench_faults.json", "config")
+    require(cfg["n"] == FAULTS_N and cfg["fail_group"] == FAIL_GROUP
+            and tuple(cfg["fail_window"]) == FAIL_WINDOW,
+            f"bench_faults.json holds another regime: {cfg}")
+    bench = golden("bench_faults.json", "recovery")
+    trace = make_trace("bursty", FAULTS_N, seed=0, **FLEET_BURSTY)
+    out, launches = {}, {}
+    for name, rec in (("on", RecoveryPolicy(max_retries=6)), ("off", None)):
+        rep, _, _, row = fleet_run(trace, "whatif",
+                                   perturb=outage(trace.duration),
+                                   recovery=rec)
+        s = rep.summary()
+        check_golden(f"faults {name}", s, bench[name])
+        r = s["recovery"]
+        require(r["completed"] + r["dead_lettered"] == FAULTS_N,
+                f"[14c] {name}: accounting {r}")
+        out[name] = {**row, "summary": s}
+        launches[f"faults {name} [14c]"] = row["event_finish"]
+    on, off = out["on"]["summary"], out["off"]["summary"]
+    require(on["makespan"] < off["makespan"] and on["p95"] < off["p95"]
+            and on["recovery"]["dead_lettered"] == 0,
+            f"[14c] recovery does not beat the blind baseline: {on} vs {off}")
+    return out, launches
+
+
+def phase_resume():
+    """[14d]: a journaled 6,000-request fleet with the outage and recovery
+    on, resumed on a fresh fleet from an early, a middle and the last
+    snapshot: bit-equal to the uninterrupted run."""
+    import shutil
+    import tempfile
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.serving import (AdmissionControl, FleetSimulator,
+                                     RecoveryPolicy, RunJournal, make_trace)
+    trace = make_trace("bursty", FLEET_SMALL_N, seed=0, **FLEET_BURSTY)
+    bk = TorchBatchedBackend()
+
+    def build():
+        return FleetSimulator(router="whatif", backend=bk, **FLEET,
+                              admission=AdmissionControl(
+                                  wave_quota=FLEET_QUOTA),
+                              perturb=outage(trace.duration),
+                              recovery=RecoveryPolicy(max_retries=6))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        full = str(Path(tmp) / "full")
+        ref = build().run(trace, keep_latencies=True,
+                          journal=RunJournal(full, every=10, keep=0))
+        waves = RunJournal(full, every=10, keep=0).waves()
+        require(len(waves) >= 3, f"[14d] {len(waves)} snapshots")
+        picks = (waves[0], waves[len(waves) // 2], waves[-1])
+        for wave in picks:
+            d = Path(tmp) / f"resume_{wave}"
+            d.mkdir()
+            shutil.copy(Path(full) / f"wave_{wave:09d}.npz", d)
+            res = build().run(trace, keep_latencies=True,
+                              journal=RunJournal(str(d), every=10, keep=0),
+                              resume=True)
+            require(res.summary() == ref.summary()
+                    and np.array_equal(res.latencies, ref.latencies),
+                    f"[14d] resume from wave {wave} diverged: "
+                    f"{summary_diff(res.summary(), ref.summary())}")
+    return {"n": FLEET_SMALL_N, "waves": ref.waves, "snapshots": len(waves),
+            "resumed_from": list(picks),
+            "retries": ref.recovery["retries"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_fleet_devices():
+    """[14e]: a 6,000-request fleet under a group slowdown, a partial
+    replica failure, a straggler and a whole-group outage, recovery with
+    hedges: the kernels, the plain event core on the card and the CPU give
+    equal summaries, latencies and router choices."""
+    from repro_torch import TorchBatchedBackend
+    from repro_torch.serving import (AdmissionControl, FleetSimulator,
+                                     RecoveryPolicy, make_trace)
+    from repro_torch.sim import (FleetPerturb, GroupSlowdown, ReplicaFailure,
+                                 ReplicaStraggler)
+    trace = make_trace("bursty", FLEET_SMALL_N, seed=0, **FLEET_BURSTY)
+    d = trace.duration
+    pert = FleetPerturb(
+        events=(GroupSlowdown(group=2, factor=3.0, t0=0.1 * d, t1=0.5 * d),),
+        failures=(ReplicaFailure(group=0, t0=0.2 * d, t1=0.7 * d,
+                                 replicas=(1, 5)),
+                  ReplicaFailure(group=FAIL_GROUP, t0=0.4 * d, t1=0.8 * d)),
+        stragglers=(ReplicaStraggler(group=3, factor=4.0, t0=0.3 * d,
+                                     t1=0.9 * d, replicas=(0, 2, 7)),))
+    out = {}
+    for name, bk in (("kernels", TorchBatchedBackend()),
+                     ("plain", TorchBatchedBackend(event_core="plain")),
+                     ("cpu", TorchBatchedBackend(device="cpu"))):
+        fleet = FleetSimulator(router="whatif", backend=bk, **FLEET,
+                               admission=AdmissionControl(
+                                   wave_quota=FLEET_QUOTA),
+                               perturb=pert,
+                               recovery=RecoveryPolicy(max_retries=6,
+                                                       hedge=True))
+        t0 = time.perf_counter()
+        rep = fleet.run(trace, keep_latencies=True)
+        out[name] = (rep, fleet.router.choices, time.perf_counter() - t0)
+    k, _, _ = out["kernels"]
+    for name in ("plain", "cpu"):
+        rep, choices, _ = out[name]
+        require(rep.summary() == k.summary()
+                and np.array_equal(rep.latencies, k.latencies)
+                and choices == out["kernels"][1],
+                f"[14e] the kernels and {name} differ: "
+                f"{summary_diff(rep.summary(), k.summary())}")
+    require(k.recovery["hedges"] > 0 and k.recovery["interrupted"] > 0,
+            f"[14e] no hedge or interruption: {k.recovery}")
+    return {"n": FLEET_SMALL_N, "waves": k.waves,
+            "recovery": k.recovery,
+            "walls_s": {n: v[2] for n, v in out.items()}}
+
+
+def phase_serving(device, flush, records, per_tok):
+    """Phase [14]; adds the serving paths' launches and ``event_finish``
+    timed at the fleet's largest route call to ``records``."""
+    from repro_torch.kernels import event_loop as ev
+    t_phase = time.perf_counter()
+    rows, dispatch_launches = phase_dispatch(per_tok)
+    for r in rows:
+        log(f"[14a] {json.dumps(r)}")
+    out, largest, launches, trace = phase_fleet()
+    for router, rec in out.items():
+        log(f"[14b] {json.dumps(rec)}")
+    log(f"[14b] both summaries == results/bench_fleet.json; whatif beats "
+        f"round-robin on makespan and p95; throughput >= 0.9 x "
+        f"{trace.mean_rate:.1f}")
+    log(f"[14b] whatif fleet, {PROFILE_N} requests: "
+        f"{json.dumps(profile_fleet(device, trace))}")
+    faults, fault_launches = phase_faults()
+    for name, rec in faults.items():
+        log(f"[14c] recovery {name}: {json.dumps(rec)}")
+    log("[14c] both summaries == results/bench_faults.json; recovery on "
+        "beats off on makespan and p95, none dead-lettered")
+    log(f"[14d] resume bit-equal: {json.dumps(phase_resume())}")
+    log(f"[14e] kernels == plain card core == CPU: "
+        f"{json.dumps(phase_fleet_devices())}")
+
+    live, args, wall, n_cands = largest
+    at = kernel_record("event_finish", launches["fleet whatif [14b]"],
+                       list(args), 0, ev.event_finish, ev.event_finish_ref,
+                       plain_bound, device, flush, reps=50, plain_reps=5)
+    require(at["max_abs_err"] == 0.0,
+            "event_finish disagrees at the fleet's largest route call")
+    plain = records[0]
+    plain["at_fleet_call"] = {
+        **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "shape", "chain_steps", "chain_ms",
+                              "floor_ms", "max_abs_err")},
+        "candidate_rows": n_cands, "host_wall_ms": wall * 1e3}
+    log(f"[14f] event_finish at the fleet's largest what_if_routes call "
+        f"{json.dumps(plain['at_fleet_call'])}")
+    plain["launches_by_path"].update({
+        "dispatch SimPolicy [14a]": dispatch_launches, **launches,
+        **fault_launches})
+    plain["launches"] = sum(plain["launches_by_path"].values())
+    log(f"[14] {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1680,7 +2108,11 @@ def run() -> int:
 
     log("[13] perturbed and heterogeneous machines on the kernels")
     phase_perturbed(device, flush, records, clean_totals)
-    log(f"[13] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[13] {time.perf_counter() - t_start:.1f} s so far")
+
+    log("[14] the serving dispatcher and the fleet on the kernels")
+    phase_serving(device, flush, records, zamba["per_token_s"])
+    log(f"[14] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,15 +30,18 @@ A *candidate simulator* is anything with::
     price(cands) -> Sequence[Observation] | array of predicted loop times
 
 Concrete simulators live next to their execution layers; the port has
-``repro_torch.sim.whatif.LoopWhatIf`` (DES loop instances), and the
-reference's dispatch-wave and step-plan pricers are still to come.
+``repro_torch.sim.whatif.LoopWhatIf`` (DES loop instances) and
+``repro_torch.serving.engine.WaveWhatIf`` (dispatch waves via
+``DispatchSimulator.what_if``); the reference's step-plan pricer is still
+to come.
 A simulator that cannot price yet (no context bound) raises
 :class:`SimUnavailable`; the policies degrade to their live fallbacks.
 
 ``REPRO_SIM_POLICY`` names the sim-assisted method consumers should default
-to (e.g. ``SimPolicy`` / ``SimHybrid``): ``SelectionService`` resolves
-it when no explicit method is given, so a whole campaign can be flipped
-to simulation-assisted selection from the environment.
+to (e.g. ``SimPolicy`` / ``SimHybrid``): ``SelectionService`` and
+``DispatchSimulator`` resolve it when no explicit method is given, so a
+whole campaign can be flipped to simulation-assisted selection from the
+environment.
 """
 
 from __future__ import annotations

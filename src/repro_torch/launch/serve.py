@@ -1,11 +1,12 @@
-"""Serving launcher, live half: continuous batching over real decode steps
-on the card, which calibrates the per-token cost of the replica cost model.
+"""Production serving launcher: continuous batching over real decode steps
+on the card, which calibrates the per-token cost of the replica cost model,
+then chunk-self-scheduled dispatch with online algorithm selection over the
+12-algorithm portfolio (the paper's technique, L3).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --requests 2048 --replicas 16 --selector QLearn --reward LT
 
-The port of the live path of ``repro.launch.serve``; its dispatch half
-(selection over the 12-algorithm dispatch portfolio) waits for the
-dispatcher's slice (ROADMAP queue 1).
+The port of ``repro.launch.serve``.
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import torch
 
 from ..configs import ARCH_NAMES, get_config, smoke_reduce
 from ..configs.base import ModelConfig
+from ..core import ALGORITHM_NAMES
 from ..data import Request, synthetic_requests
 from ..device import resolve_device
 from ..models import decode_step, init_decode_cache, init_params
-from ..serving import ContinuousBatcher
+from ..serving import ContinuousBatcher, DispatchSimulator, ReplicaCostModel
 
 
 def live(cfg: ModelConfig, params: Dict, *, slots: int = 8, device=None,
@@ -46,9 +48,34 @@ def live(cfg: ModelConfig, params: Dict, *, slots: int = 8, device=None,
     return stats, stats["wall"] / max(stats["tokens"], 1)
 
 
+def dispatch(per_tok: float, *, requests: int = 2048, replicas: int = 16,
+             selector: str = "QLearn", reward: str = "LT", backend=None
+             ) -> Tuple[Dict, Dict[int, int]]:
+    """The scale path: ``requests`` heavy-tailed requests dispatched in
+    waves over ``replicas`` replicas, each wave's algorithm chosen by
+    ``selector``, under a cost model of ``per_tok / 50`` seconds a token.
+    ``backend`` prices the waves of a simulation-assisted selector (None:
+    the batched engine on the card).  Returns the simulator's summary and
+    the number of waves each algorithm ran."""
+    reqs = synthetic_requests(requests, seed=7, heavy_tail=1.15)
+    sim = DispatchSimulator(replicas, selector=selector, reward=reward,
+                            cost_model=ReplicaCostModel(
+                                per_token=per_tok / 50),
+                            backend=backend)
+    sim.run(reqs)
+    shares: Dict[int, int] = {}
+    for st in sim.stats:
+        shares[st.algorithm] = shares.get(st.algorithm, 0) + 1
+    return sim.summary(), shares
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES, default="zamba2-7b")
+    ap.add_argument("--requests", type=int, default=2048)
+    ap.add_argument("--replicas", type=int, default=16)
+    ap.add_argument("--selector", default="QLearn")
+    ap.add_argument("--reward", default="LT")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--smoke", action="store_true", default=True)
     args = ap.parse_args(argv)
@@ -59,6 +86,14 @@ def main(argv=None) -> None:
     stats, per_tok = live(cfg, params, slots=args.slots)
     print(f"live: {stats['tokens_per_s']:.0f} tok/s on {args.slots} slots "
           f"({cfg.family}); per-token {per_tok * 1e6:.0f} us")
+
+    s, shares = dispatch(per_tok, requests=args.requests,
+                         replicas=args.replicas, selector=args.selector,
+                         reward=args.reward)
+    top = max(shares, key=shares.get)
+    print(f"dispatch[{args.selector}/{args.reward}]: "
+          f"makespan={s['total_makespan']:.3f}s mean LIB={s['mean_lib']:.1f}% "
+          f"waves={s['waves']} mostly->{ALGORITHM_NAMES[top]}")
 
 
 if __name__ == "__main__":

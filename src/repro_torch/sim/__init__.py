@@ -2,15 +2,17 @@
 campaign: the batched engine on the card (the portfolio sweep, the lockstep
 selector replays, candidate pricing for simulation-assisted selection and
 transition logging), the reference Python event loop on the host, and the
-perturbations and heterogeneous machines that make a cell non-stationary."""
+perturbations and heterogeneous machines that make a cell non-stationary,
+and the fleet perturbations of the serving layer."""
 
 from .backends import (EVENT_CAP, BatchResult, InstancePerturb, InstanceSpec,
                        LockstepRequest, SimBackend, backend_names,
                        get_backend, register_backend)
 from .engine import InstanceResult, run_instance
-from .perturb import (NoiseBurst, PEFailure, PESlowdown, PerturbationSpec,
-                      WorkloadDrift, drift_spec, noise_burst_spec,
-                      pe_slowdown_spec)
+from .perturb import (FleetPerturb, GroupSlowdown, NoiseBurst, PEFailure,
+                      PESlowdown, PerturbationSpec, ReplicaFailure,
+                      ReplicaStraggler, WorkloadDrift, drift_spec,
+                      noise_burst_spec, pe_slowdown_spec)
 from .campaign import (CHUNK_MODES, EXTENDED_SELECTOR_GRID, SELECTOR_GRID,
                        SIM_SELECTOR_GRID, CampaignResult, CellSpec, FixedRun,
                        PortfolioSweep, ReplayBatch, SelectorRun,
@@ -32,6 +34,7 @@ __all__ = [
     "register_backend", "InstanceResult", "run_instance",
     "PerturbationSpec", "PESlowdown", "PEFailure", "NoiseBurst",
     "WorkloadDrift", "pe_slowdown_spec", "noise_burst_spec", "drift_spec",
+    "FleetPerturb", "GroupSlowdown", "ReplicaFailure", "ReplicaStraggler",
     "CHUNK_MODES", "SELECTOR_GRID",
     "EXTENDED_SELECTOR_GRID", "SIM_SELECTOR_GRID", "CampaignResult",
     "CellSpec", "FixedRun", "PortfolioSweep", "ReplayBatch", "SelectorRun",

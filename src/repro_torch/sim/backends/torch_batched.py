@@ -405,6 +405,7 @@ class TorchBatchedBackend(SimBackend):
                      h: float) -> np.ndarray:
         """What-if core: unit speeds, busy offsets as jitter, ``h`` per
         chunk, no boundary cost; returns each row's makespan."""
+        t0 = time.perf_counter()
         A = eff.shape[0]
         speed = torch.ones((A, R), dtype=torch.float32, device=self.device)
         bcost = torch.zeros(A, dtype=torch.float32, device=self.device)
@@ -416,6 +417,8 @@ class TorchBatchedBackend(SimBackend):
                          self._to_dev(count))
         out = fin.max(dim=1).values.cpu().numpy()
         self._read_timers()
+        self.times.device_s += time.perf_counter() - t0
+        self.times.dispatches += 1
         return out
 
     # ---- batch execution --------------------------------------------------
@@ -613,24 +616,29 @@ class TorchBatchedBackend(SimBackend):
                           prefix: np.ndarray, cache: bool):
         """(starts int64, sizes int32, forced or None) of one what-if
         candidate over N requests on R replicas."""
+        t0 = time.perf_counter()
         if alg == 5:
             # steal cache keys include the per-wave unit cost, so it would
             # never hit — skip it
             unit = float(prefix[-1] - prefix[0]) / max(N, 1)
             st, sz, pes, _ = self._steal_schedule(
                 N, R, cp, _UniformStub(N, unit), _NoLocStub(), cache=False)
-            return st.astype(np.int64), sz, pes
-        sz = self._central_schedule(alg, N, R, cp, cache=cache)
-        st = np.concatenate([[0], np.cumsum(sz)[:-1]])
-        return st, sz.astype(np.int32), None
+            out = st.astype(np.int64), sz, pes
+        else:
+            sz = self._central_schedule(alg, N, R, cp, cache=cache)
+            st = np.concatenate([[0], np.cumsum(sz)[:-1]])
+            out = st, sz.astype(np.int32), None
+        self.times.rows_s += time.perf_counter() - t0
+        return out
 
-    @staticmethod
-    def _static_closed(prefix, avail, R: int, fixed: float) -> float:
+    def _static_closed(self, prefix, avail, R: int, fixed: float) -> float:
+        t0 = time.perf_counter()
         N = len(prefix) - 1
         bounds = np.linspace(0, N, R + 1).round().astype(int)
         free = np.asarray(avail, dtype=np.float64).copy()
         nonempty = np.diff(bounds) > 0
         free[:R] += np.diff(prefix[bounds]) + fixed * nonempty
+        self.times.closed_s += time.perf_counter() - t0
         return float(free.max())
 
     def _price_rows(self, R: int, rows, h: float) -> np.ndarray:
@@ -639,6 +647,7 @@ class TorchBatchedBackend(SimBackend):
         host-side (exact integer indexing), so the float32 rounding happens
         on the small per-chunk values, not on the large cumulative totals.
         Schedule slots are padded to a power-of-two bucket."""
+        t0 = time.perf_counter()
         K = _pow2_rows(max(len(r[3]) for r in rows))
         A = len(rows)
         eff = np.zeros((A, K), np.float32)
@@ -652,6 +661,7 @@ class TorchBatchedBackend(SimBackend):
             av[j] = avail
             if pes is not None:
                 forced[j, :n] = pes
+        self.times.pack_s += time.perf_counter() - t0
         return self._finish_rows(R, eff, cnt, forced, av,
                                  float(np.float32(h)))
 

@@ -1,5 +1,5 @@
-"""Perturbation & drift injection — the port's copy of the execution half
-of ``repro.sim.perturb``.
+"""Perturbation & drift injection — the port's copy of
+``repro.sim.perturb``.
 
 The selection problem only matters because workloads and systems are
 non-stationary: SimAS is selection *under perturbations*, and LB4OMP
@@ -18,15 +18,23 @@ declarative layer that makes the campaign's cells non-stationary:
 * :class:`PerturbationSpec` — a frozen, hashable bundle of the above,
   attached to a campaign :class:`~repro_torch.sim.campaign.CellSpec` (or
   passed to ``run_selector*``) and resolved per time step into the
-  backends' :class:`~repro_torch.sim.backends.base.InstancePerturb`.
+  backends' :class:`~repro_torch.sim.backends.base.InstancePerturb`;
+* :class:`FleetPerturb` / :class:`GroupSlowdown` / :class:`ReplicaFailure` /
+  :class:`ReplicaStraggler` — the serving-layer analogue: whole replica
+  groups slow down, individual replicas drop out of or degrade within their
+  group, all inside wall-clock windows (``FleetSimulator`` scales the
+  group's cost model, masks dead replicas out of dispatch, and exposes the
+  effective per-group capacity to routers and admission control; whole-group
+  failures interrupt in-flight work, which the fleet's
+  :class:`~repro_torch.serving.fleet.recovery.RecoveryPolicy`
+  retries/migrates).
 
 Execution-side injection happens inside the backends' shared precompute
 (per-PE speed multipliers and a sigma scale applied *before* the sequential
 event core), so the CUDA kernels and their plain versions see the same
 inputs, and a perturbation-off run is bit-equal to the clean one by
 construction: neutral multipliers are exactly 1.0 and no rng draw is added
-or reordered.  The serving layer's fleet perturbations are not part of this
-module.
+or reordered.
 
 Windows are half-open in time steps: active for ``t0 <= t < t1``
 (``t1=None`` means "until the end").
@@ -44,7 +52,8 @@ from .backends.base import InstancePerturb
 
 __all__ = [
     "FAILED_PE_FACTOR", "PESlowdown", "PEFailure", "NoiseBurst",
-    "WorkloadDrift", "PerturbationSpec", "InstancePerturb",
+    "WorkloadDrift", "PerturbationSpec", "GroupSlowdown", "ReplicaFailure",
+    "ReplicaStraggler", "FleetPerturb", "InstancePerturb",
     "pe_slowdown_spec", "noise_burst_spec", "drift_spec",
 ]
 
@@ -223,3 +232,147 @@ def drift_spec(kind: str, t0: int = 0, factor: float = 1.0,
     return PerturbationSpec(drifts=(WorkloadDrift(kind=kind, t0=t0,
                                                   factor=factor,
                                                   phase_shift=phase_shift),))
+
+
+# ---------------------------------------------------------------------------
+# fleet-level perturbations (serving layer)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GroupSlowdown:
+    """Replica group ``group`` serves ``factor``x slower for wall-clock
+    ``t0 <= now < t1`` (seconds, half-open; ``t1=None`` = until the end)."""
+
+    group: int
+    factor: float
+    t0: float = 0.0
+    t1: Optional[float] = None
+
+
+@dataclass(frozen=True)
+class ReplicaFailure:
+    """Replicas of ``group`` drop out for wall-clock ``t0 <= now < t1``
+    (seconds, half-open; ``t1=None`` = never rejoin).  ``replicas=None``
+    means the WHOLE group fails — the only failure shape that interrupts
+    in-flight work (sub-shard attribution does not exist at wave
+    granularity); a partial replica set is masked out of future dispatch
+    and pricing from ``t0`` on."""
+
+    group: int
+    t0: float = 0.0
+    t1: Optional[float] = None
+    replicas: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.replicas is not None:
+            object.__setattr__(self, "replicas",
+                               tuple(int(r) for r in self.replicas))
+
+
+@dataclass(frozen=True)
+class ReplicaStraggler:
+    """Replicas of ``group`` serve ``factor``x slower for wall-clock
+    ``t0 <= now < t1`` (``replicas=None`` = every replica — then equivalent
+    to :class:`GroupSlowdown`, but applied per replica inside the dispatch
+    loop instead of through the group cost model)."""
+
+    group: int
+    factor: float
+    t0: float = 0.0
+    t1: Optional[float] = None
+    replicas: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.replicas is not None:
+            object.__setattr__(self, "replicas",
+                               tuple(int(r) for r in self.replicas))
+
+
+def _wall_active(ev, now: float) -> bool:
+    return ev.t0 <= now and (ev.t1 is None or now < ev.t1)
+
+
+@dataclass(frozen=True)
+class FleetPerturb:
+    """Time-windowed fleet perturbations for ``FleetSimulator``:
+    group-level slowdowns (``events``), replica-level failures and
+    stragglers."""
+
+    events: Tuple[GroupSlowdown, ...] = ()
+    failures: Tuple[ReplicaFailure, ...] = ()
+    stragglers: Tuple[ReplicaStraggler, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "events", tuple(self.events))
+        object.__setattr__(self, "failures", tuple(self.failures))
+        object.__setattr__(self, "stragglers", tuple(self.stragglers))
+
+    def slowdowns(self, now: float, G: int) -> np.ndarray:
+        """(G,) multiplicative service-time slowdowns active at ``now``."""
+        f = np.ones(G)
+        for ev in self.events:
+            if _wall_active(ev, now):
+                f[ev.group % G] *= ev.factor
+        return f
+
+    @property
+    def has_replica_events(self) -> bool:
+        return bool(self.failures or self.stragglers)
+
+    def replica_state(self, now: float, G: int, R: int
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """``(alive, scale)`` — (G, R) dispatch-availability mask and
+        service-time multipliers active at ``now``; ``None`` while no
+        replica-level event is active (the clean path)."""
+        alive: Optional[np.ndarray] = None
+        scale: Optional[np.ndarray] = None
+        for ev in self.failures:
+            if _wall_active(ev, now):
+                if alive is None:
+                    alive = np.ones((G, R), dtype=bool)
+                reps = range(R) if ev.replicas is None else ev.replicas
+                for r in reps:
+                    alive[ev.group % G, r % R] = False
+        for ev in self.stragglers:
+            if _wall_active(ev, now):
+                if scale is None:
+                    scale = np.ones((G, R))
+                reps = range(R) if ev.replicas is None else ev.replicas
+                for r in reps:
+                    scale[ev.group % G, r % R] *= ev.factor
+        if alive is None and scale is None:
+            return None
+        return (np.ones((G, R), dtype=bool) if alive is None else alive,
+                np.ones((G, R)) if scale is None else scale)
+
+    def failure_start(self, g: int, G: int, R: int, lo: float, hi: float
+                      ) -> Optional[Tuple[float, float]]:
+        """Earliest WHOLE-group failure on group ``g`` starting strictly
+        inside ``(lo, hi)`` — the event that interrupts a shard dispatched
+        at ``lo`` predicted to drain at ``hi``.  Returns ``(t0, t1)`` with
+        ``t1 = inf`` for a permanent failure, or ``None``."""
+        best: Optional[Tuple[float, float]] = None
+        for ev in self.failures:
+            if ev.group % G != g:
+                continue
+            if ev.replicas is not None and \
+                    len({r % R for r in ev.replicas}) < R:
+                continue
+            if lo < ev.t0 < hi:
+                t1 = np.inf if ev.t1 is None else float(ev.t1)
+                if best is None or ev.t0 < best[0]:
+                    best = (float(ev.t0), t1)
+        return best
+
+    def next_change(self, now: float) -> Optional[float]:
+        """Earliest event boundary strictly after ``now`` — the instant the
+        fleet's availability/capacity next changes.  The run loop advances
+        here when every group is unroutable, so a fully-failed fleet waits
+        out the window instead of livelocking."""
+        bounds = []
+        for ev in (*self.events, *self.failures, *self.stragglers):
+            bounds.append(ev.t0)
+            if ev.t1 is not None:
+                bounds.append(ev.t1)
+        future = [b for b in bounds if b > now]
+        return min(future) if future else None

@@ -52,6 +52,12 @@ ENGINE_SLICE = {
     "repro_torch.sim.perturb", "repro_torch.sim.backends.python",
     "repro_torch.sim.engine", "repro_torch.sim.engine_torch",
 }
+#: the serving dispatcher and fleet slice's modules
+FLEET_SLICE = {
+    "repro_torch.serving.fleet", "repro_torch.serving.fleet.traces",
+    "repro_torch.serving.fleet.recovery", "repro_torch.serving.fleet.journal",
+    "repro_torch.serving.fleet.router", "repro_torch.serving.fleet.simulator",
+}
 
 
 def _env():
@@ -73,10 +79,11 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, env=_env(), timeout=240)
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["n"] == len(MODULES) >= 53
+    assert rec["n"] == len(MODULES) >= 59
     assert SERVING_SLICE <= set(MODULES)
     assert POLICY_SLICE <= set(MODULES)
     assert ENGINE_SLICE <= set(MODULES)
+    assert FLEET_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 

@@ -156,6 +156,40 @@ def test_forced_whole_lanes_with_failed_pes(card, P, K, B):
 
 
 @pytest.mark.cuda
+def test_fleet_with_a_group_outage_card_equals_cpu(card):
+    """A 3 x 4 what-if-routed fleet of SimPolicy groups on a bursty trace,
+    one whole group down for a third of it, recovery on: every wave and
+    route price through ``event_finish`` on the card, and the run equals
+    the CPU's bit for bit."""
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.serving import (FleetSimulator, RecoveryPolicy,
+                                     make_trace)
+    from repro_torch.sim import FleetPerturb, ReplicaFailure
+    trace = make_trace("bursty", 1500, seed=7, base_rate=2000.0,
+                       burst_factor=6.0, p_enter=0.015, p_exit=0.05)
+    d = trace.duration
+    pert = FleetPerturb(failures=(ReplicaFailure(group=1, t0=d * 0.25,
+                                                 t1=d * 0.6),))
+    reps = []
+    for device in (card, "cpu"):
+        fleet = FleetSimulator(n_groups=3, replicas_per_group=4,
+                               router="whatif", selector="SimPolicy",
+                               backend=TorchBatchedBackend(device=device),
+                               perturb=pert,
+                               recovery=RecoveryPolicy(max_retries=6))
+        n0 = T.event_finish.launches
+        reps.append((fleet.run(trace, keep_latencies=True),
+                     fleet.router.choices, T.event_finish.launches - n0))
+    (card_rep, card_choices, launched), (cpu_rep, cpu_choices, none) = reps
+    assert launched > 0 and none == 0
+    assert kernels.launch_counts()["event_finish"] >= launched
+    assert card_rep.summary() == cpu_rep.summary()
+    assert np.array_equal(card_rep.latencies, cpu_rep.latencies)
+    assert card_choices == cpu_choices
+    assert card_rep.recovery["interrupted"] > 0
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     args = _inputs(8, 256, 12, card)
     eff = [T.prefix_costs(*args[:7])] + args[7:]

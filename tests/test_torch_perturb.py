@@ -124,9 +124,7 @@ def test_spec_errors_and_constants():
     assert spec.slowdowns[0].pes == (1,) and hash(spec) == hash(
         PP.PerturbationSpec(slowdowns=(PP.PESlowdown((1,), 2),)))
     assert PP.PerturbationSpec().instance_perturb(0, 8) is None
-    assert set(PP.__all__) == set(JP.__all__) - {
-        "GroupSlowdown", "ReplicaFailure", "ReplicaStraggler",
-        "FleetPerturb"}
+    assert set(PP.__all__) == set(JP.__all__)
 
 
 @pytest.mark.parametrize("kind,kw", [
