@@ -92,7 +92,26 @@ kernels, and prints one JSON line per result.  Phases, in order:
     and the last snapshot, bit-equal; (e) a 6,000-request fleet under every
     kind of fleet perturbation with hedged recovery, the kernels equal to
     the plain event core on the card and to the CPU; (f) ``event_finish``
-    timed at the largest route call of (b).
+    timed at the largest route call of (b);
+15. async dispatch and the lane split: the ``mandelbrot``/``epyc`` T = 500
+    sweep synchronous and double-buffered in turns (sync, async, async,
+    sync), bit-equal with equal launches, with each mode's walls,
+    ``PathTimes`` (``pack_s`` beside ``launch_s`` and the drain's wait
+    ``device_s``) and the card's idle share (its busy time from one more
+    sweep under ``torch.profiler``); the Fig. 5 grid's lockstep replay at
+    T = 50 and the what-if calls of [5], async against sync, bit-equal;
+    the split path at ``data_parallel=1`` against an explicit one-device
+    list (the one card holds no split above one device);
+16. learned-selection training, ``benchmarks/bench_learned.py::smoke``'s
+    size on the card: the transition log of its 6 training cells and
+    their PE-slowdown twins at T = 12, 250 AdamW steps of the policy net
+    (hidden 24), the held-out ``tc``/``epyc`` regret gates (Learned beats
+    mid-exploration QLearn and RandomSel, LearnedHybrid no worse than
+    Hybrid) and the distilled ladder within 1 + ``DISTILL_BOUND`` of the
+    net; training resumed from its step-125 checkpoint and an
+    injected-failure run, each bit-equal to the run; the card against
+    the CPU from one start within ``TRAIN_REL_TOL``; and the train step's
+    ms, launches and idle share under ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -729,6 +748,20 @@ def device_us(e):
     return 0.0
 
 
+def traced_busy(prof, units: int, top: int = 5):
+    """The card's busy ms (its kernels' and copies' device time) and
+    launches per unit of a ``torch.profiler`` window over ``units``
+    units of work, with the ``top`` entries that take the most."""
+    rows = sorted(((device_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if device_us(e) > 0 and not e.key.startswith("aten")),
+                  reverse=True)
+    return (sum(us for us, _, _ in rows) / units / 1e3,
+            sum(n for _, _, n in rows) / units,
+            [(k[:60], us / units / 1e3, n / units)
+             for us, k, n in rows[:top]])
+
+
 def kernel_parts_ms(fn, args, names, device, reps=3):
     """Each named kernel's mean card time (ms) within one call of ``fn``,
     from ``torch.profiler`` over ``reps`` calls after one to warm up."""
@@ -765,14 +798,9 @@ def profile_decode(cfg, params, device, slots, max_len):
                              ProfilerActivity.CUDA]) as prof:
         decode_step(cfg, params, cache, tok)
         torch.cuda.synchronize(device)
-    kernels_us = sorted(((device_us(e), e.key, e.count)
-                         for e in prof.key_averages()
-                         if device_us(e) > 0 and not e.key.startswith("aten")),
-                        reverse=True)
-    busy_us = sum(us for us, _, _ in kernels_us)
-    return {"step_s": step_s, "busy_ms": busy_us / 1e3,
-            "launches": sum(n for _, _, n in kernels_us),
-            "top": [(k[:60], us / 1e3, n) for us, k, n in kernels_us[:8]]}
+    busy_ms, launches, top = traced_busy(prof, 1, top=8)
+    return {"step_s": step_s, "busy_ms": busy_ms, "launches": launches,
+            "top": top}
 
 
 def phase_small_card_vs_cpu(device):
@@ -1060,17 +1088,11 @@ def profile_replay(device, warm: int = 8, steps: int = 4, lanes=None):
             rb.step(t)
         torch.cuda.synchronize(device)
     traced_s = (time.perf_counter() - t0) / steps
-    kernels_us = sorted(((device_us(e), e.key, e.count)
-                         for e in prof.key_averages()
-                         if device_us(e) > 0 and not e.key.startswith("aten")),
-                        reverse=True)
-    busy_ms = sum(us for us, _, _ in kernels_us) / steps / 1e3
+    busy_ms, launches, top = traced_busy(prof, steps, top=8)
     return {"step_s": step_s, "traced_step_s": traced_s,
             "busy_ms_per_step": busy_ms,
             "idle_share": 1.0 - busy_ms / 1e3 / step_s,
-            "launches_per_step": sum(n for _, _, n in kernels_us) / steps,
-            "top": [(k[:60], us / steps / 1e3, n / steps)
-                    for us, k, n in kernels_us[:8]]}
+            "launches_per_step": launches, "top": top}
 
 
 def replay_checks(device):
@@ -1647,18 +1669,11 @@ def profile_fleet(device, trace):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced = fleet().run(reqs)
         torch.cuda.synchronize(device)
-    kernels_us = sorted(((device_us(e), e.key, e.count)
-                         for e in prof.key_averages()
-                         if device_us(e) > 0 and not e.key.startswith("aten")),
-                        reverse=True)
-    busy_ms = sum(us for us, _, _ in kernels_us) / traced.waves / 1e3
+    busy_ms, launches, top = traced_busy(prof, traced.waves, top=6)
     return {"requests": PROFILE_N, "waves": rep.waves,
             "wave_ms": wave_s * 1e3, "busy_ms_per_wave": busy_ms,
             "idle_share": 1.0 - busy_ms / 1e3 / wave_s,
-            "launches_per_wave": sum(n for _, _, n in kernels_us)
-            / traced.waves,
-            "top": [(k[:60], us / traced.waves / 1e3, n / traced.waves)
-                    for us, k, n in kernels_us[:6]]}
+            "launches_per_wave": launches, "top": top}
 
 
 def outage(duration, window=FAIL_WINDOW):
@@ -1832,6 +1847,365 @@ def phase_serving(device, flush, records, per_tok):
         **fault_launches})
     plain["launches"] = sum(plain["launches_by_path"].values())
     log(f"[14] {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: async dispatch and the lane split
+# ---------------------------------------------------------------------------
+
+#: the sweep's depth (the main path's) and the lockstep replay's (the
+#: Fig. 5 grid) held async == sync
+ASYNC_SWEEP_T, ASYNC_REPLAY_T = 500, 50
+
+
+def sweep_busy():
+    """The T = 500 ``mandelbrot`` sweep once more, async, under
+    ``torch.profiler``: the card's busy seconds in it and its launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import TorchBatchedBackend
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sweep("mandelbrot", TorchBatchedBackend(), T=ASYNC_SWEEP_T, reps=3)
+    busy_ms, launches, top = traced_busy(prof, 1)
+    return busy_ms / 1e3, launches, top
+
+
+def phase_async(device, records):
+    """Phase [15]: the T = 500 ``mandelbrot`` sweep sync and async in turns
+    (sync, async, async, sync), bit-equal, with walls, ``PathTimes`` and
+    the card's idle share; the Fig. 5 grid's lockstep replay at T = 50
+    and the what-if calls async against sync; the split path at
+    ``data_parallel=1`` against an explicit one-device list.  Adds the
+    phase's launches to ``records``."""
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.sim import SIM_SELECTOR_GRID, run_campaign
+    t_phase = time.perf_counter()
+    runs = {"sync": [], "async": []}
+    fused = {}
+    for label in ("sync", "async", "async", "sync"):
+        bk = TorchBatchedBackend(async_dispatch=label == "async")
+        kernels.reset_launch_counts()
+        sw, wall = sweep("mandelbrot", bk, T=ASYNC_SWEEP_T, reps=3)
+        n = kernels.launch_counts()["event_finish_fused"]
+        require(fused.setdefault(label, n) == n, "launch counts vary")
+        check_sweep(sw, ASYNC_SWEEP_T, 3)
+        runs[label].append((sw, wall, dict(vars(bk.times))))
+    require(fused["sync"] == fused["async"] > 0,
+            f"sync and async sweeps launched {fused}")
+    first = runs["sync"][0][0]
+    require(all(same_sweeps([first], [sw]) for r in runs.values()
+                for sw, _, _ in r), "async sweeps differ from sync ones")
+    busy_s, traced_launches, top = sweep_busy()
+    out = {"phase": "async dispatch", "sweep": "mandelbrot/epyc",
+           "T": ASYNC_SWEEP_T, "reps": 3, "fused_launches": fused["async"],
+           "busy_s": busy_s, "traced_launches": traced_launches, "top": top}
+    for label, rs in runs.items():
+        walls = [w for _, w, _ in rs]
+        out[label] = {
+            "walls_s": walls, "wall_s": sum(walls) / len(walls),
+            "idle_share": 1.0 - busy_s / (sum(walls) / len(walls)),
+            **{k: sum(t[k] for _, _, t in rs) / len(rs) for k in (
+                "rows_s", "pack_s", "closed_s", "launch_s", "device_s",
+                "h2d_ms", "draws_ms", "core_ms")},
+            "dispatches": rs[0][2]["dispatches"]}
+    log(json.dumps(out))
+
+    replays, whatifs, times = {}, {}, {}
+    for label in ("sync", "async"):
+        bk = TorchBatchedBackend(async_dispatch=label == "async")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        replays[label] = run_campaign(
+            [REPLAY_CELL], T=ASYNC_REPLAY_T, reps=3,
+            selectors=SIM_SELECTOR_GRID, backend=bk)[REPLAY_CELL]
+        torch.cuda.synchronize(device)
+        times[label] = time.perf_counter() - t0
+        fused[f"replay {label}"] = kernels.launch_counts()[
+            "event_finish_fused"]
+        kernels.reset_launch_counts()
+        whatifs[label] = what_if_calls(bk)
+        fused[f"what-if {label}"] = kernels.launch_counts()["event_finish"]
+    require(same_campaign(replays["sync"], replays["async"]),
+            "the async lockstep replay differs from the sync one")
+    require(fused["replay async"] > 0 and fused["what-if async"] > 0,
+            "the async replay or what-if calls launched no kernel")
+    require(all(np.array_equal(a, b) for a, b in zip(whatifs["sync"],
+                                                     whatifs["async"])),
+            "async what-if prices differ from sync ones")
+    log(f"[15] Fig. 5 grid, T = {ASYNC_REPLAY_T}: async == sync "
+        f"({len(replays['async'].selector_runs)} lanes; walls "
+        f"{json.dumps(times)}); what_if_wave / what_if_routes async == "
+        f"sync")
+
+    split = {}
+    for label, bk in (("data_parallel=1", TorchBatchedBackend(
+            data_parallel=1)), ("devices=[cuda:0]", TorchBatchedBackend(
+            devices=[torch.device("cuda", 0)]))):
+        require(len(bk.mesh) == 1, f"{label}: mesh {bk.mesh}")
+        split[label] = (sweep("tc", bk, reps=3)[0], what_if_calls(bk))
+    (sa, wa), (sb, wb) = split.values()
+    require(same_sweeps([sa], [sb]) and all(
+        np.array_equal(a, b) for a, b in zip(wa, wb)),
+        "data_parallel=1 and an explicit one-device list differ")
+    log(f"[15] split path, one device: data_parallel=1 == devices=[cuda:0] "
+        f"(tc sweep, what-if calls); {torch.cuda.device_count()} card(s), "
+        f"so no split above one device runs here")
+    fz, plain = records[1], records[0]
+    fz["launches_by_path"].update({
+        "async sweep [15]": fused["async"],
+        "async replay [15]": fused["replay async"]})
+    fz["launches"] = sum(fz["launches_by_path"].values())
+    plain["launches_by_path"]["async what-if [15]"] = fused["what-if async"]
+    plain["launches"] = sum(plain["launches_by_path"].values())
+    log(f"[15] {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: learned-selection training
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/bench_learned.py::smoke``'s size: its training cells, its
+#: held-out cell, the selectors it gates, its distillation bound
+TRAIN_CELLS = (("tc", "broadwell"), ("tc", "cascadelake"),
+               ("tc", "epyc_het"), ("mandelbrot", "epyc"),
+               ("hacc", "epyc_het"), ("hacc", "cascadelake"))
+HELDOUT_CELLS = (("tc", "epyc"),)
+EVAL_SELECTORS = [("RandomSel", None), ("QLearn", "LT"), ("Hybrid", "LT"),
+                  ("SimPolicy", "LT"), ("Learned", "LT"),
+                  ("LearnedHybrid", "LT")]
+DISTILL_BOUND = 0.15
+TRAIN_T, TRAIN_STEPS, TRAIN_HIDDEN, HELDOUT_T = 12, 250, 24, 16
+#: the injected-failure run: its failure rate and seed
+FAIL_RATE, FAIL_SEED = 0.02, 7
+#: training on the card against the CPU from one start, 250 steps: every
+#: logged loss within TRAIN_REL_TOL of the CPU's, relative, and every
+#: final weight within TRAIN_REL_TOL of its tensor's largest magnitude.
+#: The two run the same float32 arithmetic with sums in other orders
+#: (cuBLAS's products, the card's reductions), and Adam carries the
+#: differences forward from step to step; XLA's CPU code against torch's
+#: drifts by about 1e-6 over these steps on the CPU, so 1e-3 leaves a
+#: wide margin while a wrong gradient or update misses it at once.
+TRAIN_REL_TOL = 1e-3
+
+
+def _tag(sel, reward):
+    return f"{sel}+{reward}" if reward else sel
+
+
+def collect(cells, backend, T: int = TRAIN_T, seed: int = 0,
+            perturbed: bool = True):
+    """The counterfactual transition log of ExpertSel replays over
+    ``cells`` (and a PE-slowdown twin of each), priced on ``backend``."""
+    from repro_torch.sim import (CellSpec, ReplayBatch, TransitionLogger,
+                                 get_system, pe_slowdown_spec)
+    tl = TransitionLogger(sim_backend=backend)
+    specs = [CellSpec(app=a, system=s, selector="ExpertSel")
+             for a, s in cells]
+    if perturbed:
+        for a, s in cells:
+            specs.append(CellSpec(
+                app=a, system=s, selector="ExpertSel",
+                perturb=pe_slowdown_spec(get_system(s).P, frac=0.25,
+                                         factor=6.0, t0=T // 4,
+                                         t1=(3 * T) // 4)))
+    ReplayBatch(specs, T=T, seed=seed, translog=tl, backend=backend).run()
+    return tl.arrays()
+
+
+def heldout_regret(state, backend, T: int = HELDOUT_T, seed: int = 0):
+    """Fig. 5 degradation of each of ``EVAL_SELECTORS`` on the held-out
+    cells, the trained state installed as the process default."""
+    from repro_torch.core import set_default_state
+    from repro_torch.sim import run_campaign
+    set_default_state(state)
+    try:
+        res = run_campaign(list(HELDOUT_CELLS), T=T, reps=1,
+                           selectors=EVAL_SELECTORS,
+                           chunk_modes=("default",), seed=seed,
+                           backend=backend)
+    finally:
+        set_default_state(None)
+    out = {}
+    for (app, system), cell in res.items():
+        deg = cell.degradation()
+        out[f"{app}/{system}"] = {_tag(sel, reward): deg[(sel, "default",
+                                                          reward)]
+                                  for sel, reward in EVAL_SELECTORS}
+    return out
+
+
+def distill_check(state, train_arrays, backend):
+    """The ladder fit on the training transitions, its chosen-cost total on
+    the held-out transitions against the net's."""
+    from repro_torch.core import distill_ladder
+    from repro_torch.core.learned import mlp_forward, params_from_state
+    ladder = distill_ladder(state, train_arrays["features"],
+                            regret_bound=DISTILL_BOUND)
+    held = collect(HELDOUT_CELLS, backend, perturbed=False)
+    X, costs = held["features"], np.asarray(held["costs"], np.float64)
+    net = np.argmin(mlp_forward(params_from_state(state["params"]),
+                                X.astype(np.float32)), axis=1)
+    rows = np.arange(len(costs))
+    return {"teacher_agreement": ladder.teacher_agreement,
+            "n_leaves": ladder.n_leaves, "heldout_rows": len(rows),
+            "heldout_cost_ratio": float(costs[rows, ladder.predict(X)].sum()
+                                        / costs[rows, net].sum()),
+            "rules": ladder.describe()}
+
+
+def trainer(ds, ckpt_dir, device, **kw):
+    from repro_torch.runtime import PolicyTrainer, PolicyTrainerConfig
+    cfg = PolicyTrainerConfig(ckpt_dir=ckpt_dir, n_steps=TRAIN_STEPS,
+                              hidden=TRAIN_HIDDEN, seed=0, **kw)
+    return PolicyTrainer(ds, cfg, device=device)
+
+
+def same_params(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def train_checks(ds, main, tmp, device):
+    """Resume from the step-125 checkpoint and an injected-failure run,
+    each bit-equal to the main run; the card against the CPU from one
+    start (the seed's weights as numpy, converted onto each device and
+    saved as each run's step-0 checkpoint)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import policy_trainer_state_from_jax
+    from repro_torch.optim import AdamWState
+    from repro_torch.runtime.policy_trainer import forward
+    cut = trainer(ds, f"{tmp}/cut", device)
+    cut.train(TRAIN_STEPS // 2)
+    resumed = trainer(ds, f"{tmp}/cut", device).train()
+    require(resumed["final_step"] == TRAIN_STEPS
+            and same_params(resumed["params"], main["params"])
+            and same_params(resumed["opt"].m, main["opt"].m),
+            "training resumed from step 125 differs from the run")
+    faulty = trainer(ds, f"{tmp}/faulty", device, failure_rate=FAIL_RATE,
+                     failure_seed=FAIL_SEED).train()
+    require(faulty["restarts"] > 0, "failure injection never fired")
+    require(same_params(faulty["params"], main["params"]),
+            "the injected-failure run differs from the clean run")
+    params, opt = trainer(ds, f"{tmp}/init", "cpu")._init_state()
+    numpy = {k: v.numpy() for k, v in params.items()}
+    opt = AdamWState(step=opt.step.numpy(),
+                     m={k: v.numpy() for k, v in opt.m.items()},
+                     v={k: v.numpy() for k, v in opt.v.items()})
+    runs = []
+    for label, dev in (("card", device), ("cpu", "cpu")):
+        p, o = policy_trainer_state_from_jax(numpy, opt, device=dev)
+        CheckpointManager(f"{tmp}/{label}").save(0, {"params": p, "opt": o})
+        runs.append(trainer(ds, f"{tmp}/{label}", dev).train())
+    card, cpu = runs
+    loss_rel = float(np.max(np.abs(np.subtract(card["losses"],
+                                               cpu["losses"]))
+                            / np.abs(cpu["losses"])))
+    param_rel = max(float((card["params"][k].cpu() - v).abs().max()
+                          / v.abs().max()) for k, v in cpu["params"].items())
+    x, _, _ = ds.split("train")
+    with torch.no_grad():
+        picks = [forward(r["params"], torch.from_numpy(x).to(d)).argmin(1)
+                 .cpu() for r, d in ((card, device), (cpu, "cpu"))]
+    out = {"resumed_from": TRAIN_STEPS // 2, "faulty_restarts":
+           faulty["restarts"], "card_vs_cpu_loss_rel": loss_rel,
+           "card_vs_cpu_param_rel": param_rel,
+           "card_vs_cpu_pick_agreement": float(
+               (picks[0] == picks[1]).float().mean()),
+           "tolerance": TRAIN_REL_TOL}
+    require(loss_rel <= TRAIN_REL_TOL and param_rel <= TRAIN_REL_TOL,
+            f"card vs CPU training outside {TRAIN_REL_TOL}: {out}")
+    return out
+
+
+def train_step_profile(ds, tmp, device, steps: int = 60):
+    """``steps`` training steps on the host clock, then as many again (a
+    fresh run) under ``torch.profiler``: ms a step, the card's busy ms and
+    launches a step, its idle share against the untraced step."""
+    from torch.profiler import ProfilerActivity, profile
+    kw = dict(ckpt_every=10 ** 6)
+    tr = trainer(ds, f"{tmp}/warm", device, **kw)
+    tr.train(8)                                      # warm-up, not kept
+    t0 = time.perf_counter()
+    trainer(ds, f"{tmp}/timed", device, **kw).train(steps)
+    step_s = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer(ds, f"{tmp}/traced", device, **kw).train(steps)
+        torch.cuda.synchronize(device)
+    busy_ms, launches, top = traced_busy(prof, steps)
+    return {"steps": steps, "step_ms": step_s * 1e3,
+            "busy_ms_per_step": busy_ms, "launches_per_step": launches,
+            "idle_share": 1.0 - busy_ms / 1e3 / step_s, "top": top}
+
+
+def phase_training(device, records):
+    """Phase [16]: ``benchmarks/bench_learned.py::smoke`` on the card —
+    the translog of its 6 training cells and their perturbed twins at T =
+    12, 250 steps of training (hidden 24), the held-out ``tc``/``epyc``
+    regret gates and the distilled ladder's bound; then resume, an
+    injected-failure run, the card against the CPU and the train step's
+    profile.  Adds the phase's launches to ``records``."""
+    import signal
+    import tempfile
+    from repro_torch import TorchBatchedBackend, kernels
+    from repro_torch.runtime import (PolicyTrainerConfig, TransitionDataset,
+                                     train_policy_state)
+    t_phase = time.perf_counter()
+    bk = TorchBatchedBackend()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    arrays = collect(TRAIN_CELLS, bk)
+    collect_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sigterm = signal.getsignal(signal.SIGTERM)
+        try:        # the trainer's preemption handler, for this run only
+            state, main = train_policy_state(
+                arrays, f"{tmp}/main", cfg=PolicyTrainerConfig(
+                    ckpt_dir=f"{tmp}/main", n_steps=TRAIN_STEPS,
+                    hidden=TRAIN_HIDDEN, seed=0), device=device)
+        finally:
+            signal.signal(signal.SIGTERM, sigterm)
+        train_s = time.perf_counter() - t0
+        losses = main["losses"]
+        require(len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses))
+                and losses[-1] < losses[0], f"training loss {losses[::50]}")
+        t0 = time.perf_counter()
+        reg = heldout_regret(state, bk)["tc/epyc"]
+        heldout_s = time.perf_counter() - t0
+        distilled = distill_check(state, arrays, bk)
+        launches = kernels.launch_counts()
+        require(launches["event_finish_fused"] > 0,
+                "the training path never launched event_finish_fused")
+        log(json.dumps({
+            "phase": "learned training", "cells": len(TRAIN_CELLS),
+            "T": TRAIN_T, "transitions": len(arrays["features"]),
+            "collect_s": collect_s, "steps": TRAIN_STEPS,
+            "hidden": TRAIN_HIDDEN, "train_s": train_s,
+            "first_loss": losses[0], "final_loss": losses[-1],
+            "train_regret": main["train_regret"],
+            "heldout_T": HELDOUT_T, "heldout_s": heldout_s,
+            "heldout_regret_pct": reg, "distilled": distilled,
+            "launches": launches}))
+        require(reg["Learned+LT"] < reg["QLearn+LT"],
+                f"Learned {reg['Learned+LT']} % did not beat "
+                f"mid-exploration QLearn {reg['QLearn+LT']} %")
+        require(reg["Learned+LT"] < reg["RandomSel"],
+                f"Learned {reg['Learned+LT']} % did not beat RandomSel "
+                f"{reg['RandomSel']} %")
+        require(reg["LearnedHybrid+LT"] <= reg["Hybrid+LT"] + 1e-9,
+                f"LearnedHybrid {reg['LearnedHybrid+LT']} % worse than "
+                f"Hybrid {reg['Hybrid+LT']} %")
+        require(distilled["heldout_cost_ratio"] <= 1.0 + DISTILL_BOUND,
+                f"the distilled ladder's held-out cost ratio "
+                f"{distilled['heldout_cost_ratio']} exceeds "
+                f"{1.0 + DISTILL_BOUND}")
+        ds = TransitionDataset(arrays)
+        log(f"[16] {json.dumps(train_checks(ds, main, tmp, device))}")
+        log(f"[16] train step: "
+            f"{json.dumps(train_step_profile(ds, tmp, device))}")
+    fz = records[1]
+    fz["launches_by_path"]["learned training [16]"] = launches[
+        "event_finish_fused"]
+    fz["launches"] = sum(fz["launches_by_path"].values())
+    log(f"[16] {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2112,7 +2486,15 @@ def run() -> int:
 
     log("[14] the serving dispatcher and the fleet on the kernels")
     phase_serving(device, flush, records, zamba["per_token_s"])
-    log(f"[14] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[14] {time.perf_counter() - t_start:.1f} s so far")
+
+    log("[15] async dispatch and the lane split on the kernels")
+    phase_async(device, records)
+    log(f"[15] {time.perf_counter() - t_start:.1f} s so far")
+
+    log("[16] learned-selection training on the card")
+    phase_training(device, records)
+    log(f"[16] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ take that state out of any object with the reference's fields as plain
 numpy arrays and dicts (``*_state``), and build the port's objects from
 such dicts (``*_from_state``), so a test can hand the exact reference state
 to both engines.  The models' weights cross as a nested dict of numpy
-arrays (:func:`model_params_from_jax`).  Nothing here imports the
-reference.
+arrays (:func:`model_params_from_jax`), and the policy trainer's weights
+and optimizer state as numpy too (:func:`policy_trainer_state_from_jax`).
+Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .optim.adamw import AdamWState
 from .sim.systems import SystemModel
 from .sim.workloads import LoopProfile
 
@@ -72,3 +74,18 @@ def model_params_from_jax(tree: Dict[str, Any], device=None
     dev = resolve_device(device)
     return {k: model_params_from_jax(v, dev) if isinstance(v, dict)
             else _tensor(np.asarray(v), dev) for k, v in tree.items()}
+
+
+def policy_trainer_state_from_jax(params: Dict[str, Any], opt: Any,
+                                  device=None):
+    """The port's ``(params, AdamWState)`` from the reference policy
+    trainer's ``params`` dict and ``AdamWState`` (``step``, ``m``, ``v``)
+    given as numpy arrays, dtype for dtype, on ``device`` (default the
+    card) — the start both trainers take in a comparison."""
+    dev = resolve_device(device)
+
+    def leaves(tree):
+        return {k: _tensor(np.asarray(v), dev) for k, v in tree.items()}
+
+    return leaves(params), AdamWState(step=_tensor(np.asarray(opt.step), dev),
+                                      m=leaves(opt.m), v=leaves(opt.v))

@@ -30,9 +30,10 @@ from .selectors import (FixedPolicy, OraclePolicy, RandomPolicy,
 from .simpolicy import (Candidate, SimAssistedHybrid, SimPolicy,
                         SimUnavailable, SIM_POLICY_ENV, SIM_POLICY_NAMES,
                         is_sim_policy, resolve_sim_policy)
-from .learned import (FEATURE_NAMES, FEATURE_VERSION, LEARNED_POLICY_NAMES,
-                      LEARNED_STATE_ENV, LearnedHybrid, LearnedPolicy,
-                      LoopFeaturizer, N_FEATURES, is_learned_policy,
+from .learned import (DistilledLadder, FEATURE_NAMES, FEATURE_VERSION,
+                      LEARNED_POLICY_NAMES, LEARNED_STATE_ENV, LearnedHybrid,
+                      LearnedPolicy, LoopFeaturizer, N_FEATURES,
+                      distill_ladder, is_learned_policy,
                       make_learned_state, mlp_forward, params_from_state,
                       params_to_state, resolve_default_state,
                       set_default_state)
@@ -60,8 +61,9 @@ __all__ = [
     "Candidate", "SimPolicy", "SimAssistedHybrid", "SimUnavailable",
     "SIM_POLICY_ENV", "SIM_POLICY_NAMES", "is_sim_policy",
     "resolve_sim_policy", "PageHinkley",
-    # offline-trained learned selection (inference)
-    "LearnedPolicy", "LearnedHybrid", "LoopFeaturizer", "FEATURE_NAMES",
+    # offline-trained learned selection
+    "LearnedPolicy", "LearnedHybrid", "LoopFeaturizer", "DistilledLadder",
+    "distill_ladder", "FEATURE_NAMES",
     "FEATURE_VERSION", "N_FEATURES", "LEARNED_POLICY_NAMES",
     "LEARNED_STATE_ENV", "is_learned_policy", "make_learned_state",
     "mlp_forward", "params_from_state", "params_to_state",

@@ -3,12 +3,13 @@ contextual-bandit policy.
 
 A small MLP maps structured context *features* (loop profile shape, machine
 model, heterogeneity/perturbation telemetry, step phase) to a predicted cost
-per portfolio algorithm.  It is trained offline on lockstep-replay
-transition logs (``repro_torch.sim.translog`` — every transition carries all
-12 counterfactual prices, so this is a true bandit dataset and no
-off-policy correction is needed).  The trainer and the distilled threshold
-ladder are not part of this package yet; this module holds what a replay
-or a service needs to *run* a trained net.
+per portfolio algorithm.  It is trained offline by
+``repro_torch.runtime.policy_trainer`` on lockstep-replay transition logs
+(``repro_torch.sim.translog`` — every transition carries all 12
+counterfactual prices, so this is a true bandit dataset and no off-policy
+correction is needed).
+
+Three consumers of the trained net:
 
 ``LearnedPolicy``
     A :class:`~repro_torch.core.api.SelectionPolicy` whose ``decide()`` is
@@ -23,6 +24,12 @@ or a service needs to *run* a trained net.
     window is pre-pruned to the net's predicted top-k — the learned twin of
     ``SimAssistedHybrid``, without the per-build pricing call.
 
+``distill_ladder``
+    Extracts an interpretable threshold ladder (a depth-bounded decision
+    tree over the named features) from the trained net, held within a
+    bounded regret of its teacher on held-out cells (``chip_smoke.py``
+    phase [16]).
+
 Weights travel as JSON-serializable state dicts (``state_dict`` /
 ``load_state_dict``), so ``SelectionService(store_dir=...)`` warm starting
 works unchanged.  ``REPRO_LEARNED_STATE`` may name a state JSON on disk to
@@ -35,7 +42,8 @@ import json
 import math
 import os
 import warnings
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -51,6 +59,7 @@ __all__ = [
     "mlp_forward", "params_from_state", "params_to_state",
     "make_learned_state", "set_default_state", "resolve_default_state",
     "is_learned_policy", "LEARNED_POLICY_NAMES",
+    "DistilledLadder", "distill_ladder",
 ]
 
 #: env var naming a LearnedPolicy state JSON on disk — the default weights
@@ -457,3 +466,142 @@ class LearnedHybrid(HybridPolicy):
         # seed: the net's pick starts strictly above the 0-initialized
         # alternatives, so post-exploration greedy ties break toward it
         self.agent.q[:, self.actions.index(best)] = REWARD_POSITIVE
+
+
+# ---------------------------------------------------------------------------
+# distillation — an interpretable threshold ladder from the trained net
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _TreeNode:
+    feature: int = -1            # -1 = leaf
+    threshold: float = 0.0
+    action: int = 0              # leaf payload
+    left: Optional["_TreeNode"] = None
+    right: Optional["_TreeNode"] = None
+
+
+@dataclass
+class DistilledLadder:
+    """A depth-bounded threshold ladder over the named features — the
+    interpretable form of a trained net (paper §6 asks for expert rules;
+    this extracts them instead of hand-writing them).
+
+    ``predict`` maps feature rows to portfolio indices; ``describe`` prints
+    the rules; ``teacher_agreement`` is the fit-set label agreement with the
+    net, and ``regret_bound`` the relative extra cost vs the teacher the
+    distillation promises (bench-verified on held-out cells)."""
+
+    root: _TreeNode
+    max_depth: int
+    teacher_agreement: float
+    regret_bound: float = 0.10
+    feature_names: Tuple[str, ...] = FEATURE_NAMES
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        X = np.atleast_2d(np.asarray(X, np.float64))
+        out = np.zeros(len(X), dtype=np.int64)
+        for i, x in enumerate(X):
+            node = self.root
+            while node.feature >= 0:
+                node = node.left if x[node.feature] <= node.threshold \
+                    else node.right
+            out[i] = node.action
+        return out
+
+    def describe(self) -> List[str]:
+        """Human-readable rules, one line per leaf."""
+        from .portfolio import ALGORITHM_NAMES
+        lines: List[str] = []
+
+        def walk(node: _TreeNode, conds: List[str]) -> None:
+            if node.feature < 0:
+                cond = " and ".join(conds) if conds else "always"
+                lines.append(f"if {cond}: {ALGORITHM_NAMES[node.action]}")
+                return
+            nm = self.feature_names[node.feature]
+            walk(node.left, conds + [f"{nm} <= {node.threshold:.3g}"])
+            walk(node.right, conds + [f"{nm} > {node.threshold:.3g}"])
+
+        walk(self.root, [])
+        return lines
+
+    @property
+    def n_leaves(self) -> int:
+        def count(node: _TreeNode) -> int:
+            return 1 if node.feature < 0 else \
+                count(node.left) + count(node.right)
+        return count(self.root)
+
+
+def _gini(labels: np.ndarray, n_actions: int) -> float:
+    if len(labels) == 0:
+        return 0.0
+    p = np.bincount(labels, minlength=n_actions) / len(labels)
+    return float(1.0 - (p * p).sum())
+
+
+def _majority(labels: np.ndarray, n_actions: int) -> int:
+    return int(np.argmax(np.bincount(labels, minlength=n_actions)))
+
+
+def _fit_tree(X: np.ndarray, y: np.ndarray, depth: int, max_depth: int,
+              min_leaf: int, n_actions: int) -> _TreeNode:
+    if depth >= max_depth or len(y) < 2 * min_leaf or len(set(y)) == 1:
+        return _TreeNode(action=_majority(y, n_actions))
+    parent = _gini(y, n_actions)
+    best = None          # (gain, feature, threshold, mask)
+    for f in range(X.shape[1]):
+        vals = np.unique(X[:, f])
+        if len(vals) < 2:
+            continue
+        # quantile thresholds bound the split search per feature
+        qs = np.quantile(vals, np.linspace(0.1, 0.9, min(len(vals) - 1, 16)))
+        for thr in np.unique(qs):
+            mask = X[:, f] <= thr
+            nl = int(mask.sum())
+            if nl < min_leaf or len(y) - nl < min_leaf:
+                continue
+            w = nl / len(y)
+            gain = parent - (w * _gini(y[mask], n_actions)
+                             + (1 - w) * _gini(y[~mask], n_actions))
+            if best is None or gain > best[0]:
+                best = (gain, f, float(thr), mask)
+    if best is None or best[0] <= 1e-9:
+        return _TreeNode(action=_majority(y, n_actions))
+    _, f, thr, mask = best
+    return _TreeNode(
+        feature=f, threshold=thr,
+        left=_fit_tree(X[mask], y[mask], depth + 1, max_depth, min_leaf,
+                       n_actions),
+        right=_fit_tree(X[~mask], y[~mask], depth + 1, max_depth, min_leaf,
+                        n_actions))
+
+
+def distill_ladder(state_or_policy, X: np.ndarray, max_depth: int = 3,
+                   min_leaf: int = 8, regret_bound: float = 0.10
+                   ) -> DistilledLadder:
+    """Fit an interpretable threshold ladder to the net's decisions over the
+    feature rows ``X`` (typically the training transitions).
+
+    ``state_or_policy`` is a learned state dict or a trained
+    :class:`LearnedPolicy`.  ``regret_bound`` is the promise the ladder
+    ships with: on evaluation data its chosen-cost total must stay within
+    ``(1 + regret_bound)`` of the teacher's (``bench_learned`` gates this on
+    held-out cells)."""
+    if isinstance(state_or_policy, LearnedPolicy):
+        params = state_or_policy._params
+        if params is None:
+            raise ValueError("cannot distill an untrained LearnedPolicy")
+    else:
+        params = params_from_state(state_or_policy["params"])
+    X = np.asarray(X, np.float64)
+    scores = mlp_forward(params, X.astype(np.float32))
+    y = np.asarray(np.argmin(scores, axis=-1), np.int64)
+    n_actions = scores.shape[-1]
+    root = _fit_tree(X, y, 0, max_depth, min_leaf, n_actions)
+    ladder = DistilledLadder(root=root, max_depth=max_depth,
+                             teacher_agreement=0.0,
+                             regret_bound=float(regret_bound))
+    ladder.teacher_agreement = float((ladder.predict(X) == y).mean())
+    return ladder

@@ -1,9 +1,10 @@
 """Neural-net building blocks of the hybrid (Zamba2) path.
 
 The port of the subset of ``repro.models.layers`` that the hybrid family
-uses.  RMSNorm goes to the ``rmsnorm`` kernel and prefill attention to the
+uses, and ``gelu_mlp``, the block of the learned-selection policy net.
+RMSNorm goes to the ``rmsnorm`` kernel and prefill attention to the
 ``flash_attention`` kernel; single-token decode attention and the SwiGLU
-products stay plain PyTorch, as the reference leaves them to XLA.
+and GELU products stay plain PyTorch, as the reference leaves them to XLA.
 Layouts are the reference's: q (B, S, H, hd), k and v (B, T, K, hd).
 """
 
@@ -98,3 +99,10 @@ def swiglu(x, w_gate, w_up, w_down):
     g = matmul(x, w_gate)
     u = matmul(x, w_up)
     return matmul(F.silu(g) * u, w_down)
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """``gelu(x @ w1 + b1) @ w2 + b2`` with the tanh-approximate GELU, as
+    ``jax.nn.gelu`` computes it by default."""
+    h = F.gelu(matmul(x, w1) + b1, approximate="tanh")
+    return matmul(h, w2) + b2

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the reference package ``repro``, and the
-port's entry points run on the card unless asked for the CPU."""
+neither ``jax`` nor anything of the reference package ``repro`` (nor
+``ml_dtypes``, which the card's machine may lack), and the port's entry
+points run on the card unless asked for the CPU."""
 
 import ast
 import json
@@ -59,6 +60,15 @@ FLEET_SLICE = {
     "repro_torch.serving.fleet.router", "repro_torch.serving.fleet.simulator",
 }
 
+#: the async-dispatch / lane-split and learned-selection training slice
+TRAINING_SLICE = {
+    "repro_torch.launch.mesh", "repro_torch.distributed",
+    "repro_torch.distributed.sharding", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.manager", "repro_torch.runtime",
+    "repro_torch.runtime.trainer", "repro_torch.runtime.policy_trainer",
+}
+
 
 def _env():
     env = dict(os.environ)
@@ -72,18 +82,19 @@ def test_every_port_module_imports_without_jax_or_repro():
         "import importlib, json, sys\n"
         f"mods = {MODULES!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'ml_dtypes'))\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=_env(), timeout=240)
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["n"] == len(MODULES) >= 59
+    assert rec["n"] == len(MODULES) >= 69
     assert SERVING_SLICE <= set(MODULES)
     assert POLICY_SLICE <= set(MODULES)
     assert ENGINE_SLICE <= set(MODULES)
     assert FLEET_SLICE <= set(MODULES)
+    assert TRAINING_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 
@@ -101,7 +112,8 @@ def test_source_names_no_jax_or_repro(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                (path, n)
 
 
 def test_every_kernel_source_has_an_entry_point_signature():

@@ -190,6 +190,36 @@ def test_fleet_with_a_group_outage_card_equals_cpu(card):
 
 
 @pytest.mark.cuda
+def test_async_dispatch_equals_sync_on_the_card(card):
+    """Double-buffered dispatch (pinned staging, non-blocking copies, one
+    event a dispatch) against the synchronous loop: a sweep of several
+    dispatches and a what-if call, bit for bit, with the same launches;
+    and the same calls split over the card listed twice (a fused launch a
+    shard of each sweep dispatch)."""
+    from repro_torch import TorchBatchedBackend, sweep_portfolio
+    out = []
+    for kw in ({"async_dispatch": False}, {"async_dispatch": True},
+               {"devices": [card, card]}):
+        bk = TorchBatchedBackend(**kw)
+        n0 = T.event_finish_fused.launches
+        sw = sweep_portfolio("mandelbrot", "epyc", T=20, reps=2, backend=bk)
+        prefix = np.concatenate([[0.0], np.cumsum(np.linspace(1e-5, 3e-5,
+                                                              300))])
+        waves = bk.what_if_wave(prefix, 8, np.zeros(8), 2e-7, 5e-6,
+                                list(range(12)))
+        out.append((sw, waves, T.event_finish_fused.launches - n0,
+                    bk.times.dispatches))
+    (a, wa, na, da), (b, wb, nb, db), (c, wc, nc, dc) = out
+    assert na == nb == da - 1 == db - 1 > 1   # the what-if: one dispatch
+    assert nc == 2 * (dc - 1)
+    for other, w in ((b, wb), (c, wc)):
+        assert np.array_equal(wa, w)
+        for k in a.runs:
+            assert np.array_equal(a.runs[k].times, other.runs[k].times)
+            assert np.array_equal(a.runs[k].libs, other.runs[k].libs)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     args = _inputs(8, 256, 12, card)
     eff = [T.prefix_costs(*args[:7])] + args[7:]
