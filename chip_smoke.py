@@ -58,7 +58,7 @@ kernels, and prints one JSON line per result.  Phases, in order:
     timed at the replay's largest call; replay steps under
     ``torch.profiler`` (the card's busy time and launches a step, its idle
     share); the same grid with two learned lanes
-    at T = 50 on the kernels and on the plain event core, and at T = 4 on
+    at T = 30 on the kernels and on the plain event core, and at T = 4 on
     the card and on the CPU, histories, totals and policy states bit-equal;
     and SimPolicy's decision equal to the exhaustive Oracle's on the
     noise-free ``tc``/``epyc`` loop;
@@ -68,11 +68,11 @@ kernels, and prints one JSON line per result.  Phases, in order:
     drift) on the kernels, on the plain event core on the card and on the
     CPU, loop times, ``lib`` and chunk counts bit-equal, with the fused
     calls' largest B and K and the lanes forced whole; (b) the Fig. 5 cell
-    ``mandelbrot``/``epyc`` at T = 500 with 20 % of the PEs 8x slower from
-    step 250: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over both
-    chunk modes (26 lanes, 39,000 decisions), its walls, ``PathTimes``,
-    pricing and launches, and every lane's total beside its clean twin's
-    from [12]; steps 8-15 of that grid perturbed from step 0 under
+    ``mandelbrot``/``epyc`` cut to T = 300 with 20 % of the PEs 8x slower
+    from step 250: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
+    both chunk modes (26 lanes, 23,400 decisions), its walls,
+    ``PathTimes``, pricing and launches, and every lane's total beside its
+    clean twin's over the same steps of [12]; steps 8-15 of that grid perturbed from step 0 under
     ``torch.profiler``; both event-loop kernels timed at the perturbed
     replay's largest call; (c) that grid at T = 4 with the onset at step 2 on the card and on the
     CPU, bit-equal; (d) ``simulate_loop`` on the ``event_finish`` kernel for
@@ -111,7 +111,29 @@ kernels, and prints one JSON line per result.  Phases, in order:
     net; training resumed from its step-125 checkpoint and an
     injected-failure run, each bit-equal to the run; the card against
     the CPU from one start within ``TRAIN_REL_TOL``; and the train step's
-    ms, launches and idle share under ``torch.profiler``.
+    ms, launches and idle share under ``torch.profiler``;
+17. dense-family training, llama3.2-3b: (a) the backward kernels
+    (``rmsnorm_bwd``, ``flash_attention_bwd``) against their plain
+    versions' autograd at small GQA / non-causal / hd 32 / float32 shapes
+    and at the training shapes (bf16: rmsnorm over 4 x 2048 rows of 3072,
+    causal attention of 24 query and 8 kv heads of 128 over 2048), float32
+    within ``BWD_F32_REL`` and bf16 within ``BWD_BF16_REL_L2``, each timed
+    after an L2 flush beside its bound, its plain version and the
+    library's backward (SDPA's, ``F.rms_norm``'s), and the flash forward
+    at the training shape; (b) one backward of the smoke llama on the
+    card, float32 and bf16: no leaf without a gradient; (c) the smoke
+    llama in float32, 8 steps from one start on the card and on the CPU,
+    losses within ``TRAIN_CARD_CPU_REL``; (d) restart equivalence on the
+    card with the reference test's settings, and whether it is bit-equal;
+    (e) ``repro_torch.launch.train.main`` at full width (28 layers,
+    d_model 3072, bf16, 4 x 2048 tokens a step) for 9 steps under
+    ExhaustiveSel over the five ``DEFAULT_PLANS``: per plan its step
+    times, tokens/s, peak allocated memory and kernel launches a step, the
+    settled plan, the loss trace (finite and falling), and the final
+    checkpoint's save wall (the disk checked first, the checkpoint deleted
+    after); then one more step of the settled plan by layer (forward with
+    the loss, backward, AdamW) and one under ``torch.profiler`` (the
+    card's busy time by kernel bucket, its launches, its idle share).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -123,6 +145,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import signal
 import subprocess
 import sys
 import time
@@ -140,6 +163,11 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
     "flash_attention": "src/repro/kernels/flash_attention.py:85",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:77",
+    # the reference has no backward kernel: it trains through XLA's
+    # autodiff of these twins of the TPU kernels, whose gradients the
+    # backward kernels compute
+    "rmsnorm_bwd": "src/repro/models/layers.py:20",
+    "flash_attention_bwd": "src/repro/models/layers.py:91",
 }
 #: NVIDIA H100 SXM data sheet: HBM bandwidth, non-tensor float32 peak and
 #: dense bf16 tensor-core peak
@@ -935,9 +963,10 @@ def model_kernel_records(device, flush, launches):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the plain event core's check runs at T = 50: its per-chunk torch loop
-#: makes each pricing miss a fraction of a second
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 50, 4
+#: the plain event core's check runs at T = 30: its per-chunk torch loop
+#: makes each pricing miss a fraction of a second (T = 50 until the
+#: script's wall neared its limit beside phase [17])
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 30, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1054,7 +1083,10 @@ def replay_campaign(device):
         "oracle_total": cr.oracle_total,
         "degradation": {"/".join(str(x) for x in k): v
                         for k, v in deg.items()}}
-    totals = {k: r.total for k, r in cr.selector_runs.items()}
+    # each lane's clean total over [13b]'s steps, its perturbed twin's scale
+    totals = {k: sum(h[1] for hist in r.history.values()
+                     for h in hist[:PERTURB_T])
+              for k, r in cr.selector_runs.items()}
     return record, calls, totals
 
 
@@ -1097,7 +1129,7 @@ def profile_replay(device, warm: int = 8, steps: int = 4, lanes=None):
 
 def replay_checks(device):
     """The grid with two learned lanes: kernels against the plain event core
-    on the card at T = 50, the card against the CPU at T = 4, bit-equal;
+    on the card at T = 30, the card against the CPU at T = 4, bit-equal;
     returns what was compared."""
     from repro_torch import TorchBatchedBackend
     from repro_torch.core import set_default_state
@@ -1162,6 +1194,11 @@ def simpolicy_oracle(backend):
 PERTURB_APP, PERTURB_SYSTEMS, PERTURB_SWEEP_T = "mandelbrot", ("epyc",
                                                               "epyc_het"), 20
 PERTURB_ONSET, PERTURB_CPU_ONSET = 250, 2
+#: [13b]'s depth: the T = 500 cell cut to its first 300 steps to keep the
+#: script inside its time limit beside phase [17]; the onset at
+#: step 250 stays inside, and each lane's total is held beside its clean
+#: twin's over the same 300 steps
+PERTURB_T = 300
 REACTIVE_LANES = [("ReactiveSim", "LT"), ("AwareSim", "LT")]
 SIMULATE_ALGS = (1, 2, 3, 4, 6)
 
@@ -1269,9 +1306,9 @@ def replay_lanes(onset: int):
 
 
 def perturbed_replay(device, clean_totals):
-    """[13b]: the perturbed Fig. 5 cell at T = 500 on the kernels, replay
-    and pricing each on a backend of its own; returns the record and the
-    perturbed steps' fused calls."""
+    """[13b]: the perturbed Fig. 5 cell at T = ``PERTURB_T`` on the
+    kernels, replay and pricing each on a backend of its own; returns the
+    record and the perturbed steps' fused calls."""
     from repro_torch import TorchBatchedBackend, kernels
     from repro_torch.sim import ReplayBatch
     lanes = replay_lanes(PERTURB_ONSET)
@@ -1280,10 +1317,10 @@ def perturbed_replay(device, clean_totals):
         b.core_calls = []
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rb = ReplayBatch(lanes, T=REPLAY_T, backend=replay_bk,
+    rb = ReplayBatch(lanes, T=PERTURB_T, backend=replay_bk,
                      sim_backend=price_bk)
     marks = {}
-    for t in range(REPLAY_T):
+    for t in range(PERTURB_T):
         if t == PERTURB_ONSET:
             torch.cuda.synchronize(device)
             marks = {"wall_s": time.perf_counter() - t0,
@@ -1309,7 +1346,7 @@ def perturbed_replay(device, clean_totals):
         require(np.isfinite(run.total) and run.total > 0,
                 f"[13b] {spec.key} total")
         require(sum(len(h) for h in run.history.values())
-                == REPLAY_T * n_loops, f"[13b] {spec.key}: trace length")
+                == PERTURB_T * n_loops, f"[13b] {spec.key}: trace length")
         after_onset = sum(h[1] for hist in run.history.values()
                           for h in hist[PERTURB_ONSET:])
         clean = clean_totals.get(spec.key)
@@ -1325,7 +1362,7 @@ def perturbed_replay(device, clean_totals):
     rt = replay_bk.times
     record = {
         "phase": "perturbed replay", "cell": "/".join(REPLAY_CELL),
-        "T": REPLAY_T, "perturb": f"pe_slowdown_spec(128, 0.2, 8.0, "
+        "T": PERTURB_T, "perturb": f"pe_slowdown_spec(128, 0.2, 8.0, "
         f"t0={PERTURB_ONSET})", "lanes": len(runs),
         "decisions": sum(len(h) for r in runs for h in r.history.values()),
         "wall_s": wall, "wall_before_onset_s": marks["wall_s"],
@@ -2209,6 +2246,568 @@ def phase_training(device, records):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: dense-family training (llama3.2-3b) through the autotuner
+# ---------------------------------------------------------------------------
+
+#: the training shapes: llama3.2-3b at 4 x 2048 tokens
+TRAIN_B, TRAIN_S = 4, 2048
+#: backward kernels against the plain versions' autograd: float32 within
+#: 1e-5 of the largest magnitude (sums in another order); bfloat16 within
+#: 2**-8 in relative L2 (the flash backward takes delta = rowsum(dO * o)
+#: from the bfloat16 output where autograd has its float32 value: ~1.4e-3
+#: emulated on the CPU).  Fixed before the kernels' first card run.
+BWD_F32_REL = 1e-5
+BWD_BF16_REL_L2 = 2.0 ** -8
+#: the card against the CPU, smoke llama3.2-3b in float32, 8 steps
+TRAIN_CARD_CPU_REL = 1e-4
+#: the reference test's restart-equivalence settings
+RESTART = dict(failure_rate=0.15, failure_seed=6, ckpt_every=4, steps=12)
+RESTART_ATOL = 1e-5
+FULL_STEPS = 9
+
+
+def grad_errors(got, want):
+    """(max |got - want| / max |want|, relative L2) over each gradient."""
+    out = []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        require(bool(torch.isfinite(g).all()), "non-finite gradient")
+        out.append((float((g - w).abs().max() / w.abs().max().clamp_min(
+            1e-30)), float((g - w).norm() / w.norm().clamp_min(1e-30))))
+    return out
+
+
+def with_bound(rec, ops_rate):
+    """``rec`` with its bound (the larger of bytes over the card's memory
+    rate and operations over ``ops_rate``) and achieved rate."""
+    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = rec["ops"] / ops_rate * 1e3
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["tflops"] = rec["ops"] / rec["ms"] * 1e-9
+    return rec
+
+
+def bwd_within(errs, dtype) -> bool:
+    if dtype == torch.float32:
+        return all(e[0] <= BWD_F32_REL for e in errs)
+    return all(e[1] <= BWD_BF16_REL_L2 for e in errs)
+
+
+def time_grad(fn, args, reps, device, flush) -> float:
+    """Mean ms of a backward: ``fn(*args)`` returns (outputs, inputs,
+    output gradients) built once; each timed call is one
+    ``torch.autograd.grad`` over the kept graph, after an L2 flush."""
+    out, inputs, dout = fn(*args)
+    return time_call(lambda: torch.autograd.grad(out, inputs, dout,
+                                                 retain_graph=True), (),
+                     reps, device, flush)
+
+
+def sdpa_graph(q, k, v, do):
+    """SDPA (the library's flash attention) over q, k, v in its (B, H, S,
+    hd) layout, GQA expanded by the library, with its graph kept."""
+    F = torch.nn.functional
+    qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    return out, (qs, ks, vs), do.transpose(1, 2).contiguous()
+
+
+def rms_graph(x, w, dy):
+    F = torch.nn.functional
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    return F.rms_norm(xs, (x.shape[-1],), ws, 1e-5), (xs, ws), dy
+
+
+def backward_records(device, flush):
+    """[17a]: each backward kernel against its plain version's autograd at
+    the training shapes (bf16, the main path's calls: rmsnorm over 4 x
+    2048 rows of 3072, causal GQA attention 24 / 8 heads of 128) and at
+    small GQA / non-causal / hd 32 / float32 shapes; times after an L2
+    flush beside the bound and the library call computing the same
+    gradient; and both forward kernels at the training shape, held against
+    their plain versions (``tol_ratio``) and timed."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RMS
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for shape, dt in (((8, 128), f32), ((3, 17, 64), bf16),
+                      ((300, 3072), f32), ((5, 7168), bf16)):
+        x, w, dy = (randn(s, dt, device, 20 + i)
+                    for i, s in enumerate((shape, shape[-1:], shape)))
+        errs = grad_errors(RMS.rmsnorm_bwd(x, w, dy),
+                           RMS.rmsnorm_bwd_ref(x, w, dy))
+        rows.append(("rmsnorm_bwd", (shape, str(dt)), errs,
+                     bwd_within(errs, dt)))
+    for (B, S, T, H, K, hd), causal, dt in (
+            ((2, 96, 160, 8, 2, 32), False, f32),
+            ((2, 96, 160, 8, 2, 32), True, bf16),
+            ((1, 257, 129, 6, 3, 64), False, bf16),
+            ((1, 300, 300, 6, 2, 128), True, f32),
+            ((2, 100, 72, 4, 2, 112), True, bf16)):
+        q, do = (randn((B, S, H, hd), dt, device, 30 + i) for i in range(2))
+        k, v = (randn((B, T, K, hd), dt, device, 32 + i) for i in range(2))
+        o = FA.flash_attention(q, k, v, causal=causal)
+        errs = grad_errors(FA.flash_attention_bwd(q, k, v, o, do,
+                                                  causal=causal),
+                           FA.flash_attention_bwd_ref(q, k, v, o, do,
+                                                      causal=causal))
+        rows.append(("flash_attention_bwd", ((B, S, T, H, K, hd), causal,
+                                             str(dt)), errs,
+                     bwd_within(errs, dt)))
+    for r in rows:
+        log(f"[17a] {r[0]} {r[1]}: (max rel, rel L2) {r[2]} "
+            f"{'ok' if r[3] else 'OUTSIDE'}")
+    require(all(r[3] for r in rows), "a backward kernel is outside its "
+            "tolerance at the small shapes")
+
+    recs = []
+    D, n = 3072, TRAIN_B * TRAIN_S
+    x, dy = (randn((TRAIN_B, TRAIN_S, D), bf16, device, 40 + i)
+             for i in range(2))
+    w = randn((D,), bf16, device, 42)
+    y, y_ref = RMS.rmsnorm(x, w), RMS.rmsnorm_ref(x, w)
+    rms_fwd = with_bound({
+        "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+        "tol_ratio": tol_ratio(y, y_ref, "rmsnorm"),
+        "ms": time_call(RMS.rmsnorm, (x, w), 20, device, flush),
+        "plain_ms": time_call(RMS.rmsnorm_ref, (x, w), 5, device, flush),
+        "library_ms": time_call(lambda: torch.nn.functional.rms_norm(
+            x, (D,), w, 1e-5), (), 20, device, flush),
+        "shape": {"rows": n, "D": D, "dtype": "bfloat16"},
+        # x read, y written, w read
+        "bytes": 2 * n * D * 2 + D * 2, "ops": 4 * n * D}, F32_OPS_PER_S)
+    del y, y_ref
+    require(rms_fwd["tol_ratio"] <= 1.0, f"rmsnorm at the training shape "
+            f"{rms_fwd['tol_ratio']}")
+    got, want = RMS.rmsnorm_bwd(x, w, dy), RMS.rmsnorm_bwd_ref(x, w, dy)
+    errs = grad_errors(got, want)
+    require(bwd_within(errs, bf16), f"rmsnorm_bwd at the training shape "
+            f"{errs}")
+    recs.append(with_bound({
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": REPLACES["rmsnorm_bwd"],
+        "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want)),
+        "rel_l2": [e[1] for e in errs],
+        "tolerance": {"bf16_rel_l2": BWD_BF16_REL_L2},
+        "ms": time_call(RMS.rmsnorm_bwd, (x, w, dy), 20, device, flush),
+        "plain_ms": time_call(RMS.rmsnorm_bwd_ref, (x, w, dy), 5, device,
+                              flush),
+        "library_ms": time_grad(rms_graph, (x, w, dy), 20, device, flush),
+        "shape": {"rows": n, "D": D},
+        # x, dy read, dx written; w read, dw written
+        "bytes": 3 * n * D * 2 + 2 * D * 2,
+        "ops": 10 * n * D}, F32_OPS_PER_S))
+    del x, dy, w, got, want
+
+    B, S, H, K, hd = TRAIN_B, TRAIN_S, 24, 8, 128
+    q, do = (randn((B, S, H, hd), bf16, device, 50 + i) for i in range(2))
+    k, v = (randn((B, S, K, hd), bf16, device, 52 + i) for i in range(2))
+    o = FA.flash_attention(q, k, v, causal=True)
+    o_ref = FA.flash_attention_ref(q, k, v, causal=True)
+    fwd_err = {"max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+               "tol_ratio": tol_ratio(o, o_ref, "flash_attention")}
+    del o_ref
+    require(fwd_err["tol_ratio"] <= 1.0, f"flash_attention at the training "
+            f"shape {fwd_err}")
+    got = FA.flash_attention_bwd(q, k, v, o, do, causal=True)
+    want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    errs = grad_errors(got, want)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    again = FA.flash_attention_bwd(q, k, v, o, do, causal=True)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, want, again
+    require(bwd_within(errs, bf16), f"flash_attention_bwd at the training "
+            f"shape {errs}")
+    require(same_bits, "flash_attention_bwd differs between two runs")
+    pairs = S * (S + 1) // 2
+    shape = {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
+             "causal": True}
+    recs.append(with_bound({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": REPLACES["flash_attention_bwd"],
+        "max_abs_err": err, "rel_l2": [e[1] for e in errs],
+        "tolerance": {"bf16_rel_l2": BWD_BF16_REL_L2},
+        "rerun_bit_equal": same_bits,
+        "ms": time_call(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, causal=True), (), 5, device, flush),
+        "plain_ms": time_call(lambda: FA.flash_attention_bwd_ref(
+            q, k, v, o, do, causal=True), (), 2, device, flush),
+        "library_ms": time_grad(sdpa_graph, (q, k, v, do), 10, device,
+                                flush),
+        "shape": shape,
+        # q, k, v, o, dO read; dq, dk, dv written
+        "bytes": (4 * B * S * H * hd + 4 * B * S * K * hd) * 2,
+        # the five products of the gradient, 2 * hd each a causal pair
+        "ops": 10 * B * H * hd * pairs}, BF16_OPS_PER_S))
+    fwd = with_bound({
+        **fwd_err,
+        "ms": time_call(lambda: FA.flash_attention(q, k, v, causal=True),
+                        (), 20, device, flush),
+        "plain_ms": time_call(lambda: FA.flash_attention_ref(
+            q, k, v, causal=True), (), 2, device, flush),
+        "library_ms": time_call(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), (), 20, device, flush),
+        "shape": shape, "ops": 4 * B * H * hd * pairs,
+        "bytes": (2 * B * S * H * hd + 2 * B * S * K * hd) * 2},
+        BF16_OPS_PER_S)
+    del q, k, v, o, do
+    for r in recs:
+        log(f"[17a] {r['name']} at the training shape: {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms, {r['bound_by']}; plain "
+            f"{r['plain_ms']:.3f} ms; library {r['library_ms']:.4f} ms), "
+            f"rel L2 {r['rel_l2']}")
+    log(f"[17a] flash_attention forward at the training shape: "
+        f"{json.dumps(fwd)}")
+    log(f"[17a] rmsnorm forward at the training shape: "
+        f"{json.dumps(rms_fwd)}")
+    torch.cuda.empty_cache()
+    return recs, {"flash_attention": fwd, "rmsnorm": rms_fwd}
+
+
+def smoke_llama(dtype="float32", **kw):
+    from repro_torch.configs import get_config, smoke_reduce
+    return dataclasses.replace(smoke_reduce(get_config("llama3.2-3b")),
+                               param_dtype=dtype, **kw)
+
+
+def leaves_get_gradients(device):
+    """[17b]: one backward of the smoke llama on the card, float32 and
+    bf16: every leaf, and every layer of a stacked leaf, has a gradient
+    that is finite and not all zero (every embedding row too: the head is
+    tied, so the logits reach all of them)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import tree_items
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = smoke_llama(dt)
+        params = init_params(cfg, 0, device=device)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (4, 129)).astype(np.int32)).to(device)
+        (loss, _), grads = value_and_grad(
+            lambda p, b: loss_fn(cfg, p, b), params,
+            {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        require(bool(torch.isfinite(loss)), f"[17b] {dt} loss {loss}")
+        empty = []
+        for path, g in tree_items(grads):
+            g = g.float()
+            per = (g.reshape(g.shape[0], -1).abs().sum(1)
+                   if path[0] in ("layers", "embed") else
+                   g.abs().sum().reshape(1))
+            if not bool(torch.isfinite(g).all()) or bool((per == 0).any()):
+                empty.append("/".join(path))
+        out[dt] = {"loss": float(loss), "leaves": len(list(tree_items(
+            grads))), "without_gradient": empty}
+        require(not empty, f"[17b] {dt}: leaves without a gradient {empty}")
+    return out
+
+
+def same_trees(a, b, atol=0.0):
+    from repro_torch.optim import tree_items
+    worst, bits = 0.0, True
+    for (_, x), (_, y) in zip(tree_items(a), tree_items(b)):
+        x, y = x.float().cpu(), y.float().cpu()
+        worst = max(worst, float((x - y).abs().max()))
+        bits = bits and torch.equal(x, y)
+    return worst, bits
+
+
+def train_runs(device, tmp):
+    """[17c] and [17d]: the smoke llama in float32, 8 steps from one start
+    (the CPU's init saved as each run's step-0 checkpoint) on the card and
+    on the CPU; and the reference test's restart equivalence on the
+    card."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = smoke_llama()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                      global_batch=4, seed=3)
+    params = init_params(cfg, 0, device="cpu")
+    start = {"params": params, "opt": adamw_init(params, opt)}
+    runs = {}
+    for label, dev in (("card", device), ("cpu", "cpu")):
+        CheckpointManager(f"{tmp}/{label}").save(0, start)
+        runs[label] = Trainer(
+            cfg, opt, data, TrainerConfig(ckpt_dir=f"{tmp}/{label}",
+                                          ckpt_every=100, async_ckpt=False),
+            step_fn=make_train_step(cfg, opt), device=dev).train(8)
+    card, cpu = runs["card"]["losses"], runs["cpu"]["losses"]
+    rel = float(np.max(np.abs(np.subtract(card, cpu)) / np.abs(cpu)))
+    c_vs_c = {"steps": 8, "losses_card": card, "losses_cpu": cpu,
+              "loss_rel": rel, "tolerance": TRAIN_CARD_CPU_REL}
+    require(rel <= TRAIN_CARD_CPU_REL, f"[17c] card vs CPU {c_vs_c}")
+
+    rcfg = dataclasses.replace(cfg, vocab_size=128)
+    ropt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    rdata = DataConfig(vocab_size=128, seq_len=16, global_batch=4, seed=3)
+
+    def run(label, failure_rate):
+        return Trainer(rcfg, ropt, rdata, TrainerConfig(
+            ckpt_dir=f"{tmp}/{label}", ckpt_every=RESTART["ckpt_every"],
+            async_ckpt=False, failure_rate=failure_rate,
+            failure_seed=RESTART["failure_seed"]),
+            step_fn=make_train_step(rcfg, ropt), seed=0,
+            device=device).train(RESTART["steps"])
+
+    clean = run("clean", 0.0)
+    faulty = run("faulty", RESTART["failure_rate"])
+    worst, bits = same_trees(clean["params"], faulty["params"])
+    restart = {"restarts": faulty["restarts"],
+               "final_step": faulty["final_step"], "params_max_abs": worst,
+               "bit_equal": bits, "atol": RESTART_ATOL}
+    if not bits:
+        restart["why_not_bit_equal"] = (
+            "the CUDA backward of the embedding lookup (index_put_ with "
+            "accumulate) sums a row's gradients in a run-dependent order")
+    require(faulty["restarts"] > 0 and faulty["final_step"] == 12
+            and worst <= RESTART_ATOL, f"[17d] restart {restart}")
+    return c_vs_c, restart
+
+
+#: a train step's kernels by name, in buckets of device time (the rest is
+#: PyTorch's elementwise, reduction and copy kernels)
+STEP_BUCKETS = (("flash_attention_bwd", ("flash_bwd",)),
+                ("flash_attention", ("flash_wgmma", "flash_kernel")),
+                ("rmsnorm, rmsnorm_bwd", ("rmsnorm",)),
+                ("products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def step_breakdown(cfg, params, opt, device):
+    """One more step of the settled plan (mb1_noremat) on the trained state
+    at full width, by layer on the host clock, each part ending in a
+    synchronize: forward with the CE loss, backward, AdamW in place; then
+    one more under ``torch.profiler``: the card's busy time by kernel
+    bucket and its launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_update_, tree_map
+    cfg = dataclasses.replace(cfg, remat=False)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=FULL_STEPS // 5,
+                          total_steps=FULL_STEPS)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, global_batch=TRAIN_B))
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch_at(FULL_STEPS + i).items()}
+               for i in range(2)]
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = loss_fn(cfg, leaves, batches[0])
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    grads = tree_map(lambda t: t.grad, leaves)
+    del leaves
+    adamw_update_(grads, opt, params, opt_cfg)
+    torch.cuda.synchronize(device)
+    t3 = time.perf_counter()
+    del grads
+    step = make_train_step(cfg, opt_cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batches[1])
+        torch.cuda.synchronize(device)
+    buckets = {name: 0.0 for name, _ in STEP_BUCKETS}
+    buckets["other"] = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        us = device_us(e)
+        if us <= 0 or e.key.startswith("aten"):
+            continue
+        launches += e.count
+        name = next((n for n, keys in STEP_BUCKETS
+                     if any(k in e.key for k in keys)), "other")
+        buckets[name] += us / 1e3
+    busy = sum(buckets.values())
+    return {"plan": "mb1_noremat", "forward_loss_s": t1 - t0,
+            "backward_s": t2 - t1, "adamw_s": t3 - t2,
+            "step_s": t3 - t0, "loss": float(loss.detach()),
+            "busy_ms": busy, "launches": launches,
+            "busy_ms_by_bucket": buckets,
+            "idle_share": 1.0 - busy / 1e3 / (t3 - t0)}
+
+
+def resume_probe(params, opt):
+    """Copies on the host of a few leaves of the final state (bf16 params,
+    float32 moments), to hold a resume against."""
+    return {"final_norm": params["final_norm"].cpu(),
+            "layers/wq[-1]": params["layers"]["wq"][-1].cpu(),
+            "opt/.m/layers/w_down[0]": opt.m["layers"]["w_down"][0].cpu(),
+            "opt/.v/embed": opt.v["embed"][:256].cpu(),
+            "opt/.step": opt.step.cpu()}
+
+
+def full_width_resume(cfg, ckpt, probe, device):
+    """[17e]: the trainer's resume from the full-width run's final
+    checkpoint, through ``Trainer._restore_or_init`` (the path a relaunch
+    and a restart after a failure take), with nothing else of the run left
+    on the card: the step, the probed leaves bit for bit, and the peak
+    allocated over the restore against the restored state's own bytes (a
+    template or a second copy of the state would add 32.1 GB)."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.runtime import Trainer, TrainerConfig
+    opt_cfg = AdamWConfig(moment_dtype=cfg.moment_dtype)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    tr = Trainer(cfg, opt_cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_S,
+                                          global_batch=TRAIN_B),
+                 TrainerConfig(ckpt_dir=str(ckpt), async_ckpt=False),
+                 step_fn=make_train_step(cfg, opt_cfg), device=device)
+    t0 = time.perf_counter()
+    step, params, opt = tr._restore_or_init()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base
+    state = sum(t.numel() * t.element_size()
+                for t in (tree_leaves(params) + tree_leaves(opt.m)
+                          + tree_leaves(opt.v) + [opt.step]))
+    got = resume_probe(params, opt)
+    same = {k: torch.equal(got[k], v) for k, v in probe.items()}
+    del params, opt, tr
+    torch.cuda.empty_cache()
+    out = {"step": step, "wall_s": wall, "state_gb": state / 1e9,
+           "peak_gb": peak / 1e9, "probe_bit_equal": same}
+    log(f"[17e] resume from the final checkpoint: {json.dumps(out)}")
+    require(step == FULL_STEPS and all(same.values())
+            and peak <= 1.02 * state, f"[17e] resume {out}")
+    return out
+
+
+def full_width_run(device):
+    """[17e]: ``repro_torch.launch.train.main`` at full width: llama3.2-3b,
+    28 layers, d_model 3072, bf16, 4 x 2048 tokens a step, 9 steps under
+    ExhaustiveSel over DEFAULT_PLANS; the final save (9 < ckpt_every) timed
+    and deleted.  Returns the run's summary and its kernel launches."""
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config("llama3.2-3b")
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    need = cfg.n_params() * (2 + 4 + 4)      # bf16 params, float32 m and v
+    free = shutil.disk_usage(ckpt.parent).free
+    log(f"[17e] checkpoint needs ~{need / 1e9:.1f} GB, the disk has "
+        f"{free / 1e9:.1f} GB free")
+    require(free > 1.1 * need, f"[17e] the disk cannot hold the final "
+            f"checkpoint: {free} bytes free, {need} needed")
+    torch.cuda.empty_cache()
+    log(f"[17e] allocated before the run: "
+        f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        out = train.main(["--arch", "llama3.2-3b", "--full", "--seq-len",
+                          str(TRAIN_S), "--batch", str(TRAIN_B), "--steps",
+                          str(FULL_STEPS), "--ckpt", str(ckpt)])
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+    losses = out["losses"]
+    n_par = sum(t.numel() for g in out["params"].values()
+                for t in (g.values() if isinstance(g, dict) else [g]))
+    layers = out["params"]["layers"]["wq"].shape[0]
+    probe = resume_probe(out["params"], out["opt"])
+    breakdown = step_breakdown(cfg, out["params"], out["opt"], device)
+    summary = {
+        "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+        "dtype": cfg.param_dtype, "params": n_par,
+        "tokens_per_step": TRAIN_B * TRAIN_S, "steps": out["final_step"],
+        "wall_s": wall, "losses": losses,
+        "plans": [{**r, "peak_gb": (r["peak_bytes"] or 0) / 1e9,
+                   "build_s": out["compile_s"].get(r["plan"])}
+                  for r in out["plans"]],
+        "history": [h[0] for h in out["history"]],
+        "settled": out["settled"], "final_save_s": out["final_save_s"],
+        "checkpoint_gb": ckpt_bytes / 1e9,
+        "launches": launches, "step_breakdown": breakdown}
+    del out
+    summary["resume"] = full_width_resume(cfg, ckpt, probe, device)
+    t1 = time.perf_counter()
+    shutil.rmtree(ckpt)
+    summary["checkpoint_rm_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    require(layers == 28 and n_par == cfg.n_params(),
+            f"[17e] {layers} layers, {n_par} parameters")
+    require(summary["steps"] == FULL_STEPS and len(losses) == FULL_STEPS
+            and bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+            f"[17e] loss trace {losses}")
+    require(summary["history"][:5] == [p["plan"] for p in summary["plans"]]
+            and len(summary["plans"]) == 5, "[17e] not every plan explored")
+    for name in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd"):
+        require(launches[name] > 0, f"[17e] {name} was never launched")
+    return summary
+
+
+def phase_dense_training(device, flush, model_records):
+    """Phase [17]: (a) the backward kernels, (b) gradients reach every
+    leaf, (c) card vs CPU, (d) restart equivalence, (e) the entry point at
+    full width.  Returns the backward kernels' records, with the training
+    path's launches added to the forward kernels' records."""
+    import tempfile
+    t_phase = time.perf_counter()
+    recs, fwd = backward_records(device, flush)
+    log(f"[17b] gradients on the card: "
+        f"{json.dumps(leaves_get_gradients(device))}")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        c_vs_c, restart = train_runs(device, tmp)
+    log(f"[17c] card vs CPU, smoke llama3.2-3b float32: {json.dumps(c_vs_c)}")
+    log(f"[17d] restart equivalence on the card: {json.dumps(restart)}")
+    t0 = time.perf_counter()
+    full = full_width_run(device)
+    log(f"[17e] {json.dumps(full)}")
+    for r in full["plans"]:
+        log(f"[17e] {r['plan']}: steps {r['step_s']} s, tokens/s "
+            f"{[round(t) for t in r['tokens_per_s']]}, peak "
+            f"{r['peak_gb']:.2f} GB, launches a step "
+            f"{json.dumps(r['launches_per_step'])}")
+    log(f"[17e] settled on {full['settled']}; loss {full['losses']}; "
+        f"final save {full['final_save_s']:.1f} s "
+        f"({full['checkpoint_gb']:.1f} GB); {time.perf_counter() - t0:.1f} s")
+    log(f"[17e] one more step by layer, then profiled: "
+        f"{json.dumps(full['step_breakdown'])}")
+    for r in recs:
+        r["launches"] = full["launches"][r["name"]]
+        r["launches_by_path"] = {"train [17]": r["launches"]}
+    for r in model_records:
+        if r["name"] in ("rmsnorm", "flash_attention"):
+            r["launches_by_path"] = {"prefill/decode [8]": r["launches"],
+                                     "train [17]":
+                                     full["launches"][r["name"]]}
+            r["launches"] = sum(r["launches_by_path"].values())
+            r["at_training_shape"] = fwd[r["name"]]
+    log(f"[17] {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2494,9 +3093,18 @@ def run() -> int:
 
     log("[16] learned-selection training on the card")
     phase_training(device, records)
-    log(f"[16] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[16] {time.perf_counter() - t_start:.1f} s so far")
+
+    # the earlier paths' recorded calls hold card memory that [17e]'s
+    # peaks would count
+    del fused_calls, wave_calls, big_f, big_w, replay_calls, big_r, bk, pk
+    torch.cuda.empty_cache()
+    log("[17] dense-family training: llama3.2-3b through the autotuner")
+    bwd_records = phase_dense_training(device, flush, model_records)
+    log(f"[17] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
-    print(json.dumps({"kernels": records + model_records}), flush=True)
+    print(json.dumps({"kernels": records + model_records + bwd_records}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

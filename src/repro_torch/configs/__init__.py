@@ -1,8 +1,8 @@
 """repro_torch.configs — model configurations of the port.
 
-The port runs the hybrid family (Zamba2) so far; the other architectures of
-the reference wait for their slice (ROADMAP queue 1) and are refused by
-name.
+The port has the hybrid family (Zamba2, served) and the dense family
+(llama3.2-3b, trained) so far; the other architectures of the reference
+wait for their slice (ROADMAP queue 1) and are refused by name.
 """
 
 from importlib import import_module
@@ -12,6 +12,7 @@ from .base import (ModelConfig, ShapeConfig, SHAPES, applicable,
                    smoke_reduce)
 
 _ARCH_MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
     "zamba2-7b": "zamba2_7b",
 }
 

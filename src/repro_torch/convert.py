@@ -6,8 +6,10 @@ take that state out of any object with the reference's fields as plain
 numpy arrays and dicts (``*_state``), and build the port's objects from
 such dicts (``*_from_state``), so a test can hand the exact reference state
 to both engines.  The models' weights cross as a nested dict of numpy
-arrays (:func:`model_params_from_jax`), and the policy trainer's weights
-and optimizer state as numpy too (:func:`policy_trainer_state_from_jax`).
+arrays (:func:`model_params_from_jax`), the model's AdamW state as the
+reference's nested ``AdamWState`` of numpy arrays
+(:func:`model_opt_state_from_jax`), and the policy trainer's weights and
+optimizer state as numpy too (:func:`policy_trainer_state_from_jax`).
 Nothing here imports the reference.
 """
 
@@ -89,3 +91,14 @@ def policy_trainer_state_from_jax(params: Dict[str, Any], opt: Any,
 
     return leaves(params), AdamWState(step=_tensor(np.asarray(opt.step), dev),
                                       m=leaves(opt.m), v=leaves(opt.v))
+
+
+def model_opt_state_from_jax(opt: Any, device=None) -> AdamWState:
+    """The port's AdamW state of the model from the reference's
+    ``AdamWState`` (``step``, and ``m``, ``v`` nested as the parameters)
+    given as numpy arrays, dtype for dtype, on ``device`` (default the
+    card)."""
+    dev = resolve_device(device)
+    return AdamWState(step=_tensor(np.asarray(opt.step), dev),
+                      m=model_params_from_jax(opt.m, dev),
+                      v=model_params_from_jax(opt.v, dev))

@@ -1,6 +1,8 @@
-"""repro_torch.data — the serving request generator."""
+"""repro_torch.data — the training token stream and the serving request
+generator."""
 
-from .pipeline import (Request, field_rng, request_lengths,
-                       synthetic_requests)
+from .pipeline import (DataConfig, Request, TokenPipeline, field_rng,
+                       request_lengths, synthetic_requests)
 
-__all__ = ["Request", "field_rng", "request_lengths", "synthetic_requests"]
+__all__ = ["DataConfig", "TokenPipeline", "Request", "field_rng",
+           "request_lengths", "synthetic_requests"]

@@ -1,18 +1,63 @@
-"""Synthetic serving requests: Pareto-tailed prompt and generation lengths
-with Poisson arrivals, each field from its own named substream.
+"""Deterministic synthetic data: the training token stream with O(1)
+resume, and serving requests (Pareto-tailed prompt and generation lengths
+with Poisson arrivals, each field from its own named substream).
 
-The port's own numpy copy of the request half of
-``repro.data.pipeline``; it yields the reference's requests field for
-field.
+The port's own numpy copy of ``repro.data.pipeline``; it yields the
+reference's batches bit for bit and its requests field for field.  Every
+training batch is a pure function of ``(seed, step)``: after a checkpoint
+restore at step k, ``batch_at(k)`` yields the same data with no stream
+replay.
 """
 
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    # synthetic mixture: (name, weight, zipf exponent) per corpus
+    mixture: Tuple[Tuple[str, float, float], ...] = (
+        ("web", 0.6, 1.2), ("code", 0.3, 1.05), ("math", 0.1, 1.4))
+
+
+class TokenPipeline:
+    """Step-indexed synthetic token stream (a mixture of zipf-ish corpora);
+    ``batch_at(step)`` returns int32 ``tokens`` and next-token ``labels``
+    of shape (global_batch, seq_len)."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        w = np.array([m[1] for m in cfg.mixture])
+        self._weights = w / w.sum()
+        self._exps = [m[2] for m in cfg.mixture]
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, step))
+        corpus = rng.choice(len(self._weights), size=cfg.global_batch,
+                            p=self._weights)
+        toks = np.empty((cfg.global_batch, cfg.seq_len + 1), np.int32)
+        for i, c in enumerate(corpus):
+            # zipf-ish marginal per corpus, shifted into the vocab
+            r = rng.random((cfg.seq_len + 1,))
+            z = np.floor((cfg.vocab_size - 1) * r ** self._exps[c])
+            toks[i] = z.astype(np.int32) % cfg.vocab_size
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclass

@@ -1,9 +1,10 @@
 """repro_torch.kernels — hand-written CUDA kernels for Hopper (sm_90a) with
-their plain PyTorch versions, one module each: ``event_loop``, ``rmsnorm``,
-``flash_attention`` and ``ssd_scan``.
+their plain PyTorch versions, one module each: ``event_loop``, ``rmsnorm``
+(with its backward ``rmsnorm_bwd``), ``flash_attention`` (with
+``flash_attention_bwd``) and ``ssd_scan``.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
-:func:`launch_counts` reads all five and :func:`reset_launch_counts` sets
+:func:`launch_counts` reads all seven and :func:`reset_launch_counts` sets
 them to 0.
 """
 

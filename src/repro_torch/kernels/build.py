@@ -41,12 +41,20 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "event_finish_fused_launch": (_P,) * 13 + (_P, _I, _I, _I, _I, _P),
     },
     # x, w, out, rows, D, x dtype, w dtype, eps, stream
+    # backward: x, w, dy, dx, dw, workspace, rows, D, blocks, x dtype,
+    # w dtype, eps, stream
     "rmsnorm.cu": {
         "rmsnorm_launch": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+        "rmsnorm_bwd_launch": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     },
     # q, k, v, out, B, S, T, H, K, hd, dtype, causal, scale, stream
     "flash_attention.cu": {
         "flash_attention_launch": (_P,) * 4 + (_I,) * 8 + (_F, _P),
+    },
+    # q, k, v, o, dO, dq, dk, dv, lse, delta, B, S, T, H, K, hd, dtype,
+    # causal, scale, stream
+    "flash_attention_bwd.cu": {
+        "flash_attention_bwd_launch": (_P,) * 10 + (_I,) * 8 + (_F, _P),
     },
     # x, dt, A, B, C, y, state, ws, ws floats, b, S, nh, hp, st, chunk,
     # x dtype, stream

@@ -12,6 +12,16 @@ The wrapper takes the plain version for tensors on the CPU and launches the
 kernel (``csrc/flash_attention.cu``) for tensors on a CUDA device; it never
 falls back from one to the other.  ``flash_attention.launches`` counts the
 kernel launches.
+
+Gradients: the reference trains through XLA's autodiff of the same
+function (``repro.models.layers.full_attention``).  Here, on a CUDA device
+and with autograd recording (``torch.is_grad_enabled()`` and an input that
+requires grad), the forward kernel runs inside an autograd ``Function``
+that keeps q, k, v and the output, and whose backward is the
+``flash_attention_bwd`` kernels (``csrc/flash_attention_bwd.cu``, which
+recompute the softmax; ``flash_attention_bwd.launches``).  Otherwise the
+forward launches as it is.  On the CPU autograd goes through the plain
+version.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 from .common import DTYPE_CODES, check, cuda_device, launch
 
 _SOURCE = "flash_attention.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 #: the largest head dim the kernel holds (its tiles are sized for it)
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
@@ -57,7 +68,14 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
     the tensor cores; float32: 64 by 32 on the CUDA cores)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
-    device = cuda_device("flash_attention", q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+def _check(name, q, k, v):
+    """The device of q, k, v after the kernels' checks."""
+    device = cuda_device(name, q)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if K == 0 or H % K:
@@ -68,6 +86,13 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
     check("q", q, (torch.float32, torch.bfloat16), (B, S, H, hd), device)
     check("k", k, q.dtype, (B, T, K, hd), device)
     check("v", v, q.dtype, (B, T, K, hd), device)
+    return device
+
+
+def _forward(q, k, v, causal):
+    device = _check("flash_attention", q, k, v)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel():
         launch(_SOURCE, "flash_attention_launch",
@@ -78,5 +103,58 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
     return out
 
 
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True):
+    """Plain version of the backward: (dq, dk, dv) from autograd through
+    :func:`flash_attention_ref`, which recomputes the output (``o`` is not
+    read)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+    """The gradient of :func:`flash_attention` at (q, k, v), whose output
+    is ``o``, for the output gradient ``do`` (q's shape and dtype):
+    returns (dq, dk, dv) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    device = _check("flash_attention_bwd", q, k, v)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    check("o", o, q.dtype, q.shape, device)
+    check("do", do, q.dtype, q.shape, device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not (S and T and B):
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    ws = torch.empty((2, B * H * S), dtype=torch.float32, device=device)
+    launch(_BWD_SOURCE, "flash_attention_bwd_launch",
+           [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ws[0].data_ptr(), ws[1].data_ptr(), B, S, T, H, K, hd,
+            DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(hd)], device)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 flash_attention.launches = 0
-WRAPPERS = (flash_attention,)
+flash_attention_bwd.launches = 0
+WRAPPERS = (flash_attention, flash_attention_bwd)

@@ -6,6 +6,14 @@ kernel ``repro.kernels.rmsnorm.rmsnorm``.  The wrapper takes the plain
 version for tensors on the CPU and launches the kernel (``csrc/rmsnorm.cu``)
 for tensors on a CUDA device; it never falls back from one to the other.
 ``rmsnorm.launches`` counts the kernel launches.
+
+Gradients: the reference trains through XLA's autodiff of the same
+function (``repro.models.layers.rms_norm``).  Here, on a CUDA device and
+with autograd recording (``torch.is_grad_enabled()`` and an input that
+requires grad), the forward kernel runs inside an autograd ``Function``
+whose backward is the ``rmsnorm_bwd`` kernel of the same source
+(``rmsnorm_bwd.launches``); otherwise the forward launches as it is.  On
+the CPU autograd goes through the plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +38,12 @@ def rmsnorm(x, w, *, eps: float = 1e-5, block_rows: int = 256):
     for parity: the CUDA kernel takes one row per block."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+def _forward(x, w, eps):
     device = cuda_device("rmsnorm", x)
     D = x.shape[-1]
     rows = x.numel() // max(D, 1)
@@ -46,5 +60,67 @@ def rmsnorm(x, w, *, eps: float = 1e-5, block_rows: int = 256):
     return out
 
 
+def rmsnorm_bwd_ref(x, w, dy, *, eps: float = 1e-5):
+    """Plain version of the backward: (dx, dw) from autograd through
+    :func:`rmsnorm_ref`."""
+    with torch.enable_grad():
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        return torch.autograd.grad(rmsnorm_ref(xg, wg, eps=eps), (xg, wg),
+                                   dy)
+
+
+#: the largest D of the backward kernel: its float32 partial sums of dw
+#: live in one block's shared memory
+MAX_BWD_D = 227 * 1024 // 4 - 64
+#: blocks of the backward, each summing its rows' share of dw (two an SM)
+_BWD_BLOCKS = 264
+
+
+def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
+    """The gradient of :func:`rmsnorm` at (x, w) for the output gradient dy
+    (x's shape and dtype): returns dx in x's dtype and dw (summed over the
+    rows in float32) in w's."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, w, dy, eps=eps)
+    device = cuda_device("rmsnorm_bwd", x)
+    D = x.shape[-1]
+    rows = x.numel() // max(D, 1)
+    if D > MAX_BWD_D:
+        raise ValueError(f"D={D} exceeds the backward kernel's {MAX_BWD_D}")
+    types = (torch.float32, torch.bfloat16)
+    check("x", x, types, x.shape, device)
+    check("w", w, types, (D,), device)
+    check("dy", dy, x.dtype, x.shape, device)
+    dx = torch.empty_like(x)
+    if not rows:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    parts = min(rows, _BWD_BLOCKS)
+    ws = torch.empty((parts, D), dtype=torch.float32, device=device)
+    launch(_SOURCE, "rmsnorm_bwd_launch",
+           [x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), ws.data_ptr(), rows, D, parts,
+            DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype], float(eps)], device)
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy.contiguous(), eps=ctx.eps)
+        return dx, dw, None
+
+
 rmsnorm.launches = 0
-WRAPPERS = (rmsnorm,)
+rmsnorm_bwd.launches = 0
+WRAPPERS = (rmsnorm, rmsnorm_bwd)

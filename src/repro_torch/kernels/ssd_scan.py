@@ -108,6 +108,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
     device = cuda_device("ssd_scan", x)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        # the output of a ctypes launch has no grad_fn: autograd would
+        # silently give everything upstream no gradient
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet (ROADMAP queue 1: hybrid "
+            "and SSM training); run it under torch.no_grad()")
     b, S, nh, hp = x.shape
     st = B.shape[-1]
     chunk = min(chunk, S)

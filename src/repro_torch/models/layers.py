@@ -1,11 +1,15 @@
-"""Neural-net building blocks of the hybrid (Zamba2) path.
+"""Neural-net building blocks of the dense and hybrid (Zamba2) paths.
 
-The port of the subset of ``repro.models.layers`` that the hybrid family
-uses, and ``gelu_mlp``, the block of the learned-selection policy net.
-RMSNorm goes to the ``rmsnorm`` kernel and prefill attention to the
-``flash_attention`` kernel; single-token decode attention and the SwiGLU
-and GELU products stay plain PyTorch, as the reference leaves them to XLA.
-Layouts are the reference's: q (B, S, H, hd), k and v (B, T, K, hd).
+The port of the subset of ``repro.models.layers`` that the dense and
+hybrid families use, and ``gelu_mlp``, the block of the learned-selection
+policy net.  RMSNorm goes to the ``rmsnorm`` kernel and prefill / training
+attention to the ``flash_attention`` kernel; under autograd on the card
+both run as ``torch.autograd.Function``s whose backwards are the
+``rmsnorm_bwd`` and ``flash_attention_bwd`` kernels (the reference trains
+through XLA's autodiff of these twins).  Single-token decode attention,
+RoPE and the SwiGLU and GELU products stay plain PyTorch (and plain
+autograd), as the reference leaves them to XLA.  Layouts are the
+reference's: q (B, S, H, hd), k and v (B, T, K, hd).
 """
 
 from __future__ import annotations

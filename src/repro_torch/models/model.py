@@ -1,21 +1,28 @@
-"""Architecture assembly: init / forward / logits for the hybrid family.
+"""Architecture assembly: init / forward / logits / loss for the dense and
+hybrid families.
 
-The port of ``repro.models.model`` for Zamba2 (family ``hybrid``): a stack
-of Mamba2 layers with one *shared* attention + SwiGLU block applied after
-every ``attn_every`` of them.  Parameters are plain dicts of tensors; the
-Mamba2 layers are stacked with a leading L, as the reference stacks them,
-and a Python loop over L takes the place of ``lax.scan``.  The reference's
-sharding hints are no-ops on one device and are left out, as is remat
-(this port serves; it does not train yet).  The other families wait for
-their slice (ROADMAP queue 1).
+The port of ``repro.models.model`` for two families: ``dense`` (llama-style:
+a stack of attention + SwiGLU blocks, trained here) and ``hybrid``
+(Zamba2: a stack of Mamba2 layers with one *shared* attention + SwiGLU
+block applied after every ``attn_every`` of them, served).  Parameters are
+plain dicts of tensors; the layers are stacked with a leading L, as the
+reference stacks them, and a Python loop over L takes the place of
+``lax.scan``: a forward takes each stack apart once with ``unbind(0)``
+(views, and one stacked gradient in the backward).  With ``cfg.remat`` each
+dense block runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), and the loss is the reference's blockwise
+cross-entropy, each sequence chunk checkpointed.  The reference's sharding
+hints are no-ops on one device and are left out.  The other families, and
+the dense family's serving, wait for their slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -24,17 +31,28 @@ from .layers import (apply_rope, decode_attention, full_attention, matmul,
 from .ssm import init_ssm_layer, ssm_layer_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the families whose init, forward and loss are ported
+PORTED_FAMILIES = ("dense", "hybrid")
+CE_CHUNK = 512                # sequence chunk for the blockwise CE loss
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1); "
-            "the port runs the hybrid family")
+            f"the port runs the {' and '.join(PORTED_FAMILIES)} families")
+
+
+def _require_hybrid(cfg: ModelConfig) -> None:
+    """The serving paths (caches, prefill, decode) run the hybrid family."""
+    if cfg.family != "hybrid":
+        raise NotImplementedError(
+            f"serving family {cfg.family!r} is not ported yet (ROADMAP "
+            "queue 1); the port serves the hybrid family")
 
 
 # ===========================================================================
@@ -84,14 +102,18 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator], *,
                 device: Optional[Union[str, torch.device]] = None) -> Dict:
     """Random parameters from ``key`` (a seed, or a ``torch.Generator`` on
-    ``device``), on ``device`` (default the card).  The Mamba2 layers are
-    stacked with a leading L: each layer is drawn and written into its slot
-    of the stack, so the peak is one layer's float32 draw."""
-    _require_hybrid(cfg)
-    dev = resolve_device(device)
+    ``device``), on ``device`` (default the card).  The layers (dense
+    blocks, or Mamba2 layers) are stacked with a leading L: each layer is
+    drawn and written into its slot of the stack, so the peak is one
+    layer's float32 draw.  ``device="meta"`` gives the tree's structure,
+    shapes and dtypes alone, holding no memory (a restore's template)."""
+    _require_ported(cfg)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     gen = key
     if not isinstance(key, torch.Generator):
-        gen = torch.Generator(device=dev).manual_seed(int(key))
+        gen = torch.Generator(device="cpu" if meta else dev
+                              ).manual_seed(int(key))
     dtype = _dtype(cfg)
     D, V = cfg.d_model, padded_vocab(cfg)
     params: Dict = {
@@ -101,22 +123,35 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = (_normal(gen, (D, V), dev)
                              / math.sqrt(D)).to(dtype)
+    init_layer = (_init_dense_layer if cfg.family == "dense"
+                  else init_ssm_layer)
     layers: Dict[str, torch.Tensor] = {}
     for i in range(cfg.n_layers):
-        layer = init_ssm_layer(gen, cfg, dtype, dev)
+        layer = init_layer(gen, cfg, dtype, dev)
         for name, t in layer.items():
             if name not in layers:
                 layers[name] = torch.empty((cfg.n_layers,) + t.shape,
                                            dtype=t.dtype, device=dev)
             layers[name][i] = t
     params["layers"] = layers
-    params["shared_attn"] = _init_dense_layer(gen, cfg, dtype, dev)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_dense_layer(gen, cfg, dtype, dev)
     return params
 
 
 def layer_params(params: Dict, i: int) -> Dict:
-    """Layer ``i`` of the stacked Mamba2 parameters (views, no copy)."""
+    """Layer ``i`` of the stacked parameters (views, no copy)."""
     return {name: t[i] for name, t in params["layers"].items()}
+
+
+def unstack_layers(params: Dict) -> List[Dict]:
+    """Every layer of the stacked parameters, from one ``unbind(0)`` a
+    stack (views).  Under autograd the backward of ``unbind`` stacks the
+    layers' gradients once, where indexing each layer (``t[i]``) would
+    write a zero-filled copy of the whole stack per layer."""
+    names = list(params["layers"])
+    slices = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, ts)) for ts in zip(*slices)]
 
 
 # ===========================================================================
@@ -178,17 +213,40 @@ def forward(cfg: ModelConfig, params: Dict, tokens, *,
             attn_impl: str = "auto", collect_cache: bool = False):
     """Token trunk -> final hidden states (B, S, D).
 
-    collect_cache: also return the per-segment caches (prefill path).
-    ``attn_impl`` is the reference's choice of attention, kept for parity:
-    every choice is the flash kernel here.
+    collect_cache: also return the per-segment caches (the hybrid family's
+    prefill path).  ``attn_impl`` is the reference's choice of attention,
+    kept for parity: every choice is the flash kernel here.
     Returns (hidden, cache_or_None, aux dict)."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x, cache = _hybrid_forward(cfg, params, x, positions, collect_cache)
+    if cfg.family == "dense":
+        if collect_cache:
+            _require_hybrid(cfg)
+        x = _dense_forward(cfg, params, x, positions)
+        cache = None
+    else:
+        x, cache = _hybrid_forward(cfg, params, x, positions, collect_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, cache, {}
+
+
+def _dense_body(p, cfg, x, positions):
+    return _dense_block(p, cfg, x, positions)[0]
+
+
+def _dense_forward(cfg, params, x, positions):
+    """The dense stack; with ``cfg.remat`` each block is checkpointed, so
+    the backward recomputes it from its input (the reference's
+    ``jax.checkpoint`` around the scanned body)."""
+    for p in unstack_layers(params):
+        if cfg.remat:
+            x = checkpoint(_dense_body, p, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _dense_body(p, cfg, x, positions)
+    return x
 
 
 def _hybrid_forward(cfg, params, x, positions, collect_cache):
@@ -232,3 +290,44 @@ def _head(cfg, params):
 
 def logits_fn(cfg, params, hidden):
     return matmul(hidden, _head(cfg, params))
+
+
+def _ce_chunk(h, labels, head, z_loss: float):
+    """Summed loss and count of valid labels of one sequence chunk: the
+    (B, chunk, V) logits in float32 exist only inside this call."""
+    lg = matmul(h, head).float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
+    valid = (labels >= 0).float()
+    nll = ((lse - gold) + z_loss * lse ** 2) * valid
+    return nll.sum(), valid.sum()
+
+
+def chunked_ce_loss(cfg, params, hidden, labels, z_loss: float = 1e-4):
+    """Blockwise cross-entropy over ``CE_CHUNK``-token chunks of the
+    sequence, each checkpointed so that the backward recomputes its logits
+    instead of keeping them: one (B, chunk, V) float32 block lives at a
+    time.  Labels < 0 are masked; a z-loss of ``z_loss * lse**2`` is added.
+    hidden (B, S, D), labels (B, S).  Returns the scalar mean loss."""
+    B, S, _ = hidden.shape
+    head = _head(cfg, params)
+    n_chunks = -(-S // CE_CHUNK)
+    pad = n_chunks * CE_CHUNK - S
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * CE_CHUNK, (c + 1) * CE_CHUNK)
+        nll, n = checkpoint(_ce_chunk, hidden[:, sl], labels[:, sl], head,
+                            z_loss, use_reentrant=False)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch: {"tokens": (B, S), "labels": (B, S)}.  Returns (loss, aux)."""
+    hidden, _, aux = forward(cfg, params, batch["tokens"])
+    return chunked_ce_loss(cfg, params, hidden, batch["labels"]), aux

@@ -9,21 +9,58 @@ step and puts ``eps`` elsewhere, so it would not agree with the reference.
 Every quantity is a float32 tensor on the parameters' device; the step
 count is an int32 scalar tensor.  Moments may be kept in a reduced dtype
 (``moment_dtype``).
+
+Parameters, gradients and moments are dicts of tensors, nested as the
+model's are (``{"layers": {"wq": ...}}``); their leaves are visited in
+the reference's ``jax.tree.leaves`` order (sorted keys, recursively).
+:func:`adamw_update` is functional, as the reference's; the model's train
+step uses :func:`adamw_update_`, which writes the same float32 operations'
+results into the parameters and moments in place, a slice of each leaf at
+a time: a functional update of a model at full width would hold the old
+and the new state and a whole stack's float32 temporaries at once.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Callable, Dict, Iterator, List, NamedTuple, Tuple, Union
 
 import torch
 
 
 class AdamWState(NamedTuple):
     step: torch.Tensor
-    m: Dict[str, torch.Tensor]
-    v: Dict[str, torch.Tensor]
+    m: Dict
+    v: Dict
+
+
+def tree_leaves(tree: Dict) -> List[torch.Tensor]:
+    """The tensors of a nested dict in ``jax.tree.leaves`` order."""
+    return [x for _, x in tree_items(tree)]
+
+
+def tree_items(tree: Dict, prefix: Tuple[str, ...] = ()
+               ) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(key path, tensor) pairs of a nested dict, keys sorted at every
+    level."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from tree_items(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def tree_map(fn: Callable, tree: Dict, *rest: Dict) -> Dict:
+    """``fn`` over the leaves of nested dicts of one structure."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def tree_get(tree: Dict, path: Tuple[str, ...]) -> torch.Tensor:
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 @dataclass(frozen=True)
@@ -44,15 +81,16 @@ def _moment_dtype(cfg: AdamWConfig) -> torch.dtype:
     return getattr(torch, cfg.moment_dtype)
 
 
-def adamw_init(params: Dict[str, torch.Tensor],
-               cfg: AdamWConfig) -> AdamWState:
+def adamw_init(params: Dict, cfg: AdamWConfig) -> AdamWState:
     mdt = _moment_dtype(cfg)
-    any_p = next(iter(params.values()))
-    zeros = {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
-             for k, p in params.items()}
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+
     return AdamWState(
-        step=torch.zeros((), dtype=torch.int32, device=any_p.device),
-        m=zeros, v={k: z.clone() for k, z in zeros.items()})
+        step=torch.zeros((), dtype=torch.int32,
+                         device=tree_leaves(params)[0].device),
+        m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
 def schedule_lr(cfg: AdamWConfig, step: Union[int, torch.Tensor]
@@ -74,18 +112,16 @@ def schedule_lr(cfg: AdamWConfig, step: Union[int, torch.Tensor]
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The float32 L2 norm of every leaf together, leaves in key order."""
-    leaves = [torch.sum(torch.square(tree[k].float())) for k in sorted(tree)]
+def global_norm(tree: Dict) -> torch.Tensor:
+    """The float32 L2 norm of every leaf together, leaves in
+    ``jax.tree.leaves`` order."""
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-@torch.no_grad()
-def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
-                 params: Dict[str, torch.Tensor], cfg: AdamWConfig
-                 ) -> Tuple[Dict[str, torch.Tensor], AdamWState, Dict]:
-    """Returns (new_params, new_state, metrics); the inputs stay as they
-    were (new tensors throughout, as the reference's functional update)."""
+def _coefficients(grads: Dict, state: AdamWState, cfg: AdamWConfig):
+    """The step's clip scale, new step count, learning rate and bias
+    corrections, and the metrics."""
     gnorm = global_norm(grads)
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -96,19 +132,60 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
     lr = schedule_lr(cfg, state.step).to(gnorm.device)
     bc1 = 1.0 - cfg.b1 ** step.float()
     bc2 = 1.0 - cfg.b2 ** step.float()
+    return scale, step, lr, bc1, bc2, {"grad_norm": gnorm, "lr": lr}
+
+
+def _update(g, m, v, p, cfg, scale, lr, bc1, bc2):
+    """One leaf's (new p, m32, v32), in the reference's float32 order."""
+    g = g.float() * scale
+    m32 = m.float() * cfg.b1 + (1 - cfg.b1) * g
+    v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
+    mhat = m32 / bc1
+    vhat = v32 / bc2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype), m32, v32
+
+
+@torch.no_grad()
+def adamw_update(grads: Dict, state: AdamWState, params: Dict,
+                 cfg: AdamWConfig) -> Tuple[Dict, AdamWState, Dict]:
+    """Returns (new_params, new_state, metrics); the inputs stay as they
+    were (new tensors throughout, as the reference's functional update)."""
+    scale, step, lr, bc1, bc2, metrics = _coefficients(grads, state, cfg)
     mdt = _moment_dtype(cfg)
-    new_p, new_m, new_v = {}, {}, {}
-    for k in params:
-        p = params[k]
-        g = grads[k].float() * scale
-        m32 = state.m[k].float() * cfg.b1 + (1 - cfg.b1) * g
-        v32 = state.v[k].float() * cfg.b2 + (1 - cfg.b2) * g * g
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
-                 + cfg.weight_decay * p.float())
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k] = m32.to(mdt)
-        new_v[k] = v32.to(mdt)
-    metrics = {"grad_norm": gnorm, "lr": lr}
+    flat = tree_map(lambda g, m, v, p: _update(g, m, v, p, cfg, scale, lr,
+                                               bc1, bc2),
+                    grads, state.m, state.v, params)
+    new_p = tree_map(lambda t: t[0], flat)
+    new_m = tree_map(lambda t: t[1].to(mdt), flat)
+    new_v = tree_map(lambda t: t[2].to(mdt), flat)
     return new_p, AdamWState(step=step, m=new_m, v=new_v), metrics
+
+
+#: elements of one slice of the in-place update (256 MB of float32)
+SLICE_ELEMENTS = 1 << 26
+
+
+@torch.no_grad()
+def adamw_update_(grads: Dict, state: AdamWState, params: Dict,
+                  cfg: AdamWConfig) -> Tuple[Dict, AdamWState, Dict]:
+    """:func:`adamw_update` written into ``params`` and ``state``'s moments
+    in place; returns (params, new_state, metrics) with the same tensors.
+    Each leaf is walked in slices along its leading axis (a stacked leaf
+    layer by layer) of at most ``SLICE_ELEMENTS``, so the float32
+    temporaries are one slice's; the operations are elementwise and the
+    same, so the result equals the functional update bit for bit."""
+    scale, step, lr, bc1, bc2, metrics = _coefficients(grads, state, cfg)
+    for path, p in tree_items(params):
+        g, m, v = (tree_get(t, path) for t in (grads, state.m, state.v))
+        n = p.shape[0] if p.dim() else 1
+        rows = max(1, SLICE_ELEMENTS // max(p[0].numel() if p.dim() else 1,
+                                            1))
+        for lo in range(0, n, rows):
+            sl = (slice(lo, lo + rows),) if p.dim() else (Ellipsis,)
+            new_p, m32, v32 = _update(g[sl], m[sl], v[sl], p[sl], cfg,
+                                      scale, lr, bc1, bc2)
+            p[sl].copy_(new_p)
+            m[sl].copy_(m32)
+            v[sl].copy_(v32)
+    return params, AdamWState(step=step, m=state.m, v=state.v), metrics

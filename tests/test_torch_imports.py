@@ -68,6 +68,13 @@ TRAINING_SLICE = {
     "repro_torch.checkpoint.manager", "repro_torch.runtime",
     "repro_torch.runtime.trainer", "repro_torch.runtime.policy_trainer",
 }
+#: the dense-training slice: the llama config, the train step, the
+#: step-plan autotuner, gradient compression and the launcher
+DENSE_TRAIN_SLICE = {
+    "repro_torch.configs.llama3_2_3b", "repro_torch.launch.steps",
+    "repro_torch.launch.train", "repro_torch.distributed.autotune",
+    "repro_torch.distributed.compression",
+}
 
 
 def _env():
@@ -95,6 +102,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert ENGINE_SLICE <= set(MODULES)
     assert FLEET_SLICE <= set(MODULES)
     assert TRAINING_SLICE <= set(MODULES)
+    assert DENSE_TRAIN_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 
@@ -120,7 +128,8 @@ def test_every_kernel_source_has_an_entry_point_signature():
     from repro_torch.kernels import build
     sources = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert sources == set(build.SIGNATURES) == {
-        "event_loop.cu", "rmsnorm.cu", "flash_attention.cu", "ssd_scan.cu"}
+        "event_loop.cu", "rmsnorm.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu", "ssd_scan.cu"}
 
 
 def test_backend_defaults_to_the_card():
@@ -158,3 +167,24 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                          text=True, timeout=240, cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_training_entry_points_default_to_the_card():
+    """The trainer and the launcher run on the card unless asked for the
+    CPU; without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.data import DataConfig
+    from repro_torch.distributed import make_plan_builder
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = smoke_reduce(get_config("llama3.2-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, AdamWConfig(), DataConfig(512, 8, 2),
+                TrainerConfig(ckpt_dir="unused"), step_fn=lambda *a: a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_plan_builder(cfg, AdamWConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])

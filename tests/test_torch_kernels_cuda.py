@@ -269,7 +269,7 @@ DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (16, 3584),
-                                   (8, 7168), (5, 7168)])
+                                   (8, 7168), (5, 7168), (2, 2048, 3072)])
 @pytest.mark.parametrize("xd,wd", [("float32", "float32"),
                                    ("bfloat16", "bfloat16"),
                                    ("float32", "bfloat16")])
@@ -282,14 +282,15 @@ def test_rmsnorm_kernel_matches_plain_version(card, shape, xd, wd):
     assert_within(got, RMS.rmsnorm_ref(x, w), "rmsnorm")
 
 
-#: the last three are the edges the bfloat16 kernel's tiles must mask at
-#: the serving head dim: ragged S and T with GQA, S < T against a long
-#: key range with one kv head, and a full 2048-token prefill
+#: the last three but one are the edges the bfloat16 kernel's tiles must
+#: mask at the serving head dim: ragged S and T with GQA, S < T against a
+#: long key range with one kv head, and a full 2048-token prefill; the last
+#: is llama3.2-3b's training call cut to 6 / 2 heads (groups of 3, hd 128)
 FLASH = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
          (1, 257, 129, 6, 3, 64), (2, 256, 256, 4, 4, 112),
          (2, 100, 72, 4, 2, 112), (1, 300, 300, 2, 1, 128),
          (1, 257, 129, 6, 3, 112), (2, 64, 2048, 4, 1, 112),
-         (1, 2048, 2048, 2, 2, 112)]
+         (1, 2048, 2048, 2, 2, 112), (1, 2048, 2048, 6, 2, 128)]
 
 
 @pytest.mark.cuda
@@ -356,3 +357,139 @@ def test_model_wrappers_refuse_what_the_kernels_do_not_take(card):
     args = _ssd_args(1, 64, 2, 96, 16, "float32", card)
     with pytest.raises(ValueError, match="exceed"):
         SSD.ssd_scan(*args, chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training)
+# ---------------------------------------------------------------------------
+
+#: bfloat16 gradients against the plain versions' autograd (float32 math,
+#: rounded once): relative L2 <= 2**-8.  The flash backward takes delta =
+#: rowsum(dO * o) from the bfloat16 output where autograd uses its float32
+#: value (~1.4e-3 in relative L2, emulated on the CPU); float32 is held
+#: within 1e-5 (flash) and 1e-6 (rmsnorm) of the largest magnitude
+BWD_REL_L2_BF16 = 2.0 ** -8
+
+
+def _check_grads(got, want, dtype, kernel):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(torch.isfinite(g.float()).all())
+        if dtype == "float32":
+            assert_within(g, w, kernel)
+        else:
+            rel = float((g.float() - w.float()).norm() / w.float().norm())
+            assert rel <= BWD_REL_L2_BF16, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (300, 3072),
+                                   (5, 7168)])
+@pytest.mark.parametrize("xd,wd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16")])
+def test_rmsnorm_bwd_kernel_matches_plain_autograd(card, shape, xd, wd):
+    x = _randn(shape, DT[xd], card, sum(shape))
+    w = _randn(shape[-1:], DT[wd], card, 1)
+    dy = _randn(shape, DT[xd], card, 2)
+    n0 = RMS.rmsnorm_bwd.launches
+    got = RMS.rmsnorm_bwd(x, w, dy)
+    assert RMS.rmsnorm_bwd.launches == n0 + 1
+    want = RMS.rmsnorm_bwd_ref(x, w, dy)
+    _check_grads(got[:1], want[:1], xd, "rmsnorm")
+    _check_grads(got[1:], want[1:], wd, "rmsnorm")
+    again = RMS.rmsnorm_bwd(x, w, dy)          # no atomics: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+#: GQA and MHA, causal or not, ragged tiles, hd 32 / 64 / 112 / 128, and
+#: the training shape cut to one batch row
+FLASH_BWD = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
+             (1, 257, 129, 6, 3, 64), (2, 100, 72, 4, 2, 112),
+             (1, 300, 300, 6, 2, 128), (1, 2048, 2048, 24, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd", FLASH_BWD)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain_autograd(card, B, S, T, H, K, hd,
+                                                 causal, dtype):
+    q = _randn((B, S, H, hd), DT[dtype], card, 1)
+    k = _randn((B, T, K, hd), DT[dtype], card, 2)
+    v = _randn((B, T, K, hd), DT[dtype], card, 3)
+    do = _randn((B, S, H, hd), DT[dtype], card, 4)
+    o = FA.flash_attention(q, k, v, causal=causal)
+    n0 = FA.flash_attention_bwd.launches
+    got = FA.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    assert FA.flash_attention_bwd.launches == n0 + 1
+    want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    _check_grads(got, want, dtype, "flash")
+    again = FA.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_autograd_goes_through_the_backward_kernels(card):
+    """With autograd recording, the wrappers launch the forward kernels
+    inside Functions whose backwards are the backward kernels; under
+    no_grad (serving) they launch the forward kernels alone, as before."""
+    x = _randn((2, 64, 4, 64), torch.bfloat16, card, 5).requires_grad_()
+    w = _randn((64,), torch.bfloat16, card, 6).requires_grad_()
+    n = (RMS.rmsnorm.launches, RMS.rmsnorm_bwd.launches,
+         FA.flash_attention.launches, FA.flash_attention_bwd.launches)
+    h = RMS.rmsnorm(x, w)
+    out = FA.flash_attention(h, h[:, :, :2].contiguous(),
+                             h[:, :, 2:].contiguous())
+    assert out.grad_fn is not None and h.grad_fn is not None
+    out.float().square().sum().backward()
+    assert (RMS.rmsnorm.launches, RMS.rmsnorm_bwd.launches,
+            FA.flash_attention.launches,
+            FA.flash_attention_bwd.launches) == tuple(c + 1 for c in n)
+    assert bool(x.grad.abs().sum() > 0) and bool(w.grad.abs().sum() > 0)
+    with torch.no_grad():
+        h = RMS.rmsnorm(x, w)
+        out = FA.flash_attention(h, h, h)
+    assert out.grad_fn is None
+    assert (RMS.rmsnorm_bwd.launches, FA.flash_attention_bwd.launches) == (
+        n[1] + 1, n[3] + 1)
+    from repro_torch.kernels import ssd_scan as SSD
+    args = _ssd_args(1, 64, 2, 32, 16, "float32", card)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        SSD.ssd_scan(args[0].requires_grad_(), *args[1:], chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_leaf_gets_a_gradient_on_the_card(card, dtype):
+    """One backward of the smoke llama on the card: no leaf (no layer of a
+    stacked leaf) is without a gradient, and the loss and gradients are
+    finite; float32 agrees with the CPU within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import tree_items, tree_map
+    cfg = dataclasses.replace(smoke_reduce(get_config("llama3.2-3b")),
+                              param_dtype=dtype)
+    params = init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int32))
+    runs = []
+    for dev in (card, "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        runs.append(value_and_grad(lambda p, b: loss_fn(cfg, p, b), p, b))
+    (loss, _), grads = runs[0]
+    assert bool(torch.isfinite(loss))
+    for path, g in tree_items(grads):
+        assert bool(torch.isfinite(g.float()).all()), path
+        per = g.float().reshape(g.shape[0], -1).abs().sum(1) \
+            if path[0] == "layers" else g.float().abs().sum().reshape(1)
+        assert bool((per > 0).all()), path
+    if dtype == "float32":
+        (cpu_loss, _), cpu_grads = runs[1]
+        assert abs(float(loss) - float(cpu_loss)) <= 1e-4 * float(cpu_loss)
+        for (path, g), (_, c) in zip(tree_items(grads), tree_items(cpu_grads)):
+            err = float((g.cpu() - c).abs().max() / c.abs().max())
+            assert err <= 1e-4, (path, err)

@@ -213,3 +213,93 @@ def test_ssd_wrapper_refuses_a_ragged_chunk():
     _, targs = _ssd_inputs(1, 96, 2, 16, 8, "float32", 0)
     with pytest.raises(ValueError, match="multiple"):
         tssd.ssd_scan_ref(*targs, chunk=64)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the plain versions under autograd against jax.vjp of the
+# reference's twins (repro.models.layers.rms_norm / full_attention), which
+# the reference trains through and the port's backward kernels compute.
+#
+# Tolerances: float32 as the forward (rmsnorm 1e-6, flash 1e-5 relative to
+# the largest magnitude; sums in another order).  bfloat16 rmsnorm: one
+# bfloat16 ulp beyond that (both differentiate in float32 and round once).
+# bfloat16 flash attention: relative L2 <= 2**-7, because the twin rounds
+# its softmax weights to bfloat16 before the product with v, and so the
+# weights' gradient too, where the plain version keeps both in float32:
+# two roundings of <= 2**-9 each inside, one at the output (measured
+# ~2.6e-3).
+# ---------------------------------------------------------------------------
+
+FLASH_GRAD_REL_L2_BF16 = 2.0 ** -7
+
+GRAD_CASES = [
+    (2, 64, 64, 4, 2, 32),       # GQA, hd 32
+    (1, 128, 128, 6, 2, 128),    # GQA, the training head dim
+    (2, 96, 80, 4, 4, 32),       # MHA, ragged S > T
+    (1, 130, 130, 8, 2, 128),    # ragged tile edges at hd 128
+]
+
+
+def _rel_l2(got, want):
+    got, want = _np(got), _np(want)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (4, 3584)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_gradients_match_reference_twin(shape, dtype):
+    import jax
+    from repro.models.layers import rms_norm
+    rng = np.random.default_rng(sum(shape) + 5)
+    (xj, xt), (wj, wt), (gj, gt) = (
+        _both(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in (shape, shape[-1:], shape))
+    _, vjp = jax.vjp(lambda x, w: rms_norm(x, w, 1e-5), xj, wj)
+    want = vjp(gj)
+    got = trms.rmsnorm_bwd(xt, wt, gt)      # CPU: autograd of the plain
+    assert [g.dtype for g in got] == [xt.dtype, wt.dtype]
+    for g, w in zip(got, want):
+        assert_close(g.float(), w, dtype, "rmsnorm")
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd", GRAD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_gradients_match_reference_twin(B, S, T, H, K, hd,
+                                                    causal, dtype):
+    import jax
+    from repro.models.layers import full_attention
+    rng = np.random.default_rng(B * S + T + H * K + hd)
+    (qj, qt), (kj, kt), (vj, vt), (dj, dt) = (
+        _both(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd),
+                  (B, S, H, hd)))
+    _, vjp = jax.vjp(lambda q, k, v: full_attention(q, k, v, causal=causal),
+                     qj, kj, vj)
+    want = vjp(dj)
+    o = tfa.flash_attention(qt, kt, vt, causal=causal)
+    n0 = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(qt, kt, vt, o, dt, causal=causal)
+    assert tfa.flash_attention_bwd.launches == n0   # CPU: the plain version
+    for g, w in zip(got, want):
+        assert g.dtype == qt.dtype and g.shape == w.shape
+        if dtype == "float32":
+            assert_close(g, w, dtype, "flash")
+        else:
+            assert _rel_l2(g.float(), w) <= FLASH_GRAD_REL_L2_BF16
+
+
+def test_model_layers_differentiate_through_the_plain_versions():
+    """On the CPU the model's rms_norm and attention are the plain
+    versions, so autograd reaches every input (the card's path goes
+    through the backward kernels' Functions instead)."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 4, 32))
+                         .astype(np.float32)).requires_grad_()
+    w = torch.ones(32, requires_grad=True)
+    kv = x[:, :, :2].detach().clone().requires_grad_()
+    out = tlayers.full_attention(tlayers.rms_norm(x, w), kv, kv,
+                                 causal=True)
+    out.square().sum().backward()
+    for t in (x, w, kv):
+        assert t.grad is not None and bool(t.grad.abs().sum() > 0)
