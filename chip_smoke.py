@@ -58,7 +58,7 @@ kernels, and prints one JSON line per result.  Phases, in order:
     timed at the replay's largest call; replay steps under
     ``torch.profiler`` (the card's busy time and launches a step, its idle
     share); the same grid with two learned lanes
-    at T = 30 on the kernels and on the plain event core, and at T = 4 on
+    at T = 20 on the kernels and on the plain event core, and at T = 4 on
     the card and on the CPU, histories, totals and policy states bit-equal;
     and SimPolicy's decision equal to the exhaustive Oracle's on the
     noise-free ``tc``/``epyc`` loop;
@@ -99,7 +99,7 @@ kernels, and prints one JSON line per result.  Phases, in order:
     ``PathTimes`` (``pack_s`` beside ``launch_s`` and the drain's wait
     ``device_s``) and the card's idle share (its busy time from one more
     sweep under ``torch.profiler``); the Fig. 5 grid's lockstep replay at
-    T = 50 and the what-if calls of [5], async against sync, bit-equal;
+    T = 30 and the what-if calls of [5], async against sync, bit-equal;
     the split path at ``data_parallel=1`` against an explicit one-device
     list (the one card holds no split above one device);
 16. learned-selection training, ``benchmarks/bench_learned.py::smoke``'s
@@ -119,8 +119,11 @@ kernels, and prints one JSON line per result.  Phases, in order:
     causal attention of 24 query and 8 kv heads of 128 over 2048), float32
     within ``BWD_F32_REL`` and bf16 within ``BWD_BF16_REL_L2``, each timed
     after an L2 flush beside its bound, its plain version and the
-    library's backward (SDPA's, ``F.rms_norm``'s), and the flash forward
-    at the training shape; (b) one backward of the smoke llama on the
+    library's backward (SDPA's, ``F.rms_norm``'s), the backward taking
+    the lse the forward keeps; the forward's lse within ``LSE_REL`` of
+    the plain lse, its output bit-equal with and without it, and its time
+    with and without it at the training and the prefill shape; (b) one
+    backward of the smoke llama on the
     card, float32 and bf16: no leaf without a gradient; (c) the smoke
     llama in float32, 8 steps from one start on the card and on the CPU,
     losses within ``TRAIN_CARD_CPU_REL``; (d) restart equivalence on the
@@ -963,10 +966,10 @@ def model_kernel_records(device, flush, launches):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the plain event core's check runs at T = 30: its per-chunk torch loop
-#: makes each pricing miss a fraction of a second (T = 50 until the
-#: script's wall neared its limit beside phase [17])
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 30, 4
+#: the plain event core's check runs at T = 20: its per-chunk torch loop
+#: makes each pricing miss a fraction of a second (T = 50, then 30, until
+#: the script's wall neared its limit beside phase [17])
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 20, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1891,8 +1894,9 @@ def phase_serving(device, flush, records, per_tok):
 # ---------------------------------------------------------------------------
 
 #: the sweep's depth (the main path's) and the lockstep replay's (the
-#: Fig. 5 grid) held async == sync
-ASYNC_SWEEP_T, ASYNC_REPLAY_T = 500, 50
+#: Fig. 5 grid) held async == sync; the replay cut from T = 50 to keep the
+#: script inside its limit
+ASYNC_SWEEP_T, ASYNC_REPLAY_T = 500, 30
 
 
 def sweep_busy():
@@ -2258,6 +2262,9 @@ TRAIN_B, TRAIN_S = 4, 2048
 #: emulated on the CPU).  Fixed before the kernels' first card run.
 BWD_F32_REL = 1e-5
 BWD_BF16_REL_L2 = 2.0 ** -8
+#: the forward kernel's row lse (float32) against the plain lse, relative
+#: to the largest magnitude (sums in another order)
+LSE_REL = 1e-5
 #: the card against the CPU, smoke llama3.2-3b in float32, 8 steps
 TRAIN_CARD_CPU_REL = 1e-4
 #: the reference test's restart-equivalence settings
@@ -2334,7 +2341,8 @@ def backward_records(device, flush):
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
     for shape, dt in (((8, 128), f32), ((3, 17, 64), bf16),
-                      ((300, 3072), f32), ((5, 7168), bf16)):
+                      ((300, 3072), f32), ((5, 7168), bf16),
+                      ((37, 1001), bf16), ((3, 20000), f32)):
         x, w, dy = (randn(s, dt, device, 20 + i)
                     for i, s in enumerate((shape, shape[-1:], shape)))
         errs = grad_errors(RMS.rmsnorm_bwd(x, w, dy),
@@ -2349,8 +2357,8 @@ def backward_records(device, flush):
             ((2, 100, 72, 4, 2, 112), True, bf16)):
         q, do = (randn((B, S, H, hd), dt, device, 30 + i) for i in range(2))
         k, v = (randn((B, T, K, hd), dt, device, 32 + i) for i in range(2))
-        o = FA.flash_attention(q, k, v, causal=causal)
-        errs = grad_errors(FA.flash_attention_bwd(q, k, v, o, do,
+        o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+        errs = grad_errors(FA.flash_attention_bwd(q, k, v, o, do, lse,
                                                   causal=causal),
                            FA.flash_attention_bwd_ref(q, k, v, o, do,
                                                       causal=causal))
@@ -2407,19 +2415,25 @@ def backward_records(device, flush):
     B, S, H, K, hd = TRAIN_B, TRAIN_S, 24, 8, 128
     q, do = (randn((B, S, H, hd), bf16, device, 50 + i) for i in range(2))
     k, v = (randn((B, S, K, hd), bf16, device, 52 + i) for i in range(2))
-    o = FA.flash_attention(q, k, v, causal=True)
+    o, lse = FA.flash_attention_lse(q, k, v, causal=True)
     o_ref = FA.flash_attention_ref(q, k, v, causal=True)
+    lse_ref = FA.flash_attention_lse_ref(q, k, v, causal=True)
     fwd_err = {"max_abs_err": float((o.float() - o_ref.float()).abs().max()),
-               "tol_ratio": tol_ratio(o, o_ref, "flash_attention")}
-    del o_ref
-    require(fwd_err["tol_ratio"] <= 1.0, f"flash_attention at the training "
-            f"shape {fwd_err}")
-    got = FA.flash_attention_bwd(q, k, v, o, do, causal=True)
+               "tol_ratio": tol_ratio(o, o_ref, "flash_attention"),
+               "lse_max_rel": float((lse - lse_ref).abs().max()
+                                    / lse_ref.abs().max()),
+               "o_bit_equal_without_lse": torch.equal(
+                   o, FA.flash_attention(q, k, v, causal=True))}
+    del o_ref, lse_ref
+    require(fwd_err["tol_ratio"] <= 1.0 and fwd_err["lse_max_rel"] <= LSE_REL
+            and fwd_err["o_bit_equal_without_lse"], f"flash_attention at "
+            f"the training shape {fwd_err}")
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
     want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
     errs = grad_errors(got, want)
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, want))
-    again = FA.flash_attention_bwd(q, k, v, o, do, causal=True)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
     same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
     del got, want, again
     require(bwd_within(errs, bf16), f"flash_attention_bwd at the training "
@@ -2436,7 +2450,7 @@ def backward_records(device, flush):
         "tolerance": {"bf16_rel_l2": BWD_BF16_REL_L2},
         "rerun_bit_equal": same_bits,
         "ms": time_call(lambda: FA.flash_attention_bwd(
-            q, k, v, o, do, causal=True), (), 5, device, flush),
+            q, k, v, o, do, lse, causal=True), (), 5, device, flush),
         "plain_ms": time_call(lambda: FA.flash_attention_bwd_ref(
             q, k, v, o, do, causal=True), (), 2, device, flush),
         "library_ms": time_grad(sdpa_graph, (q, k, v, do), 10, device,
@@ -2448,8 +2462,7 @@ def backward_records(device, flush):
         "ops": 10 * B * H * hd * pairs}, BF16_OPS_PER_S))
     fwd = with_bound({
         **fwd_err,
-        "ms": time_call(lambda: FA.flash_attention(q, k, v, causal=True),
-                        (), 20, device, flush),
+        **forward_lse_ms(q, k, v, device, flush),
         "plain_ms": time_call(lambda: FA.flash_attention_ref(
             q, k, v, causal=True), (), 2, device, flush),
         "library_ms": time_call(
@@ -2459,18 +2472,38 @@ def backward_records(device, flush):
         "shape": shape, "ops": 4 * B * H * hd * pairs,
         "bytes": (2 * B * S * H * hd + 2 * B * S * K * hd) * 2},
         BF16_OPS_PER_S)
-    del q, k, v, o, do
+    del q, k, v, o, do, lse
+    # the serving prefill's call (phase [11]'s shape), with and without lse
+    B, H, hd = ZAMBA_BATCH, 32, 112
+    q, k, v = (randn((B, S, H, hd), bf16, device, 60 + i) for i in range(3))
+    fwd["at_prefill_shape"] = forward_lse_ms(q, k, v, device, flush)
+    del q, k, v
     for r in recs:
         log(f"[17a] {r['name']} at the training shape: {r['ms']:.4f} ms "
             f"(bound {r['bound_ms']:.4f} ms, {r['bound_by']}; plain "
             f"{r['plain_ms']:.3f} ms; library {r['library_ms']:.4f} ms), "
             f"rel L2 {r['rel_l2']}")
-    log(f"[17a] flash_attention forward at the training shape: "
-        f"{json.dumps(fwd)}")
+    log(f"[17a] flash_attention forward at the training shape (ms without "
+        f"lse, lse_ms with it, in turns): {json.dumps(fwd)}")
     log(f"[17a] rmsnorm forward at the training shape: "
         f"{json.dumps(rms_fwd)}")
     torch.cuda.empty_cache()
     return recs, {"flash_attention": fwd, "rmsnorm": rms_fwd}
+
+
+def forward_lse_ms(q, k, v, device, flush):
+    """The causal forward kernel's mean ms without the lse (the serving
+    call) and with it (the training call), timed in turns (without, with,
+    with, without) after an L2 flush, and their ratio."""
+    from repro_torch.kernels import flash_attention as FA
+    ms = {"ms": [], "lse_ms": []}
+    for key in ("ms", "lse_ms", "lse_ms", "ms"):
+        fn = FA.flash_attention if key == "ms" else FA.flash_attention_lse
+        ms[key].append(time_call(lambda: fn(q, k, v, causal=True), (), 10,
+                                 device, flush))
+    out = {key: sum(v) / len(v) for key, v in ms.items()}
+    out["lse_ratio"] = out["lse_ms"] / out["ms"]
+    return out
 
 
 def smoke_llama(dtype="float32", **kw):

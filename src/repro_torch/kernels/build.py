@@ -47,11 +47,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "rmsnorm_launch": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
         "rmsnorm_bwd_launch": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     },
-    # q, k, v, out, B, S, T, H, K, hd, dtype, causal, scale, stream
+    # q, k, v, out, lse (or null), B, S, T, H, K, hd, dtype, causal, scale,
+    # stream
     "flash_attention.cu": {
-        "flash_attention_launch": (_P,) * 4 + (_I,) * 8 + (_F, _P),
+        "flash_attention_launch": (_P,) * 5 + (_I,) * 8 + (_F, _P),
     },
-    # q, k, v, o, dO, dq, dk, dv, lse, delta, B, S, T, H, K, hd, dtype,
+    # q, k, v, o, dO, lse, dq, dk, dv, delta, B, S, T, H, K, hd, dtype,
     # causal, scale, stream
     "flash_attention_bwd.cu": {
         "flash_attention_bwd_launch": (_P,) * 10 + (_I,) * 8 + (_F, _P),

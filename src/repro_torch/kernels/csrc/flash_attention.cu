@@ -13,6 +13,12 @@
 // card's ~295 a byte for bf16 tensor cores, so the function is bound by
 // operations, and only the tensor cores come near that bound.
 //
+// For training (flash_attention_bwd.cu) the caller may pass a float32
+// (B, H, S) buffer: both kernels then also store each row's natural-log
+// log-sum-exp of its masked, scaled scores (+inf for a row with no key),
+// once a row, from the online softmax's (m, l); the output's arithmetic is
+// the same with or without it.  Serving passes none.
+//
 // Two kernels, by dtype.
 //
 // bfloat16 (flash_wgmma_kernel, the serving path): Hopper's warpgroup
@@ -93,8 +99,9 @@ __device__ __forceinline__ float row_sum(float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int B, int S,
-             int T_, int H, int K, int hd, int causal, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int B, int S, int T_, int H, int K,
+             int hd, int causal, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kBQ][kQStride]
   float* Kt = Qs + kBQ * kQStride;        // [kHD][kKStride]  (d-major)
@@ -206,6 +213,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty + 16 * i;
     if (s >= S) continue;
+    if (lse && tx == 0)  // +inf for a row with no key
+      lse[static_cast<size_t>(bh) * S + s] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -217,8 +227,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int T_, int H, int K, int hd, int causal,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int B, int S, int T_, int H, int K, int hd,
+                   int causal, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -229,8 +239,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_kernel<T><<<static_cast<unsigned>(blocks), kThreads, kSmemBytes,
                     stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), B, S, T_, H, K, hd,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, B, S, T_, H, K,
+      hd, causal, scale);
   return cudaGetLastError();
 }
 
@@ -244,12 +254,14 @@ constexpr int kWGs = 2;             // warpgroups of 64 queries
 constexpr int kThreads = kWGs * 128;
 constexpr int kBQ = kWGs * 64;      // queries a block
 constexpr int kBKV = 64;            // keys a tile
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* out;
+  float* lse;  // (B, H, S) or null
   int B, S, T, H, K, hd, causal, vec;
   float scale_log2;  // scale * log2(e)
 };
@@ -263,42 +275,6 @@ struct Tile {
   static constexpr int kKVBytes = kBlocks * kBKV * 128;
   static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;  // + alignment
 };
-
-// byte offset of (r, c) in a tile of R rows kept as 64-column blocks with
-// the 128-byte swizzle (wgmma.cuh)
-template <int R>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((c >> 6) * R * 128 + r * 128 +
-                               ((((c >> 3) & 7) ^ (r & 7)) << 4) +
-                               (c & 7) * 2);
-}
-
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                            const __nv_bfloat16* src,
-                                            size_t ld, int len, int hd,
-                                            bool vec) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    const uint32_t d = dst + swz<ROWS>(r, c);
-    const __nv_bfloat16* s = src + static_cast<size_t>(r) * ld + c;
-    if (vec) {
-      const bool in = r < len && c < hd;
-      tc::cp_async16(d, in ? s : src, in ? 16 : 0);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c0 = c + 2 * e;
-        const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
-        w[e] = tc::pack(r < len && c0 < hd ? s[2 * e] : z,
-                        r < len && c0 + 1 < hd ? s[2 * e + 1] : z);
-      }
-      tc::st_shared_v4(d, w[0], w[1], w[2], w[3]);
-    }
-  }
-}
 
 template <int HD>
 __device__ __forceinline__ void pv(float (&o)[HD / 8][4],
@@ -344,11 +320,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_wgmma_kernel(Args a) {
   auto load_kv = [&](int it) {
     const int t0 = it * kBKV;
     const uint32_t sK = sKV + (it & 1) * 2 * Tl::kKVBytes;
-    load_tile<HD, kBKV>(sK, kb + t0 * k_ld, k_ld, a.T - t0, a.hd, a.vec);
-    load_tile<HD, kBKV>(sK + Tl::kKVBytes, vb + t0 * k_ld, k_ld, a.T - t0,
-                          a.hd, a.vec);
+    tc::load_tile<HD, kBKV, kThreads>(sK, kb + t0 * k_ld, k_ld, a.T - t0,
+                                      a.hd, a.vec);
+    tc::load_tile<HD, kBKV, kThreads>(sK + Tl::kKVBytes, vb + t0 * k_ld,
+                                      k_ld, a.T - t0, a.hd, a.vec);
   };
-  load_tile<HD, kBQ>(sQ, qb, q_ld, a.S - q0, a.hd, a.vec);
+  tc::load_tile<HD, kBQ, kThreads>(sQ, qb, q_ld, a.S - q0, a.hd, a.vec);
   tc::cp_async_commit();
   if (n_kv > 0) load_kv(0);
   tc::cp_async_commit();
@@ -466,6 +443,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_wgmma_kernel(Args a) {
   for (int r = 0; r < 2; ++r) {
     const int row = w0 + g + 8 * r;
     if (row >= a.S) continue;
+    // the row's natural-log lse from the log2-unit state; +inf with no key
+    if (a.lse && t4 == 0)
+      a.lse[static_cast<size_t>(bh) * a.S + row] =
+          l[r] > 0.f ? kLn2 * (m[r] + log2f(l[r])) : INFINITY;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = ob + static_cast<size_t>(row) * q_ld;
 #pragma unroll
@@ -499,15 +480,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int T, int H, int K, int hd, int causal,
-                     float scale, cudaStream_t stream) {
+                     float* lse, int B, int S, int T, int H, int K, int hd,
+                     int causal, float scale, cudaStream_t stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   Args a{static_cast<const __nv_bfloat16*>(q),
          static_cast<const __nv_bfloat16*>(k),
          static_cast<const __nv_bfloat16*>(v),
-         static_cast<__nv_bfloat16*>(out),
+         static_cast<__nv_bfloat16*>(out), lse,
          B, S, T, H, K, hd, causal,
          hd % 8 == 0 && aligned(q) && aligned(k) && aligned(v),
          scale * 1.4426950408889634f};
@@ -520,21 +501,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Returns a
-// cudaError_t.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  lse, if
+// not null, receives the float32 (B, H, S) natural-log log-sum-exp of each
+// row's masked, scaled scores (+inf for a row with no key), which the
+// backward reads.  Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int T, int H, int K, int hd, int dtype,
-                                      int causal, float scale, void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int S, int T, int H, int K,
+                                      int hd, int dtype, int causal,
+                                      float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || T < 0 || H <= 0 || K <= 0 || H % K || hd <= 0 ||
       hd > kHD)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(q, k, v, out, B, S, T, H, K, hd, causal, scale, s);
+    err = launch<float>(q, k, v, out, static_cast<float*>(lse), B, S, T, H,
+                        K, hd, causal, scale, s);
   else if (dtype == 1)
-    err = bf16::dispatch(q, k, v, out, B, S, T, H, K, hd, causal, scale, s);
+    err = bf16::dispatch(q, k, v, out, static_cast<float*>(lse), B, S, T, H,
+                         K, hd, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -23,16 +23,34 @@
 // src/repro/models/layers.py:20 (rms_norm): with r = rsqrt(mean(x^2) + eps)
 // and g = dy * w, dx = r * g - x * r^3 * mean(g * x) and dw = sum over rows
 // of dy * x * r, in float32; dx is written in x's dtype and dw, summed in
-// float32, in w's.  It is bound by bytes too (x and dy read, dx written:
-// about 2 operations a byte).  One block owns a strided set of rows: for
-// each, one pass sums x^2 and g*x (block reductions in a fixed order), a
-// second writes dx and adds dy * x * r into the block's float32 partial
-// sums of dw, one column a thread, in shared memory.  No float atomics: a
-// second kernel sums the blocks' partials column by column, in block
-// order, and casts, so a rerun gives the same bits.
+// float32, in w's.  It is bound by bytes too: x and dy read once, dx
+// written once (at 8,192 rows of 3,072 bf16, 151 MB: 0.045 ms at 3.35
+// TB/s), about 2 operations a byte.  So the design keeps every byte to one
+// trip: a persistent grid of one 512-thread block an SM; a row to a group
+// of a few warps (the fewest, from 64 threads, whose threads hold the row
+// in at most three 16-byte chunks each: 128 threads and 24 bf16 a thread
+// at D = 3,072), its x and dy loaded once, by 16-byte cp.async a row
+// ahead into a thread's own slots in shared memory (when D is a multiple
+// of the chunk and the rows aligned; element by element otherwise), and
+// kept in registers through both sums and the write of dx;
+// the sums reduce by shuffles and one exchange of the group's warps (a
+// named barrier, no block-wide one a row); a thread owns fixed columns
+// across every row its group walks, and keeps their dw partial sums in
+// registers.  No float atomics: the block's groups add their partials in
+// group order into the block's row of a float32 workspace, and a second
+// kernel adds the blocks' rows column by column, in block order, and
+// casts, so a rerun gives the same bits.  Rows wider than the registers
+// hold (above 12,288 bf16 or 6,144 float32) take a block a row at a time,
+// walk it twice and keep the block's dw partials in shared memory.  At
+// 8,192 rows of 3,072 bf16 it takes 0.076 to 0.084 ms on an H100 80GB HBM3 at
+// 700 W against the 0.045 ms bound (chip_smoke.py [17a]).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -100,10 +118,215 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int D,
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxBwdD = 227 * 1024 / 4 - 64;  // D floats of shared memory
+constexpr int kBwdThreads = 512;  // a block: 512 / tpr row groups
+// 16-byte chunks of a row a thread holds: at 512 threads an SM a thread
+// has 128 registers, and four bf16 chunks spill
+constexpr int kMaxChunks = 3;
+constexpr int kStages = 2;  // rows of a thread's ring in shared memory
+
+struct Args {
+  const void* x;
+  const void* w;
+  const void* dy;
+  void* dx;
+  void* dw;
+  float* ws;  // parts x D
+  int rows, D, parts, vec;
+  float eps;
+};
+
+// N elements of one type, loaded or stored as one access (two for 32 bytes)
+template <typename U, int N>
+struct alignas(N * sizeof(U) >= 16 ? 16 : N * sizeof(U)) Pack {
+  U e[N];
+};
+
+// The chunk of N elements at column col of a row: one vector access when
+// vec (D % N == 0 and the row aligned), else element by element, zero past
+// D.  The caller keeps col < D.
+template <typename U, int N>
+__device__ __forceinline__ Pack<U, N> load_chunk(const U* row, int col,
+                                                 int D, bool vec) {
+  if (vec) return *reinterpret_cast<const Pack<U, N>*>(row + col);
+  Pack<U, N> t;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    t.e[i] = col + i < D ? row[col + i] : from_f32<U>(0.f);
+  return t;
+}
+
+// Named barrier of the `count` threads of one row group (ids 1..8).
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Each row group of tpr threads (a few warps) walks rows grp, grp + groups
+// in all, ...; thread t of a group owns the 16-byte chunks c * tpr + t
+// (c < NV) of every row, so it loads w once, keeps the row's x and dy in
+// registers between the sums and the write of dx, and keeps its columns'
+// dw partial sums in registers across all its rows.  With vec, each thread
+// copies its own chunks of its next rows into its own slots of a ring of
+// kStages rows in shared memory (cp.async), kStages - 1 rows ahead, so its
+// wait needs no barrier and the loads of later rows overlap this row's
+// work; otherwise it loads element by element.  The sums reduce by
+// shuffles within a warp and one exchange of the group's warps through
+// shared memory (two buffers by row parity, one named barrier a row).  At
+// the end the block's groups add their dw partials in group order into the
+// block's row of the workspace.
+template <typename T, typename W, int NV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ dw_part, int rows, int D, int tpr,
+                   int vec, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  // [kStages][NV][x, dy][kBwdThreads] chunks; at the end, (groups - 1) x D
+  // floats: groups 1.. dw partials
+  extern __shared__ uint4 ring[];
+  __shared__ float red[2][kBwdThreads / 32][2];
+  const int groups = kBwdThreads / tpr;
+  const int grp = threadIdx.x / tpr, t = threadIdx.x % tpr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpr = tpr / 32, w_first = grp * wpr;
+  const int first = blockIdx.x * groups + grp, stride = gridDim.x * groups;
+  const float inv_d = 1.0f / static_cast<float>(D);
+  const auto slot = [&](int stage, int c, int which) {
+    return ((stage * NV + c) * 2 + which) * kBwdThreads + threadIdx.x;
+  };
+  // rows past the end commit an empty group: the wait counts stay uniform
+  const auto prefetch = [&](int row, int stage) {
+    if (row < rows) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = (c * tpr + t) * VEC;
+        if (col >= D) continue;
+        const size_t off = static_cast<size_t>(row) * D + col;
+        tc::cp_async16(tc::smem_addr(ring + slot(stage, c, 0)), x + off, 16);
+        tc::cp_async16(tc::smem_addr(ring + slot(stage, c, 1)), dy + off,
+                       16);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  Pack<W, VEC> wv[NV];
+  float dwp[NV][VEC];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int col = (c * tpr + t) * VEC;
+    if (col < D) wv[c] = load_chunk<W, VEC>(w, col, D, vec);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dwp[c][i] = 0.f;
+  }
+  if (vec)
+    for (int s = 0; s < kStages - 1; ++s) prefetch(first + s * stride, s);
+  int parity = 0;
+  for (int row = first, j = 0; row < rows; row += stride, ++j) {
+    Pack<T, VEC> xv[NV], gv[NV];
+    if (vec) {
+      prefetch(row + (kStages - 1) * stride, (j + kStages - 1) % kStages);
+      tc::cp_async_wait<kStages - 1>();  // this row's chunks have landed
+    }
+    const T* xr = x + static_cast<size_t>(row) * D;
+    const T* gr = dy + static_cast<size_t>(row) * D;
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * tpr + t) * VEC;
+      if (col >= D) continue;
+      if (vec) {
+        xv[c] = reinterpret_cast<const Pack<T, VEC>&>(
+            ring[slot(j % kStages, c, 0)]);
+        gv[c] = reinterpret_cast<const Pack<T, VEC>&>(
+            ring[slot(j % kStages, c, 1)]);
+      } else {
+        xv[c] = load_chunk<T, VEC>(xr, col, D, false);
+        gv[c] = load_chunk<T, VEC>(gr, col, D, false);
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xf = to_f32(xv[c].e[i]);
+        ss += xf * xf;
+        gx += to_f32(gv[c].e[i]) * to_f32(wv[c].e[i]) * xf;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      gx += __shfl_xor_sync(0xffffffffu, gx, off);
+    }
+    if (lane == 0) {
+      red[parity][warp][0] = ss;
+      red[parity][warp][1] = gx;
+    }
+    group_sync(1 + grp, tpr);
+    ss = gx = 0.f;
+    for (int i = 0; i < wpr; ++i) {
+      ss += red[parity][w_first + i][0];
+      gx += red[parity][w_first + i][1];
+    }
+    parity ^= 1;  // the other buffer is free: its readers passed the barrier
+    const float r = 1.0f / sqrtf(ss * inv_d + eps);
+    const float cc = gx * inv_d * r * r * r;
+    T* dxr = dx + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * tpr + t) * VEC;
+      if (col >= D) continue;
+      Pack<T, VEC> out;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xf = to_f32(xv[c].e[i]), gf = to_f32(gv[c].e[i]);
+        out.e[i] = from_f32<T>(gf * to_f32(wv[c].e[i]) * r - xf * cc);
+        dwp[c][i] += gf * (xf * r);
+      }
+      if (vec) {
+        *reinterpret_cast<Pack<T, VEC>*>(dxr + col) = out;
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          if (col + i < D) dxr[col + i] = out.e[i];
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+  float* others = reinterpret_cast<float*>(ring);
+  if (grp > 0) {
+    float* mine = others + static_cast<size_t>(grp - 1) * D;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const int col = (c * tpr + t) * VEC + i;
+        if (col < D) mine[col] = dwp[c][i];
+      }
+  }
+  __syncthreads();
+  if (grp == 0) {
+    float* part = dw_part + static_cast<size_t>(blockIdx.x) * D;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const int col = (c * tpr + t) * VEC + i;
+        if (col >= D) continue;
+        float s = dwp[c][i];
+        for (int g = 1; g < groups; ++g)
+          s += others[static_cast<size_t>(g - 1) * D + col];
+        part[col] = s;
+      }
+  }
+}
+
+// Rows too wide for registers (more than kMaxChunks * kBwdThreads chunks):
+// one block of 256 threads a row at a time, the row walked twice, the
+// block's dw partial sums in shared memory, one column a thread.
+constexpr int kWideThreads = 256;
 
 // the sums of a and b over the block, the same on every thread
 __device__ __forceinline__ void block_sum2(float& a, float& b,
-                                           float (*red)[kThreads / 32]) {
+                                           float (*red)[kWideThreads / 32]) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, off);
@@ -117,7 +340,7 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
   __syncthreads();
   a = b = 0.f;
 #pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) {
+  for (int i = 0; i < kWideThreads / 32; ++i) {
     a += red[0][i];
     b += red[1][i];
   }
@@ -125,20 +348,21 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
 }
 
 template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                   const T* __restrict__ dy, T* __restrict__ dx,
-                   float* __restrict__ dw_part, int rows, int D, float eps) {
+__global__ void __launch_bounds__(kWideThreads)
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ dw_part, int rows, int D,
+                        float eps) {
   extern __shared__ float acc[];  // [D]: this block's partial sums of dw
-  __shared__ float red[2][kThreads / 32];
-  for (int i = threadIdx.x; i < D; i += kThreads) acc[i] = 0.f;
+  __shared__ float red[2][kWideThreads / 32];
+  for (int i = threadIdx.x; i < D; i += kWideThreads) acc[i] = 0.f;
   const float inv_d = 1.0f / static_cast<float>(D);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const T* xr = x + static_cast<size_t>(row) * D;
     const T* gr = dy + static_cast<size_t>(row) * D;
     T* dxr = dx + static_cast<size_t>(row) * D;
     float ss = 0.f, gx = 0.f;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
+    for (int i = threadIdx.x; i < D; i += kWideThreads) {
       const float xv = to_f32(xr[i]);
       ss += xv * xv;
       gx += to_f32(gr[i]) * to_f32(w[i]) * xv;
@@ -146,7 +370,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
     block_sum2(ss, gx, red);
     const float r = 1.0f / sqrtf(ss * inv_d + eps);
     const float c = gx * inv_d * r * r * r;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
+    for (int i = threadIdx.x; i < D; i += kWideThreads) {
       const float xv = to_f32(xr[i]), gv = to_f32(gr[i]);
       dxr[i] = from_f32<T>(gv * to_f32(w[i]) * r - xv * c);
       acc[i] += gv * (xv * r);
@@ -154,39 +378,68 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
   // each thread reads back only the columns it wrote
   float* part = dw_part + static_cast<size_t>(blockIdx.x) * D;
-  for (int i = threadIdx.x; i < D; i += kThreads) part[i] = acc[i];
+  for (int i = threadIdx.x; i < D; i += kWideThreads) part[i] = acc[i];
 }
 
+// dw = the blocks' partial sums added in block order, column by column
+constexpr int kDwThreads = 64;
+
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDwThreads)
 rmsnorm_dw_kernel(const float* __restrict__ dw_part, W* __restrict__ dw,
                   int parts, int D) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kDwThreads + threadIdx.x;
   if (i >= D) return;
   float s = 0.f;
+#pragma unroll 16
   for (int p = 0; p < parts; ++p)
     s += dw_part[static_cast<size_t>(p) * D + i];
   dw[i] = from_f32<W>(s);
 }
 
-template <typename T, typename W>
-cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-                       void* dw, void* ws, int rows, int D, int parts,
-                       float eps, cudaStream_t stream) {
-  const int smem = D * static_cast<int>(sizeof(float));
+template <typename T, typename W, int NV>
+cudaError_t launch_rows(const Args& a, int tpr, cudaStream_t stream) {
+  const int ring = kStages * NV * 2 * kBwdThreads * 16;
+  const int others = (kBwdThreads / tpr - 1) * a.D * 4;
+  const int smem = ring > others ? ring : others;
   cudaError_t err = cudaFuncSetAttribute(
-      rmsnorm_bwd_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      rmsnorm_bwd_kernel<T, W, NV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  rmsnorm_bwd_kernel<T, W><<<parts, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w),
-      static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(ws), rows, D, eps);
-  err = cudaGetLastError();
+  rmsnorm_bwd_kernel<T, W, NV><<<a.parts, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const W*>(a.w),
+      static_cast<const T*>(a.dy), static_cast<T*>(a.dx), a.ws, a.rows, a.D,
+      tpr, a.vec, a.eps);
+  return cudaGetLastError();
+}
+
+template <typename T, typename W>
+cudaError_t launch_bwd(const Args& a, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int chunks = (a.D + VEC - 1) / VEC;
+  int tpr = 64;  // the fewest threads a row that hold it in registers
+  while (tpr < kBwdThreads && chunks > kMaxChunks * tpr) tpr *= 2;
+  const int nv = (chunks + tpr - 1) / tpr;
+  cudaError_t err;
+  if (nv == 1) err = launch_rows<T, W, 1>(a, tpr, stream);
+  else if (nv == 2) err = launch_rows<T, W, 2>(a, tpr, stream);
+  else if (nv == 3) err = launch_rows<T, W, 3>(a, tpr, stream);
+  else {
+    const int smem = a.D * static_cast<int>(sizeof(float));
+    err = cudaFuncSetAttribute(rmsnorm_bwd_wide_kernel<T, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    rmsnorm_bwd_wide_kernel<T, W><<<a.parts, kWideThreads, smem, stream>>>(
+        static_cast<const T*>(a.x), static_cast<const W*>(a.w),
+        static_cast<const T*>(a.dy), static_cast<T*>(a.dx), a.ws, a.rows,
+        a.D, a.eps);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<W><<<(D + kThreads - 1) / kThreads, kThreads, 0,
-                         stream>>>(static_cast<const float*>(ws),
-                                   static_cast<W*>(dw), parts, D);
+  rmsnorm_dw_kernel<W><<<(a.D + kDwThreads - 1) / kDwThreads, kDwThreads, 0,
+                         stream>>>(a.ws, static_cast<W*>(a.dw), a.parts,
+                                   a.D);
   return cudaGetLastError();
 }
 
@@ -223,19 +476,23 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || D <= 0 || D > kMaxBwdD || parts <= 0 || parts > rows)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec_x = x_dtype == 0 ? 4 : 8;  // elements of a 16-byte chunk
+  const Args a{x, w, dy, dx, dw, static_cast<float*>(ws), rows, D, parts,
+               D % vec_x == 0 && aligned(x) && aligned(w) && aligned(dy) &&
+                   aligned(dx),
+               eps};
   cudaError_t err;
   if (x_dtype == 0 && w_dtype == 0)
-    err = launch_bwd<float, float>(x, w, dy, dx, dw, ws, rows, D, parts,
-                                   eps, s);
+    err = launch_bwd<float, float>(a, s);
   else if (x_dtype == 0 && w_dtype == 1)
-    err = launch_bwd<float, __nv_bfloat16>(x, w, dy, dx, dw, ws, rows, D,
-                                           parts, eps, s);
+    err = launch_bwd<float, __nv_bfloat16>(a, s);
   else if (x_dtype == 1 && w_dtype == 0)
-    err = launch_bwd<__nv_bfloat16, float>(x, w, dy, dx, dw, ws, rows, D,
-                                           parts, eps, s);
+    err = launch_bwd<__nv_bfloat16, float>(a, s);
   else if (x_dtype == 1 && w_dtype == 1)
-    err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, dy, dx, dw, ws,
-                                                   rows, D, parts, eps, s);
+    err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(a, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

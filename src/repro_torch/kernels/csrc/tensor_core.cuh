@@ -1,7 +1,9 @@
 // Warp-level copy and register primitives of the bf16 kernels, as raw PTX
 // for sm_90a: transposed ldmatrix, cp.async with zero fill, shared-memory
-// stores, the swizzled byte offset of a 64-column bf16 tile, and the bf16
-// hi/lo split of float32 values.
+// stores, the swizzled byte offset of a 64-column bf16 tile (and of a tile
+// of up to 128 columns kept as 64-column blocks), the staging of such a
+// tile from a row-major tensor, and the bf16 hi/lo split of float32
+// values.
 //
 // Register fragments (lane = 4 * g + t), per warp of a warpgroup, as a
 // wgmma A operand from registers (16 rows x 16 columns) and as wgmma's
@@ -53,6 +55,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 4 bytes global -> shared; zero when src_bytes is 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -83,14 +93,57 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat16 x, __nv_bfloat16 y) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(y)) << 16);
 }
 
-// hi/lo bf16 pairs of two float32 values (x in the low halves)
+// hi/lo bf16 pairs of two float32 values (x in the low halves), each pair
+// one paired conversion
 __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
                                       uint32_t& lo) {
-  const __nv_bfloat16 xh = __float2bfloat16_rn(x);
-  const __nv_bfloat16 yh = __float2bfloat16_rn(y);
-  hi = pack(xh, yh);
-  lo = pack(__float2bfloat16_rn(x - __bfloat162float(xh)),
-            __float2bfloat16_rn(y - __bfloat162float(yh)));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Byte offset of (r, c) in a tile of R rows and up to 128 bf16 columns
+// kept as 64-column blocks (block b at b * R * 128), each with the 128-byte
+// swizzle (wgmma.cuh).
+template <int R>
+__device__ __forceinline__ uint32_t swz_tile(int r, int c) {
+  return static_cast<uint32_t>((c >> 6) * R * 128 + r * 128 +
+                               ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+                               (c & 7) * 2);
+}
+
+// Stage ROWS rows of a row-major bf16 tensor (row stride ld elements) into
+// such a tile at dst, HD (64, 112 or 128) columns: rows past len and
+// columns past hd are zero.  With vec (hd % 8 == 0, src 16-byte aligned)
+// by cp.async (the caller commits and waits); otherwise by plain loads
+// and stores.  THREADS threads of the block share the copy.
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          size_t ld, int len, int hd,
+                                          bool vec) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += THREADS) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const uint32_t d = dst + swz_tile<ROWS>(r, c);
+    const __nv_bfloat16* s = src + static_cast<size_t>(r) * ld + c;
+    if (vec) {
+      const bool in = r < len && c < hd;
+      cp_async16(d, in ? s : src, in ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = c + 2 * e;
+        const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
+        w[e] = pack(r < len && c0 < hd ? s[2 * e] : z,
+                    r < len && c0 + 1 < hd ? s[2 * e + 1] : z);
+      }
+      st_shared_v4(d, w[0], w[1], w[2], w[3]);
+    }
+  }
 }
 
 }  // namespace tc

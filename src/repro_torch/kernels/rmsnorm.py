@@ -69,11 +69,13 @@ def rmsnorm_bwd_ref(x, w, dy, *, eps: float = 1e-5):
                                    dy)
 
 
-#: the largest D of the backward kernel: its float32 partial sums of dw
-#: live in one block's shared memory
+#: the largest D of the backward kernel: rows wider than its registers
+#: hold (12,288 bf16, 6,144 float32) keep their float32 partial sums of dw
+#: in one block's shared memory
 MAX_BWD_D = 227 * 1024 // 4 - 64
-#: blocks of the backward, each summing its rows' share of dw (two an SM)
-_BWD_BLOCKS = 264
+#: blocks of the backward's persistent grid, each summing its rows' share
+#: of dw (one an SM of the H100)
+_BWD_BLOCKS = 132
 
 
 def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):

@@ -6,7 +6,9 @@ policy net.  RMSNorm goes to the ``rmsnorm`` kernel and prefill / training
 attention to the ``flash_attention`` kernel; under autograd on the card
 both run as ``torch.autograd.Function``s whose backwards are the
 ``rmsnorm_bwd`` and ``flash_attention_bwd`` kernels (the reference trains
-through XLA's autodiff of these twins).  Single-token decode attention,
+through XLA's autodiff of these twins); the attention forward then also
+keeps each row's log-sum-exp, from which its backward takes the softmax
+(bf16 products on the tensor cores).  Single-token decode attention,
 RoPE and the SwiGLU and GELU products stay plain PyTorch (and plain
 autograd), as the reference leaves them to XLA.  Layouts are the
 reference's: q (B, S, H, hd), k and v (B, T, K, hd).

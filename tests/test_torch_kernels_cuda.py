@@ -309,6 +309,32 @@ def test_flash_kernel_matches_plain_version(card, B, S, T, H, K, hd,
                   "flash")
 
 
+#: the forward's row lse (float32 in both dtypes) against the plain lse,
+#: relative to the largest magnitude (sums in another order)
+LSE_REL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_lse_matches_plain_lse(card, B, S, T, H, K, hd, causal,
+                                            dtype):
+    """The lse the forward kernel stores when asked matches the plain lse,
+    and asking for it leaves the output's bits as they are."""
+    q = _randn((B, S, H, hd), DT[dtype], card, 1)
+    k = _randn((B, T, K, hd), DT[dtype], card, 2)
+    v = _randn((B, T, K, hd), DT[dtype], card, 3)
+    n0 = FA.flash_attention.launches
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    assert FA.flash_attention.launches == n0 + 1
+    want = FA.flash_attention_lse_ref(q, k, v, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    err = float((lse - want).abs().max())
+    assert err <= LSE_REL * float(want.abs().max()), err
+    assert torch.equal(o, FA.flash_attention(q, k, v, causal=causal))
+
+
 #: the last three are the edges of the bfloat16 kernels' head blocks and
 #: chunk-parallel passes: 3 heads in a block of 4 with 16 chunks of 16,
 #: 6 heads (a block and a half) over 8 chunks of 256, and the serving
@@ -382,9 +408,12 @@ def _check_grads(got, want, dtype, kernel):
             assert rel <= BWD_REL_L2_BF16, rel
 
 
+#: the last three: D odd (element-wise loads), the training shape (8,192
+#: rows of 3,072) and rows wider than the kernel's registers hold
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (300, 3072),
-                                   (5, 7168)])
+                                   (5, 7168), (37, 1001), (4, 2048, 3072),
+                                   (3, 20000)])
 @pytest.mark.parametrize("xd,wd", [("float32", "float32"),
                                    ("bfloat16", "bfloat16"),
                                    ("float32", "bfloat16")])
@@ -419,14 +448,16 @@ def test_flash_bwd_kernel_matches_plain_autograd(card, B, S, T, H, K, hd,
     k = _randn((B, T, K, hd), DT[dtype], card, 2)
     v = _randn((B, T, K, hd), DT[dtype], card, 3)
     do = _randn((B, S, H, hd), DT[dtype], card, 4)
-    o = FA.flash_attention(q, k, v, causal=causal)
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
     n0 = FA.flash_attention_bwd.launches
-    got = FA.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     assert FA.flash_attention_bwd.launches == n0 + 1
     want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
     _check_grads(got, want, dtype, "flash")
-    again = FA.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd(q, k, v, o, do, None, causal=causal)
 
 
 @pytest.mark.cuda

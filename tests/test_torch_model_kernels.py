@@ -277,9 +277,9 @@ def test_flash_plain_gradients_match_reference_twin(B, S, T, H, K, hd,
     _, vjp = jax.vjp(lambda q, k, v: full_attention(q, k, v, causal=causal),
                      qj, kj, vj)
     want = vjp(dj)
-    o = tfa.flash_attention(qt, kt, vt, causal=causal)
+    o, lse = tfa.flash_attention_lse(qt, kt, vt, causal=causal)
     n0 = tfa.flash_attention_bwd.launches
-    got = tfa.flash_attention_bwd(qt, kt, vt, o, dt, causal=causal)
+    got = tfa.flash_attention_bwd(qt, kt, vt, o, dt, lse, causal=causal)
     assert tfa.flash_attention_bwd.launches == n0   # CPU: the plain version
     for g, w in zip(got, want):
         assert g.dtype == qt.dtype and g.shape == w.shape
@@ -287,6 +287,48 @@ def test_flash_plain_gradients_match_reference_twin(B, S, T, H, K, hd,
             assert_close(g, w, dtype, "flash")
         else:
             assert _rel_l2(g.float(), w) <= FLASH_GRAD_REL_L2_BF16
+
+
+#: the plain row lse against the reference's scores: float32 sums in
+#: another order, relative to the largest |lse|
+LSE_REL = 1e-6
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd", GRAD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_lse_matches_reference_scores(B, S, T, H, K, hd, causal,
+                                                  dtype):
+    """The plain lse that the backward takes is the row logsumexp of the
+    masked, scaled scores that ``repro.models.layers.full_attention``
+    forms (its own ``_gqa_scores_einsum`` and mask), in (B, H, S); and
+    ``flash_attention_lse``'s output is ``flash_attention``'s."""
+    import math
+    import jax
+    from repro.models.layers import _gqa_scores_einsum
+    rng = np.random.default_rng(B * S + T + H * K + hd + 1)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+    scale = 1.0 / math.sqrt(hd)     # as full_attention scales q
+    scores = _gqa_scores_einsum(
+        qj.reshape(B, S, K, H // K, hd).astype(jnp.float32) * scale,
+        kj.astype(jnp.float32))
+    if causal:
+        mask = jnp.arange(T)[None, :] <= jnp.arange(S)[:, None]
+        scores = jnp.where(mask[None, None, None], scores, -jnp.inf)
+    want = _np(jax.nn.logsumexp(scores, axis=-1)).reshape(B, H, S)
+    o, lse = tfa.flash_attention_lse(qt, kt, vt, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    err = float(np.abs(lse.numpy() - want).max())
+    assert err <= LSE_REL * float(np.abs(want).max()), err
+    assert torch.equal(o, tfa.flash_attention(qt, kt, vt, causal=causal))
+
+
+def test_flash_plain_lse_of_a_row_with_no_key_is_inf():
+    q = torch.ones((1, 3, 2, 8))
+    lse = tfa.flash_attention_lse_ref(q, q[:, :0, :1], q[:, :0, :1])
+    assert lse.shape == (1, 2, 3) and bool(torch.isposinf(lse).all())
 
 
 def test_model_layers_differentiate_through_the_plain_versions():
