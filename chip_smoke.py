@@ -48,7 +48,11 @@ kernels, and prints one JSON line per result.  Phases, in order:
     the SSD scan), with the rate it reaches (``tflops``: the function's
     operations over the kernel's time) and, for the SSD scan, each of its
     three bf16 kernels' share of the call (``parts_ms``, from
-    ``torch.profiler``);
+    ``torch.profiler``); rmsnorm also at decode's calls (8 rows of 3584
+    and of 7168), each with its kernel's card time alone (``device_ms``,
+    the profiler's) beside the CUDA-event time that holds the wrapper, and
+    a rerun bit-equal; every rmsnorm row (these, the prefill's and [17a]'s
+    training call) is timed in turns with ``rms_norm``;
 12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
     T=500, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
     lanes, 33,000 decisions) on the kernels, the sweep, the lockstep replay
@@ -526,7 +530,12 @@ def phase_model_kernels(device):
     from repro_torch.kernels import ssd_scan as SSD
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    for shape in ((8, 128), (3, 17, 64), (16, 3584), (8, 7168)):
+    # the last five: QK-norm rows (D = 128, sub-warp row groups), D no
+    # multiple of a 16-byte chunk, odd D (misaligned rows), a block a row
+    # at more rows than SMs, and rows wider than the registers
+    for shape in ((8, 128), (3, 17, 64), (16, 3584), (8, 7168),
+                  (8, 2048, 128), (3, 17, 100), (300, 4097), (256, 3584),
+                  (3, 20000)):
         for xd, wd in ((f32, f32), (bf16, bf16), (f32, bf16)):
             x = randn(shape, xd, device, 1)
             w = randn(shape[-1:], wd, device, 2)
@@ -891,7 +900,7 @@ def model_kernel_records(device, flush, launches):
     out = []
 
     def record(name, args, fn, ref, lib, nbytes, ops, ops_rate, shape,
-               reps=20, plain_reps=3):
+               reps=20, plain_reps=3, turns=False):
         got, want = fn(*args), ref(*args)
         if isinstance(got, tuple):
             err = max(float((g.float() - w.float()).abs().max())
@@ -903,7 +912,15 @@ def model_kernel_records(device, flush, launches):
         del got, want
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ops_rate * 1e3
-        ms = time_call(fn, args, reps, device, flush)
+        if turns:       # in turns with the library call
+            t = turns_ms({"ms": lambda: fn(*args),
+                          "library_ms": lambda: lib(*args)}, reps, device,
+                         flush)
+        else:
+            t = {"ms": time_call(fn, args, reps, device, flush),
+                 "library_ms": (None if lib is None else
+                                time_call(lib, args, reps, device, flush))}
+        ms = t["ms"]
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -913,8 +930,7 @@ def model_kernel_records(device, flush, launches):
             "plain_ms": time_call(ref, args, plain_reps, device, flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": (None if lib is None else
-                           time_call(lib, args, reps, device, flush)),
+            "library_ms": t["library_ms"],
             "shape": shape, "bytes": nbytes, "ops": ops})
 
     D = 7168
@@ -923,8 +939,19 @@ def model_kernel_records(device, flush, launches):
     record("rmsnorm", (x, w), RMS.rmsnorm, RMS.rmsnorm_ref,
            lambda x, w: F.rms_norm(x, (D,), w, 1e-5),
            nbytes=2 * rows * D * 2 + D * 2, ops=4 * rows * D,
-           ops_rate=F32_OPS_PER_S, shape={"rows": rows, "D": D})
+           ops_rate=F32_OPS_PER_S, shape={"rows": rows, "D": D}, reps=50,
+           turns=True)
+    out[-1]["rerun_bit_equal"] = torch.equal(RMS.rmsnorm(x, w),
+                                             RMS.rmsnorm(x, w))
+    out[-1]["device_ms"] = device_ms(lambda: RMS.rmsnorm(x, w), device)
+    out[-1]["library_device_ms"] = device_ms(
+        lambda: F.rms_norm(x, (D,), w, 1e-5), device)
     del x, w
+    # decode's calls: 8 slots of d_model (3584) and of the gated norm (7168)
+    out[-1]["at_decode_call"] = [
+        rmsnorm_record(randn((B, d), bf16, device, 70 + 2 * i),
+                       randn((d,), bf16, device, 71 + 2 * i), device, flush)
+        for i, d in enumerate((3584, 7168))]
 
     H, hd = 32, 112
     q, k, v = (randn((B, S, H, hd), bf16, device, 9 + i) for i in range(3))
@@ -959,6 +986,58 @@ def model_kernel_records(device, flush, launches):
         lambda *a: SSD.ssd_scan(*a, chunk=Q), args,
         ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"), device)
     return out
+
+
+def device_ms(fn, device, reps=20):
+    """The card time (ms) of every kernel in one call of ``fn()``, from
+    ``torch.profiler`` over ``reps`` calls after one to warm up (at a few
+    rows the CUDA events around a call time the wrapper's host work); a
+    window that reports no device time is taken again, twice at most, and
+    None means not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        us = sum(device_us(e) for e in prof.key_averages()
+                 if not e.key.startswith("aten"))
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def rmsnorm_record(x, w, device, flush, plain_reps=10):
+    """The rmsnorm forward at one bf16 call: held against its plain version
+    (``tol_ratio``), a rerun's bits, its time with the wrapper (CUDA events
+    after an L2 flush, in turns with ``F.rms_norm``'s), the card time of
+    its kernel and of ``F.rms_norm``'s kernels alone (the profiler), its
+    plain version's time and the byte bound."""
+    from repro_torch.kernels import rmsnorm as RMS
+    D = x.shape[-1]
+    rows = x.numel() // D
+    y, y_ref = RMS.rmsnorm(x, w), RMS.rmsnorm_ref(x, w)
+
+    def kernel():
+        return RMS.rmsnorm(x, w)
+
+    def lib():
+        return torch.nn.functional.rms_norm(x, (D,), w, 1e-5)
+    return with_bound({
+        "shape": {"rows": rows, "D": D, "dtype": "bfloat16"},
+        "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+        "tol_ratio": tol_ratio(y, y_ref, "rmsnorm"),
+        "rerun_bit_equal": torch.equal(y, kernel()),
+        **turns_ms({"ms": kernel, "library_ms": lib}, 50, device, flush),
+        "device_ms": device_ms(kernel, device),
+        "library_device_ms": device_ms(lib, device),
+        "plain_ms": time_call(RMS.rmsnorm_ref, (x, w), plain_reps, device,
+                              flush),
+        # x read, y written, w read
+        "bytes": 2 * rows * D * 2 + D * 2, "ops": 4 * rows * D},
+        F32_OPS_PER_S)
 
 
 # ---------------------------------------------------------------------------
@@ -2376,20 +2455,10 @@ def backward_records(device, flush):
     x, dy = (randn((TRAIN_B, TRAIN_S, D), bf16, device, 40 + i)
              for i in range(2))
     w = randn((D,), bf16, device, 42)
-    y, y_ref = RMS.rmsnorm(x, w), RMS.rmsnorm_ref(x, w)
-    rms_fwd = with_bound({
-        "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
-        "tol_ratio": tol_ratio(y, y_ref, "rmsnorm"),
-        "ms": time_call(RMS.rmsnorm, (x, w), 20, device, flush),
-        "plain_ms": time_call(RMS.rmsnorm_ref, (x, w), 5, device, flush),
-        "library_ms": time_call(lambda: torch.nn.functional.rms_norm(
-            x, (D,), w, 1e-5), (), 20, device, flush),
-        "shape": {"rows": n, "D": D, "dtype": "bfloat16"},
-        # x read, y written, w read
-        "bytes": 2 * n * D * 2 + D * 2, "ops": 4 * n * D}, F32_OPS_PER_S)
-    del y, y_ref
-    require(rms_fwd["tol_ratio"] <= 1.0, f"rmsnorm at the training shape "
-            f"{rms_fwd['tol_ratio']}")
+    rms_fwd = rmsnorm_record(x, w, device, flush, plain_reps=5)
+    require(rms_fwd["tol_ratio"] <= 1.0 and rms_fwd["rerun_bit_equal"],
+            f"rmsnorm at the training shape {rms_fwd['tol_ratio']}, rerun "
+            f"bit-equal {rms_fwd['rerun_bit_equal']}")
     got, want = RMS.rmsnorm_bwd(x, w, dy), RMS.rmsnorm_bwd_ref(x, w, dy)
     errs = grad_errors(got, want)
     require(bwd_within(errs, bf16), f"rmsnorm_bwd at the training shape "
@@ -2491,17 +2560,25 @@ def backward_records(device, flush):
     return recs, {"flash_attention": fwd, "rmsnorm": rms_fwd}
 
 
+def turns_ms(calls, reps, device, flush):
+    """Each of two named calls' mean ms after an L2 flush, timed in turns
+    (first, second, second, first) so that drift on the card falls on
+    both alike."""
+    (a, fa), (b, fb) = calls.items()
+    ms = {a: [], b: []}
+    for key, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        ms[key].append(time_call(fn, (), reps, device, flush))
+    return {key: sum(v) / len(v) for key, v in ms.items()}
+
+
 def forward_lse_ms(q, k, v, device, flush):
     """The causal forward kernel's mean ms without the lse (the serving
     call) and with it (the training call), timed in turns (without, with,
     with, without) after an L2 flush, and their ratio."""
     from repro_torch.kernels import flash_attention as FA
-    ms = {"ms": [], "lse_ms": []}
-    for key in ("ms", "lse_ms", "lse_ms", "ms"):
-        fn = FA.flash_attention if key == "ms" else FA.flash_attention_lse
-        ms[key].append(time_call(lambda: fn(q, k, v, causal=True), (), 10,
-                                 device, flush))
-    out = {key: sum(v) / len(v) for key, v in ms.items()}
+    out = turns_ms({"ms": lambda: FA.flash_attention(q, k, v, causal=True),
+                    "lse_ms": lambda: FA.flash_attention_lse(
+                        q, k, v, causal=True)}, 10, device, flush)
     out["lse_ratio"] = out["lse_ms"] / out["ms"]
     return out
 
@@ -3066,6 +3143,13 @@ def run() -> int:
 
     log("[11] model kernels timed at the main path's largest calls")
     model_records = model_kernel_records(device, flush, zamba["launches"])
+    rms = model_records[0]
+    for r in [rms] + rms["at_decode_call"]:
+        require(r["tol_ratio"] <= 1.0 and r["rerun_bit_equal"],
+                f"rmsnorm at {r['shape']}: tol_ratio {r['tol_ratio']}, "
+                f"rerun bit-equal {r['rerun_bit_equal']}")
+    for r in rms["at_decode_call"]:
+        log(f"[11] rmsnorm at decode's call {json.dumps(r)}")
     for k in model_records:
         require(k["tol_ratio"] <= 1.0, f"{k['name']} outside tolerance "
                 f"at the main path's shapes: {k['tol_ratio']}")

@@ -40,11 +40,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "event_finish_launch": (_P,) * 7 + (_P, _I, _I, _I, _P),
         "event_finish_fused_launch": (_P,) * 13 + (_P, _I, _I, _I, _I, _P),
     },
-    # x, w, out, rows, D, x dtype, w dtype, eps, stream
+    # x, w, out, rows, D, x dtype, w dtype, eps, then the layout: threads
+    # a row, threads a block, blocks, chunks a thread; stream
     # backward: x, w, dy, dx, dw, workspace, rows, D, blocks, x dtype,
     # w dtype, eps, stream
     "rmsnorm.cu": {
-        "rmsnorm_launch": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+        "rmsnorm_launch": (_P, _P, _P, _I, _I, _I, _I, _F) + (_I,) * 4
+                          + (_P,),
         "rmsnorm_bwd_launch": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     },
     # q, k, v, out, lse (or null), B, S, T, H, K, hd, dtype, causal, scale,

@@ -1,22 +1,51 @@
-// RMSNorm on Hopper (sm_90a): y = x * rsqrt(mean(x^2) + eps) * w over the
-// last axis, in float32, written back in x's dtype.
+// RMSNorm on Hopper (sm_90a): y = (x * r) * w over the last axis with
+// r = 1 / sqrtf(mean(x^2) + eps), in float32, written back in x's dtype.
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/rmsnorm.py (rmsnorm,
-// _rmsnorm_kernel), which normalises a (256, D) VMEM tile per grid step.
+// The forward (rmsnorm_launch) replaces the Pallas TPU kernel of
+// src/repro/kernels/rmsnorm.py (rmsnorm, _rmsnorm_kernel), which
+// normalises a (256, D) VMEM tile per grid step.
 //
 // What bounds it.  Each row is read once and written once, with 3 float32
 // operations an element: at bf16 that is 1.5 operations a byte, far below
-// the card's ~295 operations a byte, so the kernel is bound by bytes.
+// the card's ~295 operations a byte, so the kernel is bound by bytes (at
+// 8,192 rows of 3,072 bf16, 101 MB: 0.030 ms at 3.35 TB/s).
 //
-// What the design does about it.  One block of 256 threads owns one row:
-// the threads stride over the row with coalesced loads (neighbouring
-// threads on neighbouring elements), sum x^2 in float32 registers, reduce
-// across the warp with shuffles and across the block's 8 warps through
-// shared memory, then stream the row again (from L1/L2: a row of D = 7168
-// bf16 is 14 KB) to scale and store it.  D need not be a power of two or a
-// multiple of the block: the strided loop masks the tail.  rsqrt is
-// 1 / sqrtf, both correctly rounded, so the kernel rounds as the plain
-// version does up to the order of the sum.
+// What the design does about it: every byte of x and y makes one trip, at
+// 16 bytes an access, with enough of them in flight to cover the memory's
+// latency.  The launch geometry is kernels/rmsnorm.py::layout's, a pure
+// function of (rows, D, x's element size).  A row goes to a group of the
+// fewest threads that hold it in at most three 16-byte chunks each (a
+// power of two below a warp, a multiple of 32 above: 128 threads at 3,072
+// bf16, 8 at QK-norm's 128), a few groups a block, one row a group and as
+// many blocks as rows need.  Each thread copies its chunks of x from
+// device memory into its own slots of shared memory with cp.async, so
+// the copies hold no registers while in flight and the kernel runs at 32
+// registers a thread, 2,048 threads an SM; it reads them back for the sum
+// of squares and again for the scaled store, and reads its chunks of w
+// (L1/L2) at the store.  The sum reduces by shuffles within a warp and one
+// exchange of the group's warps through shared memory (a named barrier,
+// no block-wide one).  When D is not a multiple of the chunk or a row is
+// misaligned, threads load element by element and mask the ragged tail.
+// When the row groups would leave SMs idle (decode's 8 rows; up to 524
+// rows at 3,072 bf16) a row gets a whole block of up to 512 threads, so
+// the call is one load and one store deep.  Rows wider than the registers
+// hold (above 12,288 bf16 or 6,144 float32) take a block of 256 threads a
+// row, walked twice with 16-byte loads where aligned.  No atomics, a fixed
+// order of sums: a rerun gives the same bits.  Tried while designing it
+// and not kept: a persistent grid whose groups walk rows at a stride, w
+// held in registers (its float conversions were hoisted out of the row
+// loop and spilled), x held in registers (spills at four chunks), and a
+// ring of rows copied ahead (its per-launch cudaFuncSetAttribute slowed
+// decode's calls); one row a group at full occupancy was faster.  On an
+// NVIDIA H100 80GB HBM3 at 700.00 W, the card time of the kernel alone
+// (torch.profiler; scripts/time_rmsnorm_fwd.py, this kernel and the
+// previous one, a 256-thread block a row, 2-byte loads, the row read
+// twice, in turns): 0.0359-0.0364 ms at the training shape (8,192 rows of
+// 3,072 bf16; previous 0.0400-0.0401), 0.1562-0.1563 at the prefill's
+// 16,384 rows of 7,168 (previous 0.1816-0.1817), and 0.0022-0.0024 and
+// 0.0026 at decode's 8 rows of 3,584 and 7,168 (previous 0.0031 and
+// 0.0036).  chip_smoke.py [11] and [17a] time it with the wrapper after
+// an L2 flush, in turns with F.rms_norm.
 //
 // The backward (rmsnorm_bwd_launch) is the gradient of the same function,
 // which the reference trains through as XLA's autodiff of its twin
@@ -54,8 +83,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -69,47 +96,234 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w,
-               T* __restrict__ out, int D, float eps) {
-  __shared__ float partial[kThreads / 32];
-  const size_t row = blockIdx.x;
-  const T* xr = x + row * D;
-  T* yr = out + row * D;
+// N elements of one type, loaded or stored as one access (two for 32 bytes)
+template <typename U, int N>
+struct alignas(N * sizeof(U) >= 16 ? 16 : N * sizeof(U)) Pack {
+  U e[N];
+};
 
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
+// The chunk of N elements at column col of a row: one vector access when
+// vec (D % N == 0 and the row aligned), else element by element, zero past
+// D.  The caller keeps col < D.
+template <typename U, int N>
+__device__ __forceinline__ Pack<U, N> load_chunk(const U* row, int col,
+                                                 int D, bool vec) {
+  if (vec) return *reinterpret_cast<const Pack<U, N>*>(row + col);
+  Pack<U, N> t;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    t.e[i] = col + i < D ? row[col + i] : from_f32<U>(0.f);
+  return t;
+}
+
+// The chunk c at column col of a row: one vector store when vec, else
+// element by element up to D.
+template <typename U, int N>
+__device__ __forceinline__ void store_chunk(U* row, int col, int D, bool vec,
+                                            const Pack<U, N>& c) {
+  if (vec) {
+    *reinterpret_cast<Pack<U, N>*>(row + col) = c;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (col + i < D) row[col + i] = c.e[i];
   }
+}
+
+// Named barrier of the `count` threads of one row group (ids 1..8).
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// a block of the wide paths (rows too wide for registers), both ways
+constexpr int kWideThreads = 256;
+
+// the sums of v over the block, the same on every thread
+template <int N>
+__device__ __forceinline__ void block_sum(float (&v)[N],
+                                          float (*red)[kWideThreads / 32]) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    ss = lane < kThreads / 32 ? partial[lane] : 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    if (lane == 0) partial[0] = ss;
-  }
+    for (int k = 0; k < N; ++k)
+      v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < N; ++k) red[k][warp] = v[k];
   __syncthreads();
-  const float r = 1.0f / sqrtf(partial[0] / static_cast<float>(D) + eps);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    v[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWideThreads / 32; ++i) v[k] += red[k][i];
+  }
+  __syncthreads();  // red is free for the next row
+}
 
-  for (int i = threadIdx.x; i < D; i += kThreads)
-    yr[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 512;  // the largest block of the row path
+// 16-byte chunks of a row a thread holds: four spill at the 32 registers a
+// thread has at 2,048 threads an SM, and measured no faster than three
+constexpr int kMaxFwdChunks = 3;
+
+// Each row group of tpr threads (a part of a warp, a warp or a few warps;
+// blockDim.x / tpr groups a block) normalises one row; thread t of the
+// group owns the 16-byte chunks c * tpr + t (c < NV).  With vec it copies
+// them from device memory into its own slots of shared memory with
+// cp.async (no registers hold data in flight, so all NV copies of all the
+// SM's threads overlap), and reads them there for the sum of squares and
+// again for the scaled store; w's chunks are read at the store (L1/L2).
+// Otherwise it reads its chunks element by element, twice, the second time
+// from L1/L2.  The sum reduces by shuffles within a warp and, for a group
+// of several warps, one exchange through shared memory and a named
+// barrier.  Groups past the last row still take part in their warp's
+// shuffles.
+template <typename T, typename W, int NV>
+__global__ void __launch_bounds__(kFwdThreads, 2048 / kFwdThreads)
+rmsnorm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                   T* __restrict__ out, int rows, int D, int tpr, int vec,
+                   float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ uint4 slots[];  // [NV][blockDim.x] chunks of x
+  __shared__ float red[kFwdThreads / 32];
+  const int grp = threadIdx.x / tpr, t = threadIdx.x % tpr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x / tpr) + grp;
+  const bool live = row < rows;
+  const T* xr = x + static_cast<size_t>(live ? row : 0) * D;
+  const auto chunk = [&](int c) -> Pack<T, VEC> {
+    return vec ? reinterpret_cast<const Pack<T, VEC>&>(
+                     slots[c * blockDim.x + threadIdx.x])
+               : load_chunk<T, VEC>(xr, (c * tpr + t) * VEC, D, false);
+  };
+
+  if (vec && live) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * tpr + t) * VEC;
+      if (col < D)
+        tc::cp_async16(tc::smem_addr(slots + c * blockDim.x + threadIdx.x),
+                       xr + col, 16);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+  }
+  float ss = 0.f;
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      if ((c * tpr + t) * VEC >= D) continue;
+      const Pack<T, VEC> xv = chunk(c);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xf = to_f32(xv.e[i]);
+        ss += xf * xf;
+      }
+    }
+  }
+  for (int off = (tpr < 32 ? tpr : 32) >> 1; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (tpr > 32) {
+    if (lane == 0) red[warp] = ss;
+    group_sync(1 + grp, tpr);
+    ss = 0.f;
+    for (int i = 0; i < tpr / 32; ++i) ss += red[grp * (tpr / 32) + i];
+  }
+  if (!live) return;
+  // read x again from shared memory rather than hold it in registers
+  asm volatile("" ::: "memory");
+  const float r = 1.0f / sqrtf(ss / static_cast<float>(D) + eps);
+  T* yr = out + static_cast<size_t>(row) * D;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int col = (c * tpr + t) * VEC;
+    if (col >= D) continue;
+    const Pack<T, VEC> xv = chunk(c);
+    const Pack<W, VEC> wv = load_chunk<W, VEC>(w, col, D, vec);
+    Pack<T, VEC> y;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      y.e[i] = from_f32<T>((to_f32(xv.e[i]) * r) * to_f32(wv.e[i]));
+    store_chunk<T, VEC>(yr, col, D, vec, y);
+  }
+}
+
+// Rows too wide for registers (more than kMaxFwdChunks * kFwdThreads
+// chunks): one block a row at a time, the row walked twice by 16-byte
+// chunks (element by element unless vec), the second walk from L1/L2.
+template <typename T, typename W>
+__global__ void __launch_bounds__(kWideThreads)
+rmsnorm_fwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                        T* __restrict__ out, int rows, int D, int vec,
+                        float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ float red[1][kWideThreads / 32];
+  const int chunks = (D + VEC - 1) / VEC;
+  const float d = static_cast<float>(D);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + static_cast<size_t>(row) * D;
+    T* yr = out + static_cast<size_t>(row) * D;
+    float ss[1] = {0.f};
+#pragma unroll 4
+    for (int c = threadIdx.x; c < chunks; c += kWideThreads) {
+      const Pack<T, VEC> xv = load_chunk<T, VEC>(xr, c * VEC, D, vec);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xf = to_f32(xv.e[i]);
+        ss[0] += xf * xf;
+      }
+    }
+    block_sum(ss, red);
+    const float r = 1.0f / sqrtf(ss[0] / d + eps);
+#pragma unroll 4
+    for (int c = threadIdx.x; c < chunks; c += kWideThreads) {
+      const Pack<T, VEC> xv = load_chunk<T, VEC>(xr, c * VEC, D, vec);
+      const Pack<W, VEC> wv = load_chunk<W, VEC>(w, c * VEC, D, vec);
+      Pack<T, VEC> y;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        y.e[i] = from_f32<T>((to_f32(xv.e[i]) * r) * to_f32(wv.e[i]));
+      store_chunk<T, VEC>(yr, c * VEC, D, vec, y);
+    }
+  }
+}
+
+struct FwdArgs {
+  const void* x;
+  const void* w;
+  void* out;
+  int rows, D, tpr, threads, grid, nv, vec;
+  float eps;
+};
+
+template <typename T, typename W, int NV>
+cudaError_t launch_fwd_rows(const FwdArgs& a, cudaStream_t stream) {
+  // at most 3 chunks of 512 threads: 24 KB, under the 48 KB a launch may
+  // ask for without an attribute
+  const int smem = a.vec ? NV * a.threads * 16 : 0;
+  rmsnorm_fwd_kernel<T, W, NV><<<a.grid, a.threads, smem, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const W*>(a.w),
+      static_cast<T*>(a.out), a.rows, a.D, a.tpr, a.vec, a.eps);
+  return cudaGetLastError();
 }
 
 template <typename T, typename W>
-cudaError_t launch(const void* x, const void* w, void* out, int rows, int D,
-                   float eps, cudaStream_t stream) {
-  rmsnorm_kernel<T, W><<<rows, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w),
-      static_cast<T*>(out), D, eps);
-  return cudaGetLastError();
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  switch (a.nv) {
+    case 0:
+      rmsnorm_fwd_wide_kernel<T, W><<<a.grid, kWideThreads, 0, stream>>>(
+          static_cast<const T*>(a.x), static_cast<const W*>(a.w),
+          static_cast<T*>(a.out), a.rows, a.D, a.vec, a.eps);
+      return cudaGetLastError();
+    case 1: return launch_fwd_rows<T, W, 1>(a, stream);
+    case 2: return launch_fwd_rows<T, W, 2>(a, stream);
+    case 3: return launch_fwd_rows<T, W, 3>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 
@@ -134,31 +348,6 @@ struct Args {
   int rows, D, parts, vec;
   float eps;
 };
-
-// N elements of one type, loaded or stored as one access (two for 32 bytes)
-template <typename U, int N>
-struct alignas(N * sizeof(U) >= 16 ? 16 : N * sizeof(U)) Pack {
-  U e[N];
-};
-
-// The chunk of N elements at column col of a row: one vector access when
-// vec (D % N == 0 and the row aligned), else element by element, zero past
-// D.  The caller keeps col < D.
-template <typename U, int N>
-__device__ __forceinline__ Pack<U, N> load_chunk(const U* row, int col,
-                                                 int D, bool vec) {
-  if (vec) return *reinterpret_cast<const Pack<U, N>*>(row + col);
-  Pack<U, N> t;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    t.e[i] = col + i < D ? row[col + i] : from_f32<U>(0.f);
-  return t;
-}
-
-// Named barrier of the `count` threads of one row group (ids 1..8).
-__device__ __forceinline__ void group_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
-}
 
 // Each row group of tpr threads (a few warps) walks rows grp, grp + groups
 // in all, ...; thread t of a group owns the 16-byte chunks c * tpr + t
@@ -322,31 +511,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
 // Rows too wide for registers (more than kMaxChunks * kBwdThreads chunks):
 // one block of 256 threads a row at a time, the row walked twice, the
 // block's dw partial sums in shared memory, one column a thread.
-constexpr int kWideThreads = 256;
-
-// the sums of a and b over the block, the same on every thread
-__device__ __forceinline__ void block_sum2(float& a, float& b,
-                                           float (*red)[kWideThreads / 32]) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red[0][warp] = a;
-    red[1][warp] = b;
-  }
-  __syncthreads();
-  a = b = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWideThreads / 32; ++i) {
-    a += red[0][i];
-    b += red[1][i];
-  }
-  __syncthreads();  // red is free for the next row
-}
-
 template <typename T, typename W>
 __global__ void __launch_bounds__(kWideThreads)
 rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
@@ -367,7 +531,10 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
       ss += xv * xv;
       gx += to_f32(gr[i]) * to_f32(w[i]) * xv;
     }
-    block_sum2(ss, gx, red);
+    float sums[2] = {ss, gx};
+    block_sum(sums, red);
+    ss = sums[0];
+    gx = sums[1];
     const float r = 1.0f / sqrtf(ss * inv_d + eps);
     const float c = gx * inv_d * r * r * r;
     for (int i = threadIdx.x; i < D; i += kWideThreads) {
@@ -445,21 +612,44 @@ cudaError_t launch_bwd(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype codes: 0 = float32, 1 = bfloat16.  The launch geometry comes from
+// the wrapper (kernels/rmsnorm.py::layout): nv 16-byte chunks a thread
+// (1..3) on the row path, where groups of tpr threads (a power of two
+// below 32, else a multiple of 32) fill blocks of `threads` and a grid of
+// `grid` blocks of threads / tpr rows each cover the rows; nv = 0 takes
+// the wide path (`grid` blocks of 256 threads walk the rows, a block a
+// row at a time).  Returns a cudaError_t.
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
                               int rows, int D, int x_dtype, int w_dtype,
-                              float eps, void* stream) {
+                              float eps, int tpr, int threads, int grid,
+                              int nv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_x = x_dtype == 0 ? 4 : 8;  // elements of a 16-byte chunk
+  const bool bad_rows =
+      nv < 0 || nv > kMaxFwdChunks ||
+      (nv > 0 && (threads <= 0 || threads > kFwdThreads || threads % 32 ||
+                  tpr <= 0 || threads % tpr ||
+                  (tpr < 32 ? (tpr & (tpr - 1)) : tpr % 32) ||
+                  static_cast<long long>(nv) * tpr * vec_x < D ||
+                  static_cast<long long>(grid) * (threads / tpr) < rows)) ||
+      (nv == 0 && threads != kWideThreads);
+  if (rows <= 0 || D <= 0 || grid <= 0 || bad_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const FwdArgs a{x, w, out, rows, D, tpr, threads, grid, nv,
+                  D % vec_x == 0 && aligned(x) && aligned(w) && aligned(out),
+                  eps};
   cudaError_t err;
   if (x_dtype == 0 && w_dtype == 0)
-    err = launch<float, float>(x, w, out, rows, D, eps, s);
+    err = launch_fwd<float, float>(a, s);
   else if (x_dtype == 0 && w_dtype == 1)
-    err = launch<float, __nv_bfloat16>(x, w, out, rows, D, eps, s);
+    err = launch_fwd<float, __nv_bfloat16>(a, s);
   else if (x_dtype == 1 && w_dtype == 0)
-    err = launch<__nv_bfloat16, float>(x, w, out, rows, D, eps, s);
+    err = launch_fwd<__nv_bfloat16, float>(a, s);
   else if (x_dtype == 1 && w_dtype == 1)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, D, eps, s);
+    err = launch_fwd<__nv_bfloat16, __nv_bfloat16>(a, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

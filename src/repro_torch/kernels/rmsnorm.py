@@ -5,7 +5,9 @@ float32 and cast back to ``x.dtype`` — the function of the Pallas TPU
 kernel ``repro.kernels.rmsnorm.rmsnorm``.  The wrapper takes the plain
 version for tensors on the CPU and launches the kernel (``csrc/rmsnorm.cu``)
 for tensors on a CUDA device; it never falls back from one to the other.
-``rmsnorm.launches`` counts the kernel launches.
+``rmsnorm.launches`` counts the kernel launches.  The kernel's launch
+geometry is :func:`layout`'s, a pure function of the row count, the row
+width and x's element size.
 
 Gradients: the reference trains through XLA's autodiff of the same
 function (``repro.models.layers.rms_norm``).  Here, on a CUDA device and
@@ -18,11 +20,76 @@ the CPU autograd goes through the plain version.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from .common import DTYPE_CODES, check, cuda_device, launch
 
 _SOURCE = "rmsnorm.cu"
+
+#: streaming multiprocessors of the H100
+SMS = 132
+#: 16-byte chunks of a row a thread of the forward's row path holds (the
+#: kernel takes 1 to 3)
+MAX_CHUNKS = 3
+#: the largest block of the forward's row path
+ROW_THREADS = 512
+#: the forward's wide path: a block of 256 threads a row, at most this many
+#: blocks an SM
+WIDE_THREADS, WIDE_BLOCKS_PER_SM = 256, 8
+
+
+@dataclass(frozen=True)
+class Layout:
+    """The forward kernel's launch geometry.
+
+    ``path``: ``"rows"`` (a row to each group of ``tpr`` threads,
+    ``threads // tpr`` groups a block), ``"few"`` (too few rows to fill
+    the SMs that way: a block a row, the row in one trip) or ``"wide"``
+    (rows of more chunks than a block's threads hold: a block a row, the
+    row walked twice).
+    ``nv``: the 16-byte chunks of a row a thread holds (0 on the wide
+    path); ``vec``: the elements of a chunk."""
+    path: str
+    tpr: int
+    threads: int
+    grid: int
+    nv: int
+    vec: int
+
+    @property
+    def groups(self) -> int:
+        return self.threads // self.tpr
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def layout(rows: int, D: int, itemsize: int) -> Layout:
+    """The forward's geometry for ``rows`` rows of ``D`` elements of
+    ``itemsize`` bytes: a row to the fewest threads that hold it in at most
+    ``MAX_CHUNKS`` 16-byte chunks each (a power of two below a warp, a
+    multiple of 32 above), a few such groups a block; a whole block a row
+    when that grid would leave SMs idle; and the wide path for rows of more
+    than ``MAX_CHUNKS * ROW_THREADS`` chunks."""
+    vec = 16 // itemsize
+    chunks = _cdiv(D, vec)
+    if chunks > MAX_CHUNKS * ROW_THREADS:
+        return Layout("wide", WIDE_THREADS, WIDE_THREADS,
+                      min(rows, SMS * WIDE_BLOCKS_PER_SM), 0, vec)
+    need = _cdiv(chunks, MAX_CHUNKS)
+    if need <= 32:
+        tpr = 1 << (need - 1).bit_length()
+    else:
+        tpr = 32 * _cdiv(need, 32)
+    groups = ROW_THREADS // tpr
+    if _cdiv(rows, groups) < SMS:
+        tpr = min(ROW_THREADS, 32 * _cdiv(chunks, 32))
+        return Layout("few", tpr, tpr, rows, _cdiv(chunks, tpr), vec)
+    return Layout("rows", tpr, groups * tpr, _cdiv(rows, groups),
+                  _cdiv(chunks, tpr), vec)
 
 
 def rmsnorm_ref(x, w, *, eps: float = 1e-5):
@@ -35,7 +102,7 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-5):
 def rmsnorm(x, w, *, eps: float = 1e-5, block_rows: int = 256):
     """RMSNorm over the last axis of x (..., D) with weight w (D,); returns
     x's shape and dtype.  ``block_rows`` is the TPU kernel's row tile, kept
-    for parity: the CUDA kernel takes one row per block."""
+    for parity: the CUDA kernel's geometry is :func:`layout`'s."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -52,10 +119,11 @@ def _forward(x, w, eps):
     check("w", w, types, (D,), device)
     out = torch.empty_like(x)
     if rows:
+        lay = layout(rows, D, x.element_size())
         launch(_SOURCE, "rmsnorm_launch",
                [x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, D,
-                DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype], float(eps)],
-               device)
+                DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype], float(eps),
+                lay.tpr, lay.threads, lay.grid, lay.nv], device)
         rmsnorm.launches += 1
     return out
 
@@ -75,7 +143,7 @@ def rmsnorm_bwd_ref(x, w, dy, *, eps: float = 1e-5):
 MAX_BWD_D = 227 * 1024 // 4 - 64
 #: blocks of the backward's persistent grid, each summing its rows' share
 #: of dw (one an SM of the H100)
-_BWD_BLOCKS = 132
+_BWD_BLOCKS = SMS
 
 
 def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):

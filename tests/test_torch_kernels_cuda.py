@@ -267,9 +267,27 @@ def _randn(shape, dtype, device, seed, scale=1.0):
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+#: every path and edge of the forward's layout (kernels/rmsnorm.py::layout):
+#: a block a row (decode's 8 x 3584 and 8 x 7168, 256 decode slots of
+#: 3584, and 131, 132 and 524 rows of 3072, too few for the row path's
+#: groups to fill the SMs), the row path (the training call 2 x 2048 x
+#: 3072; 525 rows, the fewest of 3072 it takes; 1001 rows, no whole number
+#: of groups a block), sub-warp groups (QK-norm's D = 128 over 16,384 rows,
+#: and D = 100 over 20,000, no multiple of the 16-byte chunk, element by
+#: element), D = 100 and odd D = 4097 (misaligned rows, element by element,
+#: a ragged last chunk) over a block a row, the widest bf16 row the row
+#: path holds (12,288: three chunks of 512 threads) and the wide path
+#: beyond it (16,384 and 20,000)
+RMS_SHAPES = [(8, 128), (3, 17, 64), (16, 3584), (8, 3584), (8, 7168),
+              (5, 7168), (256, 3584), (131, 3072), (132, 3072),
+              (524, 3072), (525, 3072), (2, 2048, 3072), (1001, 3072),
+              (8, 2048, 128), (3, 17, 100), (1000, 100), (20000, 100),
+              (300, 4097), (300, 12288), (300, 16384), (3, 20000),
+              (200, 20000)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (16, 3584),
-                                   (8, 7168), (5, 7168), (2, 2048, 3072)])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
 @pytest.mark.parametrize("xd,wd", [("float32", "float32"),
                                    ("bfloat16", "bfloat16"),
                                    ("float32", "bfloat16")])
@@ -280,6 +298,25 @@ def test_rmsnorm_kernel_matches_plain_version(card, shape, xd, wd):
     got = RMS.rmsnorm(x, w)
     assert RMS.rmsnorm.launches == n0 + 1
     assert_within(got, RMS.rmsnorm_ref(x, w), "rmsnorm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2048, 3072), (8, 7168), (8, 2048, 128),
+                                   (300, 4097), (3, 20000)])
+def test_rmsnorm_kernel_reruns_bit_equal(card, shape):
+    """No atomics and a fixed order of sums: a rerun gives the same bits
+    (bf16 x and w; each path of the layout)."""
+    x = _randn(shape, torch.bfloat16, card, 3)
+    w = _randn(shape[-1:], torch.bfloat16, card, 4)
+    assert torch.equal(RMS.rmsnorm(x, w), RMS.rmsnorm(x, w))
+
+
+@pytest.mark.cuda
+def test_rmsnorm_of_no_rows_launches_nothing(card):
+    x = _randn((0, 3072), torch.bfloat16, card, 0)
+    n0 = RMS.rmsnorm.launches
+    out = RMS.rmsnorm(x, _randn((3072,), torch.bfloat16, card, 1))
+    assert out.shape == (0, 3072) and RMS.rmsnorm.launches == n0
 
 
 #: the last three but one are the edges the bfloat16 kernel's tiles must

@@ -19,8 +19,10 @@ carried over by ``repro_torch.convert``.  Tolerances, with their reasons:
 """
 
 import dataclasses
+import itertools
 import os
 import signal
+import time
 
 import numpy as np
 import pytest
@@ -396,7 +398,14 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
 # the launcher
 # ---------------------------------------------------------------------------
 
-def test_launch_train_main_on_the_cpu(tmp_path, capsys):
+def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
+    # A clock that moves 1 ms a reading gives every step the same time, as
+    # test_torch_autotune.py's straggler test injects its own: on the host's
+    # real clock a step jittered by a few ms (steps take ~10 ms here) trips
+    # the trainer's straggler rule (a step over 1.1x the mean of those
+    # before it), which re-opens the search and unsettles the last steps.
+    clock = itertools.count()
+    monkeypatch.setattr(time, "perf_counter", lambda: next(clock) * 1e-3)
     old = signal.getsignal(signal.SIGTERM)
     try:
         out = tlaunch.main(["--arch", "llama3.2-3b", "--steps", "7",
