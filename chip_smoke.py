@@ -54,9 +54,11 @@ kernels, and prints one JSON line per result.  Phases, in order:
     a rerun bit-equal; every rmsnorm row (these, the prefill's and [17a]'s
     training call) is timed in turns with ``rms_norm``;
 12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
-    T=500, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
-    lanes, 33,000 decisions) on the kernels, the sweep, the lockstep replay
-    and the SimPolicy pricing each on a backend of its own: the walls, the
+    T=300, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
+    lanes, 19,800 decisions; the cell's T = 500 cut to its first 300 steps
+    to keep the script inside its limit beside [18]) on the kernels, the
+    sweep, the lockstep replay and the SimPolicy pricing each on a backend
+    of its own: the walls, the
     replay's ``PathTimes`` split, the host's decide and learn remainder, the
     pricing calls and the Fig. 5 degradation of every lane; the fused kernel
     timed at the replay's largest call; replay steps under
@@ -141,6 +143,29 @@ kernels, and prints one JSON line per result.  Phases, in order:
     after); then one more step of the settled plan by layer (forward with
     the loss, backward, AdamW) and one under ``torch.profiler`` (the
     card's busy time by kernel bucket, its launches, its idle share).
+18. the dense, VL and MoE families' serving, bf16, random weights from a
+    seeded ``torch.Generator``, every prefill of 8 prompts of 2048 tokens
+    on the kernels into a cache of its serving length (``prefill(...,
+    max_len=...)``) with exact launch counts (rmsnorm: 2 a layer, 4 with
+    QK-norm, + 1; flash_attention: 1 a layer), then decode through
+    ``live``, with walls and peaks: (a) qwen3-32b at full width and depth
+    (257 / 64 launches), 64 decode steps, the decode step's wall against
+    the card's busy ms, blocks 0, 32 and 63 against the plain versions
+    from the same input (one prompt) within ``BLOCK_REL_L2``, and its
+    2-layer cut in float32 as in [9]; (b) granite-8b and mistral-nemo-12b
+    at full width and depth, 16 decode steps; (c) qwen2-vl-72b cut to 16
+    of its 80 layers (145 GB in bf16 does not fit the card), 16 decode
+    steps, its M-RoPE logits of text bit-equal to RoPE's; (d) olmoe-1b-7b
+    at full width and depth, 64 decode steps, ``forward``'s
+    ``expert_load`` (16, 64), each row 8 x 2048 x 8, equal to the
+    prefill's, ``dropped_frac`` of prefill and decode, a rerun of the
+    prefill bit-equal; (e) grok-1-314b cut to 2 of its 64 layers (633
+    GB), 4 decode steps, its loads as in (d); (f) the six archs'
+    ``smoke_reduce`` in float32, the card against the CPU within 1e-4;
+    (g) rmsnorm at qwen3-32b's QK-norm calls (1,048,576 and 131,072 rows
+    of 128) in turns with ``rms_norm``, and flash attention at its
+    prefill call (64 / 8 heads) beside SDPA, added to the kernels' records
+    (``at_qk_norm_call``, ``at_dense_prefill_call``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -616,7 +641,7 @@ def phase_zamba(device):
     from repro_torch.data import synthetic_requests
     from repro_torch.launch.serve import live
     from repro_torch.models import (decode_step, init_decode_cache,
-                                    init_params, pad_cache, prefill)
+                                    init_params, prefill)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -641,7 +666,7 @@ def phase_zamba(device):
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, tokens)
+    logits, cache = prefill(cfg, params, tokens, max_len=S + ZAMBA_DECODE)
     torch.cuda.synchronize(device)
     prefill_s = time.perf_counter() - t0
     prefill_counts = model_counts()
@@ -654,7 +679,6 @@ def phase_zamba(device):
     require(tuple(logits.shape) == (B, cfg.vocab_size)
             and bool(torch.isfinite(logits).all()), "prefill logits")
 
-    cache = pad_cache(cache, S + ZAMBA_DECODE)
     first = logits.argmax(-1).to(torch.int32)
     warm = init_decode_cache(cfg, B, 16, device=device)   # warm-up, not kept
     decode_step(cfg, params, warm, first)
@@ -843,14 +867,13 @@ def profile_decode(cfg, params, device, slots, max_len):
             "top": top}
 
 
-def phase_small_card_vs_cpu(device):
-    """The small Zamba2 in float32, one set of weights on the CPU and on the
-    card: prefill logits and caches, and two decode steps, within 1e-4 of
-    the largest magnitude."""
+def phase_small_card_vs_cpu(device, arch="zamba2-7b"):
+    """The small ``arch`` (``smoke_reduce``) in float32, one set of weights
+    on the CPU and on the card: prefill logits and caches, and two decode
+    steps, within 1e-4 of the largest magnitude."""
     from repro_torch.configs import get_config, smoke_reduce
-    from repro_torch.models import decode_step, init_params, pad_cache
-    from repro_torch.models import prefill
-    cfg = smoke_reduce(get_config("zamba2-7b"))
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = smoke_reduce(get_config(arch))
     cpu = torch.device("cpu")
     p_cpu = init_params(cfg, 0, device=cpu)
     p_dev = {k: ({n: t.to(device) for n, t in v.items()}
@@ -867,9 +890,8 @@ def phase_small_card_vs_cpu(device):
     outs = []
     for dev, params in ((device, p_dev), (cpu, p_cpu)):
         t = toks.to(dev)
-        logits, cache = prefill(cfg, params, t[:, :64])
+        logits, cache = prefill(cfg, params, t[:, :64], max_len=72)
         steps = [logits]
-        cache = pad_cache(cache, 72)
         for i in range(2):
             lg, cache = decode_step(cfg, params, cache, t[:, 64 + i])
             steps.append(lg)
@@ -877,8 +899,9 @@ def phase_small_card_vs_cpu(device):
     (s_dev, c_dev), (s_cpu, c_cpu) = outs
     for x, y in zip(s_dev, s_cpu):
         worst = max(worst, ratio(x, y))
-    for name in ("conv", "state", "k", "v"):
-        worst = max(worst, ratio(c_dev[name], c_cpu[name]))
+    for name in c_cpu:
+        if name != "len":
+            worst = max(worst, ratio(c_dev[name], c_cpu[name]))
     return worst
 
 
@@ -1045,10 +1068,12 @@ def rmsnorm_record(x, w, device, flush, plain_reps=10):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the plain event core's check runs at T = 20: its per-chunk torch loop
-#: makes each pricing miss a fraction of a second (T = 50, then 30, until
-#: the script's wall neared its limit beside phase [17])
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 500, 20, 4
+#: the Fig. 5 replay runs the cell's first 300 of its 500 steps (cut when
+#: phase [18] took the script past 1,050 s; [13b]'s clean twins need its
+#: first PERTURB_T steps); the plain event core's check runs at T = 20:
+#: its per-chunk torch loop makes each pricing miss a fraction of a second
+#: (T = 50, then 30, until the script's wall neared its limit beside [17])
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 300, 20, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1107,8 +1132,9 @@ def fused_of(bk):
 
 
 def replay_campaign(device):
-    """The T = 500 campaign on the kernels: sweep, replay and pricing each
-    on its own backend, so each path's launches and times read apart."""
+    """The Fig. 5 campaign at T = ``REPLAY_T`` on the kernels: sweep,
+    replay and pricing each on its own backend, so each path's launches
+    and times read apart."""
     from repro_torch import TorchBatchedBackend, kernels
     from repro_torch.sim import SIM_SELECTOR_GRID, run_campaign
     sweep_bk, replay_bk, price_bk = (TorchBatchedBackend() for _ in range(3))
@@ -1173,7 +1199,7 @@ def replay_campaign(device):
 
 
 def profile_replay(device, warm: int = 8, steps: int = 4, lanes=None):
-    """Steps ``warm`` to ``warm + steps - 1`` of the T = 500 replay of
+    """Steps ``warm`` to ``warm + steps - 1`` of the Fig. 5 replay of
     ``lanes`` (default: the SIM grid, both chunk modes; pricing on the
     replay's backend) on the host clock, then the next ``steps`` under
     ``torch.profiler``: the card's busy time (its kernels' device time) a
@@ -2918,6 +2944,335 @@ def phase_dense_training(device, flush, model_records):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the dense, VL and MoE families' serving
+# ---------------------------------------------------------------------------
+
+FAMILY_BATCH, FAMILY_PROMPT = 8, 2048
+#: each served arch of [18b]-[18e]: the layers it keeps (None: all) and
+#: its decode steps.  qwen2-vl-72b (145 GB in bf16) and grok-1-314b (633
+#: GB) do not fit on one 80 GB card: they keep 16 of 80 and 2 of 64 layers
+#: at full width
+FAMILY_RUNS = (("granite-8b", None, 16), ("mistral-nemo-12b", None, 16),
+               ("qwen2-vl-72b", 16, 16), ("olmoe-1b-7b", None, 64),
+               ("grok-1-314b", 2, 4))
+QWEN3_DECODE = 64
+#: [18a]'s blocks held against the plain versions, from the same input
+QWEN3_BLOCKS = (0, 32, 63)
+#: the smoke archs of [18f], the card against the CPU
+FAMILY_ARCHS = ("granite-8b", "mistral-nemo-12b", "qwen3-32b",
+                "qwen2-vl-72b", "olmoe-1b-7b", "grok-1-314b")
+
+
+@contextlib.contextmanager
+def moe_stats():
+    """The MoE dispatch's aux of every ``moe_block`` call the model makes
+    while the context is open (a list, appended in call order)."""
+    from repro_torch.models import model as M
+    seen, orig = [], M.moe_block
+
+    def recorded(*args, **kw):
+        out, aux = orig(*args, **kw)
+        seen.append(aux)
+        return out, aux
+    M.moe_block = recorded
+    try:
+        yield seen
+    finally:
+        M.moe_block = orig
+
+
+def family_params(arch, device, n_layers=None, seed=0):
+    """``arch`` at full width (its first ``n_layers`` layers, if given) in
+    bf16 with random weights from a seeded ``torch.Generator``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    torch.cuda.synchronize(device)
+    n = sum(t.numel() for g in params.values()
+            for t in (g.values() if isinstance(g, dict) else [g]))
+    return cfg, params, {"layers": cfg.n_layers, "params": n,
+                         "init_s": time.perf_counter() - t0,
+                         "gb": torch.cuda.memory_allocated(device) / 1e9}
+
+
+def prompt_tokens(cfg, device, B=FAMILY_BATCH, S=FAMILY_PROMPT, seed=0):
+    """Prompts drawn below ``vocab_size`` (the embedding is padded past
+    it)."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S))).to(device)
+
+
+def serve_family(cfg, params, device, steps, tokens):
+    """The serving path of one arch: ``prefill`` of ``tokens`` on the
+    kernels into a cache of ``S + steps`` positions (launch counts, wall,
+    peak), then up to ``steps`` decode steps on the prompts' slots through
+    ``live`` (the ``ContinuousBatcher``).  Returns the run's record and
+    the prefill's logits."""
+    from repro_torch import kernels
+    from repro_torch.data import synthetic_requests
+    from repro_torch.launch.serve import live
+    from repro_torch.models import (decode_step, init_decode_cache,
+                                    padded_vocab, prefill)
+    B, S = tokens.shape
+    prefill(cfg, params, tokens[:, :128])              # warm-up, not kept
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, tokens, max_len=S + steps)
+    torch.cuda.synchronize(device)
+    prefill_s = time.perf_counter() - t0
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    require(counts == {"rmsnorm": per_step, "flash_attention": cfg.n_layers,
+                       "ssd_scan": 0},
+            f"{cfg.name} prefill launches {counts}, want {per_step} / "
+            f"{cfg.n_layers} / 0")
+    require(tuple(logits.shape) == (B, padded_vocab(cfg))
+            and bool(torch.isfinite(logits).all()),
+            f"{cfg.name} prefill logits {tuple(logits.shape)}")
+    first = logits.argmax(-1).to(torch.int32)
+    warm = init_decode_cache(cfg, B, 16, device=device)   # warm-up
+    decode_step(cfg, params, warm, first)
+    torch.cuda.synchronize(device)
+    del warm
+    kernels.reset_launch_counts()
+    stats, per_tok = live(cfg, params, slots=B, device=device,
+                          requests=synthetic_requests(16, seed=0,
+                                                      mean_gen=32),
+                          cache=cache, tokens=first, max_steps=steps)
+    decode_counts = model_counts()
+    del cache
+    require(0 < stats["steps"] <= steps, f"{cfg.name} decode steps")
+    require(decode_counts == {"rmsnorm": per_step * stats["steps"],
+                              "flash_attention": 0, "ssd_scan": 0},
+            f"{cfg.name} decode launches {decode_counts}")
+    return {"prefill_s": prefill_s, "prefill_tokens": B * S,
+            "prefill_tokens_per_s": B * S / prefill_s,
+            "peak_gb": peak / 1e9, "prefill_launches": counts,
+            "decode": stats, "per_token_s": per_tok,
+            "decode_launches": decode_counts}, logits
+
+
+def dense_block_check(cfg, params, tokens, blocks):
+    """The dense stack on the kernels over ``tokens``, up to the last of
+    ``blocks``; each of ``blocks`` also on the plain versions from the
+    same input: (block, rel L2) rows."""
+    from repro_torch.models import model as M
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    rows = []
+    for i, p in enumerate(M.unstack_layers(params)[:max(blocks) + 1]):
+        out, _ = M._dense_block(p, cfg, x, pos)
+        if i in blocks:
+            with plain_kernels():
+                ref, _ = M._dense_block(p, cfg, x, pos)
+            rows.append((f"block{i}", rel_l2(out, ref)))
+            del ref
+        x = out
+    return rows
+
+
+def launches_of(runs):
+    """The model kernels' launches over the runs' prefills and decodes."""
+    out = {"rmsnorm": 0, "flash_attention": 0}
+    for r in runs:
+        for k in out:
+            out[k] += r["prefill_launches"][k] + r["decode_launches"][k]
+    return out
+
+
+def qwen3_serving(device):
+    """[18a]: qwen3-32b at full width and depth: serving, the decode
+    step's profile, three blocks against the plain versions; then its
+    2-layer cut in float32 against the plain versions."""
+    from repro_torch.models import prefill
+    cfg, params, info = family_params("qwen3-32b", device)
+    log(f"[18a] qwen3-32b init: {json.dumps(info)} ({cfg.n_params()} by "
+        f"the config)")
+    tokens = prompt_tokens(cfg, device)
+    run, _ = serve_family(cfg, params, device, QWEN3_DECODE, tokens)
+    run.update(info)
+    log(f"[18a] qwen3-32b prefill {FAMILY_BATCH} x {FAMILY_PROMPT}: "
+        f"{run['prefill_s']:.3f} s, peak {run['peak_gb']:.2f} GB, launches "
+        f"{json.dumps(run['prefill_launches'])}; decode "
+        f"{json.dumps(run['decode'])}")
+    run["decode_profile"] = profile_decode(cfg, params, device,
+                                           FAMILY_BATCH,
+                                           FAMILY_PROMPT + QWEN3_DECODE)
+    log(f"[18a] decode step profile: {json.dumps(run['decode_profile'])}")
+    blocks = dense_block_check(cfg, params, tokens[:1], QWEN3_BLOCKS)
+    worst = max(blocks, key=lambda r: r[1])
+    log(f"[18a] blocks {QWEN3_BLOCKS}, bf16, one prompt, kernels vs plain "
+        f"from the same input: {blocks} (bound {BLOCK_REL_L2})")
+    require(worst[1] <= BLOCK_REL_L2, f"qwen3 {worst[0]}: {worst[1]}")
+    run["blocks_rel_l2"] = dict(blocks)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg2, params2, _ = family_params("qwen3-32b", device, n_layers=2)
+    t2 = tokens[:2]
+    logits_k, _ = prefill(cfg2, params2, t2)
+    with plain_kernels():
+        logits_p, _ = prefill(cfg2, params2, t2)
+    f32 = f32_check(cfg2, params2, t2, logits_k, logits_p)
+    log(f"[18a] 2 layers, float32, 2 x {FAMILY_PROMPT}: {json.dumps(f32)}")
+    require(f32["rel_l2"] <= F32_LOGIT_REL_L2,
+            f"qwen3 float32 kernels vs plain logits rel L2 {f32['rel_l2']}")
+    require(f32["top1_agree"], "qwen3 float32 top-1 differs on a clear row")
+    require(f32["bf16_kernels_vs_f32"]
+            <= BF16_PARITY * f32["bf16_plain_vs_f32"],
+            "qwen3: the kernels' bf16 logits stray further from float32 "
+            "than the plain versions'")
+    run["float32_2_layers"] = f32
+    del params2, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return run
+
+
+def family_serving(arch, n_layers, steps, device):
+    """[18b]-[18e]: one arch served at full width; M-RoPE's logits against
+    RoPE's (qwen2-vl); the MoE's loads from ``forward`` against the
+    prefill's, its drops, and a rerun of the prefill bit-equal."""
+    from repro_torch.models import forward, prefill
+    cfg, params, info = family_params(arch, device, n_layers)
+    tokens = prompt_tokens(cfg, device)
+    with moe_stats() as seen:
+        run, logits = serve_family(cfg, params, device, steps, tokens)
+    run.update(info)
+    if cfg.mrope:
+        off, _ = prefill(dataclasses.replace(cfg, mrope=False), params,
+                         tokens)
+        run["mrope_off_bit_equal"] = torch.equal(logits, off)
+        require(run["mrope_off_bit_equal"], f"{arch}: M-RoPE's logits of "
+                "text differ from RoPE's")
+        del off
+    if cfg.family == "moe":
+        L = cfg.n_layers
+        _, _, aux = forward(cfg, params, tokens)
+        load = aux["expert_load"]
+        want = FAMILY_BATCH * FAMILY_PROMPT * cfg.experts_per_token
+        require(tuple(load.shape) == (L, cfg.n_experts)
+                and bool((load.sum(-1) == want).all()),
+                f"{arch} expert_load {tuple(load.shape)}, row sums "
+                f"{load.sum(-1).tolist()}, want {want}")
+        # seen: the warm-up prefill's L calls, the prefill's L, the warm-up
+        # decode step's L, then live's decode steps
+        prefill_loads = torch.stack([a["expert_load"]
+                                     for a in seen[L:2 * L]])
+        require(torch.equal(prefill_loads, load),
+                f"{arch}: forward's expert_load differs from the prefill's")
+        drop = lambda s: float(torch.stack(  # noqa: E731
+            [a["dropped_frac"] for a in s]).mean())
+        run["expert_load_max_over_mean"] = float(
+            load.max() / load.float().mean())
+        run["dropped_frac"] = {"prefill": drop(seen[L:2 * L]),
+                               "decode": drop(seen[3 * L:])}
+        again, _ = prefill(cfg, params, tokens)
+        run["rerun_bit_equal"] = torch.equal(again, logits)
+        require(run["rerun_bit_equal"], f"{arch}: a rerun of the prefill "
+                "differs")
+        del again, aux, load
+    del params, logits
+    torch.cuda.empty_cache()
+    return run
+
+
+def family_kernel_records(device, flush):
+    """[18g]: rmsnorm at qwen3-32b's QK-norm calls (rows of 128: 64 query
+    and 8 kv heads of 8 x 2048 tokens) and flash attention at its prefill
+    call (64 / 8 heads of 128, causal), each against its plain version and
+    the library call."""
+    from repro_torch.kernels import flash_attention as FA
+    bf16 = torch.bfloat16
+    B, S, H, K, hd = FAMILY_BATCH, FAMILY_PROMPT, 64, 8, 128
+    rms = [rmsnorm_record(randn((B, S, h, hd), bf16, device, 80 + h),
+                          randn((hd,), bf16, device, 81), device, flush,
+                          plain_reps=5) for h in (H, K)]
+    q = randn((B, S, H, hd), bf16, device, 90)
+    k, v = (randn((B, S, K, hd), bf16, device, 91 + i) for i in range(2))
+    o, o_ref = FA.flash_attention(q, k, v), FA.flash_attention_ref(q, k, v)
+    pairs = S * (S + 1) // 2
+    flash = with_bound({
+        "max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+        "tol_ratio": tol_ratio(o, o_ref, "flash_attention"),
+        "rerun_bit_equal": torch.equal(o, FA.flash_attention(q, k, v)),
+        **turns_ms({"ms": lambda: FA.flash_attention(q, k, v),
+                    "library_ms": lambda: (
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), is_causal=True,
+                            enable_gqa=True))}, 10, device, flush),
+        "plain_ms": time_call(lambda: FA.flash_attention_ref(q, k, v), (),
+                              1, device, flush),
+        "shape": {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
+                  "causal": True},
+        "ops": 4 * B * H * hd * pairs,
+        "bytes": (2 * B * S * H * hd + 2 * B * S * K * hd) * 2},
+        BF16_OPS_PER_S)
+    del q, k, v, o, o_ref
+    torch.cuda.empty_cache()
+    return rms, flash
+
+
+def phase_families(device, flush, model_records):
+    """Phase [18]: (a) qwen3-32b, (b)-(e) granite-8b, mistral-nemo-12b,
+    qwen2-vl-72b (16 layers), olmoe-1b-7b, grok-1-314b (2 layers), served
+    at full width; (f) their smoke cuts, card against CPU; (g) the kernels
+    at qwen3's calls, added to the rmsnorm and flash records."""
+    import gc
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[18] allocated before the phase: "
+        f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+    runs = {"qwen3-32b": qwen3_serving(device)}
+    log(f"[18a] {time.perf_counter() - t_phase:.1f} s")
+    for (arch, n_layers, steps), tag in zip(FAMILY_RUNS, "bbcde"):
+        runs[arch] = r = family_serving(arch, n_layers, steps, device)
+        log(f"[18{tag}] {arch} ({r['layers']} layers, {r['params']} "
+            f"parameters, {r['gb']:.2f} GB): prefill {r['prefill_s']:.3f} "
+            f"s, peak {r['peak_gb']:.2f} GB, launches "
+            f"{json.dumps(r['prefill_launches'])}; decode "
+            f"{json.dumps(r['decode'])}"
+            + "".join(f"; {k} {json.dumps(r[k])}" for k in (
+                "mrope_off_bit_equal", "dropped_frac",
+                "expert_load_max_over_mean", "rerun_bit_equal") if k in r))
+    card_cpu = {a: phase_small_card_vs_cpu(device, a) for a in FAMILY_ARCHS}
+    log(f"[18f] smoke archs, float32, card vs CPU (largest difference / "
+        f"largest magnitude): {json.dumps(card_cpu)}")
+    require(max(card_cpu.values()) <= 1e-4, f"[18f] card vs CPU {card_cpu}")
+    rms, flash = family_kernel_records(device, flush)
+    for r in rms:
+        require(r["tol_ratio"] <= 1.0 and r["rerun_bit_equal"],
+                f"rmsnorm at QK-norm's {r['shape']}: tol_ratio "
+                f"{r['tol_ratio']}, rerun {r['rerun_bit_equal']}")
+        log(f"[18g] rmsnorm at qwen3's QK-norm call {json.dumps(r)}")
+    require(flash["tol_ratio"] <= 1.0 and flash["rerun_bit_equal"],
+            f"flash_attention at qwen3's prefill call {flash['tol_ratio']}")
+    log(f"[18g] flash_attention at qwen3's prefill call {json.dumps(flash)}")
+    launches = launches_of(runs.values())
+    for r in model_records:
+        if r["name"] in launches:
+            r["launches_by_path"]["serve families [18]"] = launches[r["name"]]
+            r["launches"] = sum(r["launches_by_path"].values())
+            if r["name"] == "rmsnorm":
+                r["at_qk_norm_call"] = rms
+            else:
+                r["at_dense_prefill_call"] = flash
+    wall = time.perf_counter() - t_phase
+    log(json.dumps({"families": runs, "launches": launches, "wall_s": wall}))
+    log(f"[18] {wall:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3160,7 +3515,8 @@ def run() -> int:
                if "parts_ms" in k else ""))
     log(f"[11] {time.perf_counter() - t_start:.1f} s so far")
 
-    log("[12] selection-policy layer: run_campaign mandelbrot/epyc, T = 500, "
+    log(f"[12] selection-policy layer: run_campaign mandelbrot/epyc, "
+        f"T = {REPLAY_T}, "
         "SIM_SELECTOR_GRID, both chunk modes, on the kernels")
     replay, replay_calls, clean_totals = replay_campaign(device)
     log(json.dumps(replay))
@@ -3218,7 +3574,10 @@ def run() -> int:
     torch.cuda.empty_cache()
     log("[17] dense-family training: llama3.2-3b through the autotuner")
     bwd_records = phase_dense_training(device, flush, model_records)
-    log(f"[17] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[17] {time.perf_counter() - t_start:.1f} s so far")
+    log("[18] the dense, VL and MoE families' serving at full width")
+    phase_families(device, flush, model_records)
+    log(f"[18] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

@@ -1,8 +1,11 @@
 """repro_torch.configs — model configurations of the port.
 
-The port has the hybrid family (Zamba2, served) and the dense family
-(llama3.2-3b, trained) so far; the other architectures of the reference
-wait for their slice (ROADMAP queue 1) and are refused by name.
+The port serves the dense family (llama3.2-3b, granite-8b,
+mistral-nemo-12b, qwen3-32b, and qwen2-vl-72b's M-RoPE backbone), the MoE
+family (olmoe-1b-7b, grok-1-314b) and the hybrid family (zamba2-7b), and
+trains llama3.2-3b.  The SSM (mamba2-2.7b) and enc-dec (whisper-small)
+architectures wait for their slice (ROADMAP queue 1) and are refused by
+name.
 """
 
 from importlib import import_module
@@ -12,8 +15,14 @@ from .base import (ModelConfig, ShapeConfig, SHAPES, applicable,
                    smoke_reduce)
 
 _ARCH_MODULES = {
+    "qwen3-32b": "qwen3_32b",
+    "granite-8b": "granite_8b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
     "llama3.2-3b": "llama3_2_3b",
     "zamba2-7b": "zamba2_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "grok-1-314b": "grok_1_314b",
 }
 
 ARCH_NAMES = list(_ARCH_MODULES)

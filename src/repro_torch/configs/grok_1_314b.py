@@ -1,0 +1,8 @@
+"""grok-1-314b — MoE 8 experts top-2 [hf:xai-org/grok-1; unverified]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b", family="moe", n_layers=64, d_model=6144,
+    n_heads=48, n_kv_heads=8, d_ff=32768, vocab_size=131072,
+    head_dim=128, n_experts=8, experts_per_token=2,
+    param_dtype="bfloat16", moment_dtype="bfloat16")

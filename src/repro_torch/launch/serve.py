@@ -3,10 +3,12 @@ on the card, which calibrates the per-token cost of the replica cost model,
 then chunk-self-scheduled dispatch with online algorithm selection over the
 12-algorithm portfolio (the paper's technique, L3).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --requests 2048 --replicas 16 --selector QLearn --reward LT
 
-The port of ``repro.launch.serve``.
+The port of ``repro.launch.serve``: every arch the port registers is
+served (the dense, MoE and hybrid families), at ``smoke_reduce``, as the
+reference's ``--smoke`` (set by default; no flag clears it).
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from ..configs.base import ModelConfig
 from ..core import ALGORITHM_NAMES
 from ..data import Request, synthetic_requests
 from ..device import resolve_device
-from ..models import decode_step, init_decode_cache, init_params
+from ..models import init_decode_cache, init_params
 from ..serving import ContinuousBatcher, DispatchSimulator, ReplicaCostModel
+from .steps import make_serve_step
 
 
 def live(cfg: ModelConfig, params: Dict, *, slots: int = 8, device=None,
@@ -41,8 +44,7 @@ def live(cfg: ModelConfig, params: Dict, *, slots: int = 8, device=None,
     if requests is None:
         requests = synthetic_requests(24, seed=0, mean_prompt=8,
                                       mean_gen=16)
-    batcher = ContinuousBatcher(
-        lambda p, c, t: decode_step(cfg, p, c, t), None, slots)
+    batcher = ContinuousBatcher(make_serve_step(cfg), None, slots)
     batcher.submit(requests)
     stats = batcher.run(params, cache, tokens, max_steps=max_steps)
     return stats, stats["wall"] / max(stats["tokens"], 1)
@@ -69,16 +71,20 @@ def dispatch(per_tok: float, *, requests: int = 2048, replicas: int = 16,
     return sim.summary(), shares
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_NAMES, default="zamba2-7b")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="llama3.2-3b")
     ap.add_argument("--requests", type=int, default=2048)
     ap.add_argument("--replicas", type=int, default=16)
     ap.add_argument("--selector", default="QLearn")
     ap.add_argument("--reward", default="LT")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--smoke", action="store_true", default=True)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
 
     cfg = smoke_reduce(get_config(args.arch)) if args.smoke \
         else get_config(args.arch)

@@ -1,13 +1,14 @@
-"""The training step of the model: ``make_train_step`` (forward, backward
-and AdamW, with optional microbatched gradient accumulation and gradient
-compression).
+"""Step builders of the trainer and the serving engine:
+``make_train_step`` (forward, backward and AdamW, with optional
+microbatched gradient accumulation and gradient compression) and
+``make_serve_step`` / ``make_prefill_step``.
 
-The port of ``repro.launch.steps.make_train_step``.  The reference's
-``jax.value_and_grad`` is autograd over detached copies of the parameters
+The port of ``repro.launch.steps`` but its shape stand-ins
+(``input_specs``, ``params_shape``, ``opt_shape``), which wait for the
+dry-run slice (ROADMAP queue 1).  The reference's ``jax.value_and_grad``
+is autograd over detached copies of the parameters
 (:func:`value_and_grad`); its ``lax.scan`` over microbatches is a Python
-loop; the update is :func:`repro_torch.optim.adamw_update_`, in place.  The
-serving steps and the dry-run's shape stand-ins wait for the other
-families' slices (ROADMAP queue 1).
+loop; the update is :func:`repro_torch.optim.adamw_update_`, in place.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..models.decode import decode_step, prefill
 from ..models.model import loss_fn
 from ..optim.adamw import AdamWConfig, AdamWState, adamw_update_, tree_map
 
@@ -84,4 +86,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-__all__ = ["make_train_step", "value_and_grad"]
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, cache, token) -> (logits, cache): one decode
+    step, the cache updated in place (``models.decode_step``)."""
+    def serve_step(params, cache, token):
+        return decode_step(cfg, params, cache, token)
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
+    """prefill_step(params, batch) -> (logits, cache) of
+    ``batch["tokens"]`` (``models.prefill``)."""
+    def prefill_step(params, batch):
+        return prefill(cfg, params, batch["tokens"], attn_impl=attn_impl)
+    return prefill_step
+
+
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
+           "value_and_grad"]

@@ -1,12 +1,12 @@
-"""repro_torch.models — the dense family (init, forward, loss; trained) and
-the hybrid (Zamba2) family (init, forward, prefill and decode; served), on
-the port's kernels."""
+"""repro_torch.models — the dense (with qwen2-vl's M-RoPE backbone), MoE
+and hybrid (Zamba2) families: init, forward, loss, caches, prefill and
+decode, on the port's kernels; the dense family is also trained."""
 
 from .decode import (decode_cache_specs, decode_step, init_decode_cache,
-                     pad_cache, prefill)
+                     prefill)
 from .model import (chunked_ce_loss, forward, init_params, logits_fn,
                     loss_fn, padded_vocab)
 
 __all__ = ["init_params", "forward", "logits_fn", "loss_fn",
            "chunked_ce_loss", "padded_vocab", "decode_step", "prefill",
-           "init_decode_cache", "decode_cache_specs", "pad_cache"]
+           "init_decode_cache", "decode_cache_specs"]

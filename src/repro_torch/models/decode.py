@@ -1,31 +1,34 @@
-"""Serving paths for the hybrid family: cache init, prefill, and
-single-token decode.
+"""Serving paths for the dense, MoE and hybrid families: cache init,
+prefill, and single-token decode.
 
-The port of ``repro.models.decode`` (hybrid branch).  Cache layout, as the
-reference's (leading L = layer-stacked):
+The port of ``repro.models.decode`` (dense/moe and hybrid branches).
+Cache layouts, as the reference's (leading L = layer-stacked):
 
-    {"conv": (L, B, k-1, ch), "state": (L, B, nh, hp, st) float32,
-     "k": (n_seg, B, Smax, K, hd), "v": ..., "len": int32 0-d tensor}
+    dense/moe : {"k": (L, B, Smax, K, hd), "v": ..., "len": int32 0-d}
+    hybrid    : {"conv": (L, B, k-1, ch), "state": (L, B, nh, hp, st)
+                 float32, "k": (n_seg, B, Smax, K, hd), "v": ..., "len"}
 
-the shared attention block keeping one KV cache per segment.  Unlike the
-reference, whose arrays are immutable, ``decode_step`` writes the new conv
-windows, states and KV entries into the cache's tensors in place (a copy
-of the 1.2 GB state stack per token at full width would be pure traffic)
-and returns the same dict with ``len`` advanced.  ``len`` stays on the
-device, so a decode loop never waits for the host.
+the hybrid's shared attention block keeping one KV cache per segment.
+Unlike the reference, whose arrays are immutable, ``decode_step`` writes
+the new KV entries (and conv windows and states) into the cache's tensors
+in place (a copy of a 4 GB KV stack, or of the 1.2 GB state stack, per
+token at full width would be pure traffic) and returns the same dict with
+``len`` advanced.  ``len`` stays on the device, so a decode loop never
+waits for the host.  ``prefill(..., max_len=n)`` builds the cache with n
+positions at once (see ``model.forward``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import rms_norm
-from .model import (_dense_block, _dtype, _require_hybrid, forward,
-                    layer_params, logits_fn)
+from .model import (_dense_block, _dtype, _moe_block_apply,
+                    _require_ported, forward, layer_params, logits_fn)
 from .ssm import ssm_layer_apply
 
 
@@ -39,20 +42,21 @@ class TensorSpec(NamedTuple):
 def decode_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=None) -> Dict[str, TensorSpec]:
     """The cache's entries as shapes and dtypes."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     dt = dtype or _dtype(cfg)
     L, B = cfg.n_layers, batch
-    n_seg = cfg.n_layers // cfg.attn_every
-    ch = cfg.d_inner + 2 * cfg.ssm_state
-    kv = (n_seg, B, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "len": TensorSpec((), torch.int32),
-        "conv": TensorSpec((L, B, cfg.ssm_conv - 1, ch), dt),
-        "state": TensorSpec((L, B, cfg.ssm_nheads, cfg.ssm_headdim,
-                             cfg.ssm_state), torch.float32),
-        "k": TensorSpec(kv, dt),
-        "v": TensorSpec(kv, dt),
-    }
+    out = {"len": TensorSpec((), torch.int32)}
+    n_kv = L
+    if cfg.family == "hybrid":
+        n_kv = cfg.n_layers // cfg.attn_every
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        out["conv"] = TensorSpec((L, B, cfg.ssm_conv - 1, ch), dt)
+        out["state"] = TensorSpec((L, B, cfg.ssm_nheads, cfg.ssm_headdim,
+                                   cfg.ssm_state), torch.float32)
+    kv = (n_kv, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    out["k"] = TensorSpec(kv, dt)
+    out["v"] = TensorSpec(kv, dt)
+    return out
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -69,36 +73,23 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params: Dict, tokens, *,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", max_len: Optional[int] = None):
     """Full-sequence pass that materializes the caches and the
-    last-position logits.  Returns (logits (B, V), cache)."""
-    hidden, (states, (k, v)), _ = forward(cfg, params, tokens,
-                                          attn_impl=attn_impl,
-                                          collect_cache=True)
+    last-position logits.  The KV caches hold ``max_len`` positions
+    (default the prompt's S), zero past S.  Returns (logits (B, V),
+    cache)."""
+    hidden, kvs, _ = forward(cfg, params, tokens, attn_impl=attn_impl,
+                             collect_cache=True, max_len=max_len)
     S = tokens.shape[1]
-    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
-    cache = {
-        "len": torch.tensor(S, dtype=torch.int32, device=tokens.device),
-        "conv": flat(states["conv"]),
-        "state": flat(states["state"]),
-        "k": k,
-        "v": v,
-    }
+    cache = {"len": torch.tensor(S, dtype=torch.int32, device=tokens.device)}
+    if cfg.family == "hybrid":
+        states, kvs = kvs
+        flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
+        cache["conv"] = flat(states["conv"])
+        cache["state"] = flat(states["state"])
+    cache["k"], cache["v"] = kvs
     logits = logits_fn(cfg, params, hidden[:, -1:, :])[:, 0]
     return logits, cache
-
-
-def pad_cache(cache: Dict, max_len: int) -> Dict:
-    """The cache with its KV entries zero-padded along the sequence to
-    ``max_len`` slots, so that decode can append to a prefill's cache."""
-    out = dict(cache)
-    for name in ("k", "v"):
-        a = cache[name]
-        pad = max_len - a.shape[2]
-        if pad < 0:
-            raise ValueError(f"cache holds {a.shape[2]} > {max_len} slots")
-        out[name] = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -111,10 +102,28 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, token,
 
     token: (B,) integer.  Returns (logits (B, V), cache), the cache updated
     in place (see the module docstring)."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     B = token.shape[0]
     x = params["embed"][token.long()][:, None, :]          # (B, 1, D)
     pos = cache["len"].reshape(1, 1).expand(B, 1)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(cfg, params, cache, x, pos)
+    else:
+        block = (_dense_block if cfg.family == "dense"
+                 else _moe_block_apply)
+        for i in range(cfg.n_layers):
+            x = block(layer_params(params, i), cfg, x, pos,
+                      cache=(cache["k"][i], cache["v"][i]),
+                      cache_len=cache["len"])[0]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_fn(cfg, params, x)[:, 0]
+    cache["len"] = cache["len"] + 1
+    return logits, cache
+
+
+def _hybrid_decode(cfg, params, cache, x, pos):
+    """The hybrid stack's decode: each Mamba2 layer's conv window and state
+    and each segment's KV entry written into the cache in place."""
     n_seg = cfg.n_layers // cfg.attn_every
     shared = params["shared_attn"]
     for s in range(n_seg):
@@ -128,11 +137,8 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, token,
         x, _ = _dense_block(shared, cfg, x, pos,
                             cache=(cache["k"][s], cache["v"][s]),
                             cache_len=cache["len"])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, x)[:, 0]
-    cache["len"] = cache["len"] + 1
-    return logits, cache
+    return x
 
 
 __all__ = ["TensorSpec", "decode_cache_specs", "init_decode_cache",
-           "prefill", "pad_cache", "decode_step"]
+           "prefill", "decode_step"]

@@ -1,16 +1,20 @@
-"""Neural-net building blocks of the dense and hybrid (Zamba2) paths.
+"""Neural-net building blocks of the dense, VL, MoE and hybrid (Zamba2)
+paths.
 
-The port of the subset of ``repro.models.layers`` that the dense and
-hybrid families use, and ``gelu_mlp``, the block of the learned-selection
-policy net.  RMSNorm goes to the ``rmsnorm`` kernel and prefill / training
-attention to the ``flash_attention`` kernel; under autograd on the card
+The port of ``repro.models.layers`` but ``layer_norm`` (the enc-dec
+family's, which waits for its slice): RoPE and Qwen2-VL's M-RoPE, the
+attentions, SwiGLU, the sort-based MoE dispatch, and ``gelu_mlp``, also
+the block of the learned-selection policy net.  RMSNorm goes to the
+``rmsnorm`` kernel and prefill / training attention to the
+``flash_attention`` kernel; under autograd on the card
 both run as ``torch.autograd.Function``s whose backwards are the
 ``rmsnorm_bwd`` and ``flash_attention_bwd`` kernels (the reference trains
 through XLA's autodiff of these twins); the attention forward then also
 keeps each row's log-sum-exp, from which its backward takes the softmax
 (bf16 products on the tensor cores).  Single-token decode attention,
-RoPE and the SwiGLU and GELU products stay plain PyTorch (and plain
-autograd), as the reference leaves them to XLA.  Layouts are the
+RoPE, the SwiGLU and GELU products and the MoE's routing and batched
+expert products stay plain PyTorch (and plain autograd), as the
+reference leaves them to XLA.  Layouts are the
 reference's: q (B, S, H, hd), k and v (B, T, K, hd).
 """
 
@@ -46,15 +50,36 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                    device=device) / half)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
-    ang = positions[..., :, None].float() * freqs        # (..., S, hd/2)
+def _rotate(x, ang):
+    """x (..., S, H, hd) rotated by the angles ang (..., S, hd/2)."""
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., :, None].float() * freqs)
+
+
+def apply_mrope(x, positions3, theta: float,
+                sections=(0.25, 0.375, 0.375)):
+    """Qwen2-VL M-RoPE: the rotary frequencies split into (temporal,
+    height, width) sections, each driven by its own position stream.
+
+    x: (..., S, H, hd); positions3: (3, ..., S).  For text-only input the
+    three streams are equal and the angles are RoPE's, bit for bit."""
+    half = x.shape[-1] // 2
+    n_t = int(half * sections[0])
+    n_h = int(half * sections[1])
+    n_w = half - n_t - n_h
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sec_pos = torch.cat([
+        p[..., :, None].expand(*p.shape, n)
+        for p, n in zip(positions3, (n_t, n_h, n_w))], dim=-1).float()
+    return _rotate(x, sec_pos * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -112,3 +137,93 @@ def gelu_mlp(x, w1, b1, w2, b2):
     ``jax.nn.gelu`` computes it by default."""
     h = F.gelu(matmul(x, w1) + b1, approximate="tanh")
     return matmul(h, w2) + b2
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def top_k(probs, k: int):
+    """``lax.top_k`` along the last axis: the k largest values and their
+    indices, largest first, equal values lower index first (a stable
+    descending sort; ``torch.topk`` promises no order on ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
+              capacity_factor: float = 1.25, groups: int = 1):
+    """Top-k MoE with sort-based dispatch into a static-capacity buffer.
+
+    x: (T, D); router_w: (D, E); expert weights (E, D, F) / (E, F, D).
+    Each expert takes at most ``C = max(1, int(capacity_factor * k * T /
+    E))`` tokens, in the order of a stable sort of the (token, choice)
+    pairs by expert; the rest are dropped (they add nothing).  Returns
+    (out (T, D), aux): ``expert_load`` (E,) int32, the tokens routed to
+    each expert (the MoE's LIB signal), ``dropped_frac``, ``router_z`` and
+    ``load_balance``.
+
+    The k expert outputs of a token are summed in ``x.dtype`` in that
+    sorted order, as the reference's scatter-add sums them, with no
+    atomics: reruns are bit-equal.  groups > 1 dispatches each of
+    ``groups`` equal slices of the tokens on its own (per-group
+    capacity); the loads add up, the other statistics are the groups'
+    means."""
+    if groups > 1:
+        T, D = x.shape
+        if T % groups:
+            raise ValueError(f"{T} tokens do not split into {groups} groups")
+        outs, auxes = zip(*(
+            moe_block(xg, router_w, w_gate, w_up, w_down, k=k,
+                      capacity_factor=capacity_factor)
+            for xg in x.reshape(groups, T // groups, D)))
+        stat = lambda n: torch.stack([a[n] for a in auxes])  # noqa: E731
+        return torch.cat(outs), {
+            "expert_load": stat("expert_load").sum(0, dtype=torch.int32),
+            "dropped_frac": stat("dropped_frac").mean(),
+            "router_z": stat("router_z").mean(),
+            "load_balance": stat("load_balance").mean()}
+    T, D = x.shape
+    E = router_w.shape[-1]
+    C = max(1, int(capacity_factor * k * T / E))
+    dev = x.device
+
+    logits = x.float() @ router_w.float()                  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = top_k(probs, k)                           # (T, k)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = topi.reshape(-1)                              # (T * k,)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    t_sorted = order // k                                  # each pair's token
+    # rank within its expert: position less the expert's first position
+    first = torch.searchsorted(e_sorted, torch.arange(E, device=dev))
+    rank = torch.arange(T * k, device=dev) - first[e_sorted]
+    keep = rank < C
+    slot = e_sorted * C + rank
+
+    buf = torch.zeros((E * C, D), dtype=x.dtype, device=dev)
+    buf[slot[keep]] = x[t_sorted[keep]]
+    buf = buf.reshape(E, C, D)
+    h = matmul(buf, w_gate)
+    u = matmul(buf, w_up)
+    y = matmul(F.silu(h) * u, w_down).reshape(E * C, D)
+
+    gathered = y[slot.clamp(max=E * C - 1)].masked_fill(~keep[:, None], 0)
+    contrib = (gathered * topw.reshape(-1)[order][:, None]).to(x.dtype)
+    # each token's k contributions, in sorted order, summed one by one
+    per_token = contrib[torch.argsort(t_sorted, stable=True)].reshape(T, k, D)
+    out = torch.zeros((T, D), dtype=x.dtype, device=dev)
+    for j in range(k):
+        out = out + per_token[:, j]
+
+    load = torch.bincount(flat_e, minlength=E).to(torch.int32)
+    aux = {
+        "expert_load": load,
+        "dropped_frac": 1.0 - keep.float().mean(),
+        "router_z": (torch.logsumexp(logits, -1) ** 2).mean(),
+        "load_balance": E * (probs.mean(0) * (
+            load.float() / load.sum().clamp_min(1).float())).mean(),
+    }
+    return out, aux

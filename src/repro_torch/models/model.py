@@ -1,19 +1,22 @@
-"""Architecture assembly: init / forward / logits / loss for the dense and
-hybrid families.
+"""Architecture assembly: init / forward / logits / loss for the dense,
+MoE and hybrid families.
 
-The port of ``repro.models.model`` for two families: ``dense`` (llama-style:
-a stack of attention + SwiGLU blocks, trained here) and ``hybrid``
+The port of ``repro.models.model`` for three families: ``dense``
+(llama-style: a stack of attention + SwiGLU blocks, served, and trained
+here; qwen2-vl's backbone is one, with M-RoPE), ``moe`` (the same
+attention with a top-k mixture of SwiGLU experts, served) and ``hybrid``
 (Zamba2: a stack of Mamba2 layers with one *shared* attention + SwiGLU
 block applied after every ``attn_every`` of them, served).  Parameters are
 plain dicts of tensors; the layers are stacked with a leading L, as the
 reference stacks them, and a Python loop over L takes the place of
 ``lax.scan``: a forward takes each stack apart once with ``unbind(0)``
-(views, and one stacked gradient in the backward).  With ``cfg.remat`` each
-dense block runs under ``torch.utils.checkpoint`` (the reference's
+(views, and one stacked gradient in the backward).  With ``cfg.remat``
+each block runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``), and the loss is the reference's blockwise
 cross-entropy, each sequence chunk checkpointed.  The reference's sharding
-hints are no-ops on one device and are left out.  The other families, and
-the dense family's serving, wait for their slice (ROADMAP queue 1).
+hints are no-ops on one device and are left out
+(``repro_torch.distributed.ctx``).  The ssm and encdec families wait for
+their slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .layers import (apply_rope, decode_attention, full_attention, matmul,
-                     rms_norm, swiglu)
+from ..distributed.ctx import moe_groups
+from .layers import (apply_mrope, apply_rope, decode_attention,
+                     full_attention, matmul, moe_block, rms_norm, swiglu)
 from .ssm import init_ssm_layer, ssm_layer_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the families whose init, forward and loss are ported
-PORTED_FAMILIES = ("dense", "hybrid")
+#: the families whose init, forward, loss, caches, prefill and decode are
+#: ported
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 CE_CHUNK = 512                # sequence chunk for the blockwise CE loss
 
 
@@ -44,15 +49,8 @@ def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1); "
-            f"the port runs the {' and '.join(PORTED_FAMILIES)} families")
-
-
-def _require_hybrid(cfg: ModelConfig) -> None:
-    """The serving paths (caches, prefill, decode) run the hybrid family."""
-    if cfg.family != "hybrid":
-        raise NotImplementedError(
-            f"serving family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1); the port serves the hybrid family")
+            f"the port runs and serves the {', '.join(PORTED_FAMILIES)} "
+            "families")
 
 
 # ===========================================================================
@@ -93,6 +91,25 @@ def _init_dense_layer(gen, cfg: ModelConfig, dtype, device):
     }
 
 
+def _init_moe_layer(gen, cfg: ModelConfig, dtype, device):
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s = 1.0 / math.sqrt(D)
+    return {
+        "ln1": torch.ones((D,), dtype=dtype, device=device),
+        "ln2": torch.ones((D,), dtype=dtype, device=device),
+        **_init_attn(gen, cfg, dtype, device),
+        "router": (_normal(gen, (D, E), device) * s).to(dtype),
+        "we_gate": (_normal(gen, (E, D, Fd), device) * s).to(dtype),
+        "we_up": (_normal(gen, (E, D, Fd), device) * s).to(dtype),
+        "we_down": (_normal(gen, (E, Fd, D), device) * s
+                    / math.sqrt(2 * cfg.n_layers)).to(dtype),
+    }
+
+
+_INIT_LAYER = {"dense": _init_dense_layer, "moe": _init_moe_layer,
+               "hybrid": init_ssm_layer}
+
+
 def padded_vocab(cfg: ModelConfig) -> int:
     """Embedding tables padded to a multiple of 256, as the reference pads
     them; padded ids are valid but unused."""
@@ -102,11 +119,12 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator], *,
                 device: Optional[Union[str, torch.device]] = None) -> Dict:
     """Random parameters from ``key`` (a seed, or a ``torch.Generator`` on
-    ``device``), on ``device`` (default the card).  The layers (dense
-    blocks, or Mamba2 layers) are stacked with a leading L: each layer is
+    ``device``), on ``device`` (default the card).  The layers (dense or
+    MoE blocks, or Mamba2 layers) are stacked with a leading L: each layer is
     drawn and written into its slot of the stack, so the peak is one
-    layer's float32 draw.  ``device="meta"`` gives the tree's structure,
-    shapes and dtypes alone, holding no memory (a restore's template)."""
+    layer's float32 draw (an expert stack's, for the MoE family).
+    ``device="meta"`` gives the tree's structure, shapes and dtypes alone,
+    holding no memory (a restore's template)."""
     _require_ported(cfg)
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
@@ -123,11 +141,9 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = (_normal(gen, (D, V), dev)
                              / math.sqrt(D)).to(dtype)
-    init_layer = (_init_dense_layer if cfg.family == "dense"
-                  else init_ssm_layer)
     layers: Dict[str, torch.Tensor] = {}
     for i in range(cfg.n_layers):
-        layer = init_layer(gen, cfg, dtype, dev)
+        layer = _INIT_LAYER[cfg.family](gen, cfg, dtype, dev)
         for name, t in layer.items():
             if name not in layers:
                 layers[name] = torch.empty((cfg.n_layers,) + t.shape,
@@ -158,6 +174,12 @@ def unstack_layers(params: Dict) -> List[Dict]:
 # attention block application
 # ===========================================================================
 
+def _positions3(positions):
+    """M-RoPE's (temporal, height, width) streams of text-only input: the
+    token positions, three times."""
+    return torch.stack([positions, positions, positions])
+
+
 def _attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
                 cache=None, cache_len=None):
     """Shared attention application.  Returns (out, (k, v)).
@@ -175,7 +197,10 @@ def _attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
     if cfg.qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if positions is not None:
+    if positions is not None and cfg.mrope:
+        q = apply_mrope(q, _positions3(positions), cfg.rope_theta)
+        k = apply_mrope(k, _positions3(positions), cfg.rope_theta)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -205,79 +230,138 @@ def _dense_block(p, cfg, x, positions, collect_kv=False, cache=None,
     return (x, kv) if (collect_kv or cache is not None) else (x, None)
 
 
+def _moe_block_apply(p, cfg, x, positions, cache=None, cache_len=None):
+    """The MoE block: attention as the dense block's, then the top-k
+    mixture of SwiGLU experts over the B * S tokens, dispatched in
+    ``moe_groups()`` groups in prefill and in one in decode, as the
+    reference does.  Returns (x, (k, v), the dispatch's aux)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    o, kv = _attn_apply(p, cfg, h, positions, cache=cache,
+                        cache_len=cache_len)
+    x = x + o
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    B, S, D = h2.shape
+    y, aux = moe_block(h2.reshape(B * S, D), p["router"], p["we_gate"],
+                       p["we_up"], p["we_down"], k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor,
+                       groups=(moe_groups() if cache is None else 1))
+    return x + y.reshape(B, S, D), kv, aux
+
+
 # ===========================================================================
 # forward (prefill trunk)
 # ===========================================================================
 
 def forward(cfg: ModelConfig, params: Dict, tokens, *,
-            attn_impl: str = "auto", collect_cache: bool = False):
+            attn_impl: str = "auto", collect_cache: bool = False,
+            max_len: Optional[int] = None):
     """Token trunk -> final hidden states (B, S, D).
 
-    collect_cache: also return the per-segment caches (the hybrid family's
-    prefill path).  ``attn_impl`` is the reference's choice of attention,
-    kept for parity: every choice is the flash kernel here.
-    Returns (hidden, cache_or_None, aux dict)."""
+    collect_cache: also return the caches (the prefill path): the layers'
+    (k, v) stacks (L, B, S, K, hd) for the dense and MoE families, the
+    segments' states and (k, v) for the hybrid one, in the reference's
+    layouts.  Each layer's k and v are written into stacks allocated once
+    with ``max_len`` (default S) positions, zero past S: the port's
+    addition, so that a full-width prefill never holds the cache twice
+    and decode can append to it.  ``attn_impl`` is the reference's choice
+    of attention, kept for parity: every choice is the flash kernel here.
+    Returns (hidden, cache_or_None, aux dict); the MoE family's aux holds
+    ``expert_load`` (L, E), the tokens routed to each expert of each layer
+    (the MoE's LIB signal)."""
     _require_ported(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    if cfg.family == "dense":
-        if collect_cache:
-            _require_hybrid(cfg)
-        x = _dense_forward(cfg, params, x, positions)
-        cache = None
+    kv = None
+    if collect_cache:
+        n_kv = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                else cfg.n_layers)
+        kv = _kv_stacks(cfg, n_kv, x, max_len)
+    if cfg.family == "hybrid":
+        x, states = _hybrid_forward(cfg, params, x, positions, kv)
+        cache = (states, kv) if collect_cache else None
+        aux = {}
     else:
-        x, cache = _hybrid_forward(cfg, params, x, positions, collect_cache)
+        x, aux = _stack_forward(cfg, params, x, positions, kv)
+        cache = kv
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, cache, {}
+    return x, cache, aux
 
 
-def _dense_body(p, cfg, x, positions):
-    return _dense_block(p, cfg, x, positions)[0]
+def _kv_stacks(cfg, n, x, max_len):
+    """The prefill's zero (k, v) stacks (n, B, max_len or S, K, hd) in
+    x's dtype, which is the k and v's."""
+    B, S, _ = x.shape
+    T = S if max_len is None else max_len
+    if T < S:
+        raise ValueError(f"max_len {T} < the prompt's {S} tokens")
+    shape = (n, B, T, cfg.n_kv_heads, cfg.head_dim)
+    return x.new_zeros(shape), x.new_zeros(shape)
 
 
-def _dense_forward(cfg, params, x, positions):
-    """The dense stack; with ``cfg.remat`` each block is checkpointed, so
+def _write_kv(kv, i, kv_i):
+    for stack, t in zip(kv, kv_i):
+        stack[i, :, :t.shape[1]] = t
+
+
+def _block(p, cfg, x, positions, collect):
+    """One dense or MoE block: (x, its (k, v) if ``collect``, the MoE's
+    expert_load)."""
+    if cfg.family == "moe":
+        x, kv, aux = _moe_block_apply(p, cfg, x, positions)
+        return x, (kv if collect else None), aux["expert_load"]
+    x, kv = _dense_block(p, cfg, x, positions, collect_kv=collect)
+    return x, kv, None
+
+
+def _stack_forward(cfg, params, x, positions, kv):
+    """The dense or MoE stack, each layer's (k, v) written into ``kv``
+    when given; else, with ``cfg.remat``, each block is checkpointed, so
     the backward recomputes it from its input (the reference's
-    ``jax.checkpoint`` around the scanned body)."""
-    for p in unstack_layers(params):
-        if cfg.remat:
-            x = checkpoint(_dense_body, p, cfg, x, positions,
-                           use_reentrant=False)
+    ``jax.checkpoint`` around the scanned body).  Returns (x, aux)."""
+    loads = []
+    for i, p in enumerate(unstack_layers(params)):
+        if kv is None and cfg.remat:
+            x, _, load = checkpoint(_block, p, cfg, x, positions, False,
+                                    use_reentrant=False)
         else:
-            x = _dense_body(p, cfg, x, positions)
-    return x
+            x, kv_i, load = _block(p, cfg, x, positions, kv is not None)
+            if kv is not None:
+                _write_kv(kv, i, kv_i)
+                del kv_i
+        if load is not None:
+            loads.append(load)
+    return x, ({"expert_load": torch.stack(loads)} if loads else {})
 
 
-def _hybrid_forward(cfg, params, x, positions, collect_cache):
+def _hybrid_forward(cfg, params, x, positions, kv):
     """Zamba2: segments of ``attn_every`` Mamba2 layers, the *shared*
-    attention block after each segment.  With collect_cache, returns
-    ({"conv": (n_seg, attn_every, ...), "state": ...}, (k, v)) with k, v
-    (n_seg, B, S, K, hd), the reference's layout."""
+    attention block after each segment.  With ``kv`` (collecting the
+    cache), each segment's (k, v) is written into it, and the states are
+    returned: {"conv": (n_seg, attn_every, ...), "state": ...}, the
+    reference's layout."""
     n_seg = cfg.n_layers // cfg.attn_every
     if n_seg * cfg.attn_every != cfg.n_layers:
         raise ValueError("attn_every must divide n_layers")
+    collect = kv is not None
     shared = params["shared_attn"]
-    convs, states, ks, vs = [], [], [], []
+    convs, states = [], []
     for s in range(n_seg):
         for j in range(cfg.attn_every):
             p = layer_params(params, s * cfg.attn_every + j)
-            x, st = ssm_layer_apply(p, x, cfg, collect_state=collect_cache)
-            if collect_cache:
+            x, st = ssm_layer_apply(p, x, cfg, collect_state=collect)
+            if collect:
                 convs.append(st["conv"])
                 states.append(st["state"])
-        x, kv = _dense_block(shared, cfg, x, positions,
-                             collect_kv=collect_cache)
-        if collect_cache:
-            ks.append(kv[0])
-            vs.append(kv[1])
-    if not collect_cache:
+        x, kv_s = _dense_block(shared, cfg, x, positions, collect_kv=collect)
+        if collect:
+            _write_kv(kv, s, kv_s)
+    if not collect:
         return x, None
     seg = (n_seg, cfg.attn_every)
     conv = torch.stack(convs).reshape(seg + convs[0].shape)
     state = torch.stack(states).reshape(seg + states[0].shape)
-    return x, ({"conv": conv, "state": state},
-               (torch.stack(ks), torch.stack(vs)))
+    return x, {"conv": conv, "state": state}
 
 
 # ===========================================================================

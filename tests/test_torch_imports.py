@@ -76,6 +76,14 @@ DENSE_TRAIN_SLICE = {
     "repro_torch.distributed.compression",
 }
 
+#: the dense, VL and MoE serving slice: the configs and the flags
+FAMILIES_SLICE = {
+    "repro_torch.configs.granite_8b", "repro_torch.configs.mistral_nemo_12b",
+    "repro_torch.configs.qwen3_32b", "repro_torch.configs.qwen2_vl_72b",
+    "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.grok_1_314b",
+    "repro_torch.distributed.ctx",
+}
+
 
 def _env():
     env = dict(os.environ)
@@ -103,6 +111,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert FLEET_SLICE <= set(MODULES)
     assert TRAINING_SLICE <= set(MODULES)
     assert DENSE_TRAIN_SLICE <= set(MODULES)
+    assert FAMILIES_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 

@@ -273,7 +273,9 @@ DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: groups to fill the SMs), the row path (the training call 2 x 2048 x
 #: 3072; 525 rows, the fewest of 3072 it takes; 1001 rows, no whole number
 #: of groups a block), sub-warp groups (QK-norm's D = 128 over 16,384 rows,
-#: and D = 100 over 20,000, no multiple of the 16-byte chunk, element by
+#: and at qwen3-32b's prefill calls: 8 x 2048 tokens of 64 query heads,
+#: 1,048,576 rows, and of 8 kv heads, 131,072 rows; and D = 100 over
+#: 20,000, no multiple of the 16-byte chunk, element by
 #: element), D = 100 and odd D = 4097 (misaligned rows, element by element,
 #: a ragged last chunk) over a block a row, the widest bf16 row the row
 #: path holds (12,288: three chunks of 512 threads) and the wide path
@@ -281,7 +283,8 @@ DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RMS_SHAPES = [(8, 128), (3, 17, 64), (16, 3584), (8, 3584), (8, 7168),
               (5, 7168), (256, 3584), (131, 3072), (132, 3072),
               (524, 3072), (525, 3072), (2, 2048, 3072), (1001, 3072),
-              (8, 2048, 128), (3, 17, 100), (1000, 100), (20000, 100),
+              (8, 2048, 128), (8, 2048, 64, 128), (8, 2048, 8, 128),
+              (3, 17, 100), (1000, 100), (20000, 100),
               (300, 4097), (300, 12288), (300, 16384), (3, 20000),
               (200, 20000)]
 
@@ -321,13 +324,16 @@ def test_rmsnorm_of_no_rows_launches_nothing(card):
 
 #: the last three but one are the edges the bfloat16 kernel's tiles must
 #: mask at the serving head dim: ragged S and T with GQA, S < T against a
-#: long key range with one kv head, and a full 2048-token prefill; the last
-#: is llama3.2-3b's training call cut to 6 / 2 heads (groups of 3, hd 128)
+#: long key range with one kv head, and a full 2048-token prefill; then
+#: llama3.2-3b's training call cut to 6 / 2 heads (groups of 3, hd 128),
+#: and the serving prefills of qwen3-32b (groups of 8: 64 / 8 heads, cut
+#: to 16 / 2) and olmoe-1b-7b (groups of 1: 16 / 16 heads, cut to 4 / 4)
 FLASH = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
          (1, 257, 129, 6, 3, 64), (2, 256, 256, 4, 4, 112),
          (2, 100, 72, 4, 2, 112), (1, 300, 300, 2, 1, 128),
          (1, 257, 129, 6, 3, 112), (2, 64, 2048, 4, 1, 112),
-         (1, 2048, 2048, 2, 2, 112), (1, 2048, 2048, 6, 2, 128)]
+         (1, 2048, 2048, 2, 2, 112), (1, 2048, 2048, 6, 2, 128),
+         (1, 2048, 2048, 16, 2, 128), (2, 2048, 2048, 4, 4, 128)]
 
 
 @pytest.mark.cuda

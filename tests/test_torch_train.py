@@ -140,14 +140,23 @@ def test_dense_loss_and_gradients_match_reference(remat):
         assert _max_rel(g, want) <= GRAD_REL, path
 
 
-def test_dense_forward_refuses_what_is_not_ported():
-    dense = dataclasses.replace(TCFG, family="moe")
+@pytest.mark.parametrize("family", ["ssm", "encdec"])
+def test_dense_forward_refuses_what_is_not_ported(family):
+    """The families of the next slice are refused by init and by the
+    forward and the loss; the dense forward collects its caches (the
+    prefill path)."""
+    other = dataclasses.replace(TCFG, family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TM.init_params(dense, 0, device="cpu")
+        TM.init_params(other, 0, device="cpu")
     params = TM.init_params(TCFG, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="serves the hybrid"):
-        TM.forward(TCFG, params, torch.zeros((1, 4), dtype=torch.int32),
-                   collect_cache=True)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        TM.forward(other, params, toks)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        TM.loss_fn(other, params, {"tokens": toks, "labels": toks})
+    _, (k, v), _ = TM.forward(TCFG, params, toks, collect_cache=True)
+    assert k.shape == v.shape == (TCFG.n_layers, 1, 4, TCFG.n_kv_heads,
+                                  TCFG.head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -422,4 +431,7 @@ def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert all(r["peak_bytes"] is None for r in out["plans"])
     assert out["settled"] in names
     assert "done: steps=7" in capsys.readouterr().out
-    assert tlaunch.TRAIN_ARCHS == ["llama3.2-3b"]
+    # the dense family's archs (the MoE and hybrid ones are served only)
+    assert tlaunch.TRAIN_ARCHS == ["qwen3-32b", "granite-8b",
+                                   "mistral-nemo-12b", "llama3.2-3b",
+                                   "qwen2-vl-72b"]
