@@ -27,7 +27,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
    chain) and the call with no chunks (the launch floor); and the fused
    call cut to its first 132 ... 4096 lanes (issue- or chain-bound);
 7. the model kernels (rmsnorm, flash_attention, ssd_scan) against their
-   plain versions on synthetic inputs, within the tests' tolerances;
+   plain versions on synthetic inputs, within the tests' tolerances: the
+   SSD scan at states of 16, 64, 96 and 128, flash attention also at
+   whisper-small's calls (1,500 frames, S = 32 and S = 1 against them);
 8. Zamba2-7B at full width in bf16 with random weights from a seeded
    ``torch.Generator``: ``prefill`` of 8 prompts of 2048 tokens (exactly
    181 rmsnorm, 9 flash_attention and 81 ssd_scan launches; an ssd_scan
@@ -54,9 +56,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
     a rerun bit-equal; every rmsnorm row (these, the prefill's and [17a]'s
     training call) is timed in turns with ``rms_norm``;
 12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
-    T=300, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
-    lanes, 19,800 decisions; the cell's T = 500 cut to its first 300 steps
-    to keep the script inside its limit beside [18]) on the kernels, the
+    T=275, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
+    lanes, 18,150 decisions; the cell's T = 500 cut to its first 275 steps
+    to keep the script inside its limit beside [18] and [19]) on the kernels, the
     sweep, the lockstep replay and the SimPolicy pricing each on a backend
     of its own: the walls, the
     replay's ``PathTimes`` split, the host's decide and learn remainder, the
@@ -64,7 +66,7 @@ kernels, and prints one JSON line per result.  Phases, in order:
     timed at the replay's largest call; replay steps under
     ``torch.profiler`` (the card's busy time and launches a step, its idle
     share); the same grid with two learned lanes
-    at T = 20 on the kernels and on the plain event core, and at T = 4 on
+    at T = 10 on the kernels and on the plain event core, and at T = 4 on
     the card and on the CPU, histories, totals and policy states bit-equal;
     and SimPolicy's decision equal to the exhaustive Oracle's on the
     noise-free ``tc``/``epyc`` loop;
@@ -74,9 +76,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
     drift) on the kernels, on the plain event core on the card and on the
     CPU, loop times, ``lib`` and chunk counts bit-equal, with the fused
     calls' largest B and K and the lanes forced whole; (b) the Fig. 5 cell
-    ``mandelbrot``/``epyc`` cut to T = 300 with 20 % of the PEs 8x slower
+    ``mandelbrot``/``epyc`` cut to T = 275 with 20 % of the PEs 8x slower
     from step 250: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
-    both chunk modes (26 lanes, 23,400 decisions), its walls,
+    both chunk modes (26 lanes, 21,450 decisions), its walls,
     ``PathTimes``, pricing and launches, and every lane's total beside its
     clean twin's over the same steps of [12]; steps 8-15 of that grid perturbed from step 0 under
     ``torch.profiler``; both event-loop kernels timed at the perturbed
@@ -165,7 +167,28 @@ kernels, and prints one JSON line per result.  Phases, in order:
     (g) rmsnorm at qwen3-32b's QK-norm calls (1,048,576 and 131,072 rows
     of 128) in turns with ``rms_norm``, and flash attention at its
     prefill call (64 / 8 heads) beside SDPA, added to the kernels' records
-    (``at_qk_norm_call``, ``at_dense_prefill_call``).
+    (``at_qk_norm_call``, ``at_dense_prefill_call``);
+19. the SSM and enc-dec families' serving, bf16, full width and depth,
+    random weights from a seeded ``torch.Generator``, with exact launch
+    counts: (a) mamba2-2.7b (64 Mamba2 layers, d_model 2,560, 80 heads of
+    64, state 128, chunk 256) prefills 8 prompts of 2048 tokens (64
+    ``ssd_scan`` and 129 ``rmsnorm`` launches, no flash attention), then
+    64 decode steps through ``live``; blocks 0, 32 and 63 against the
+    plain versions from the same input within ``BLOCK_REL_L2``, and its
+    2-layer cut in float32 as in [9]; (b) whisper-small (12 + 12 layers,
+    d_model 768, 12 heads of 64): 8 clips of 1,500 stub frame embeddings
+    from a seed, a decoder prompt of 32 tokens into a cache of 448
+    positions (its decoder context), 36 flash-attention launches a
+    prefill (encoder, decoder self, cross) and 12 a decode step (cross),
+    64 decode steps; encoder and decoder blocks 0, 6 and 11 against the
+    plain versions, and its 2 + 2-layer cut in float32; (c) both archs'
+    ``smoke_reduce`` in float32, the card against the CPU within 1e-4;
+    (d) the SSD scan at mamba2's prefill call (state 128), flash attention
+    at whisper's encoder call (8 x 1,500 frames, non-causal) beside SDPA,
+    and rmsnorm at mamba2's rows (16,384 of 2,560 and of 5,120) in turns
+    with ``rms_norm``, added to the kernels' records
+    (``at_mamba_prefill_call``, ``at_whisper_encoder_call``,
+    ``at_mamba_call``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -548,8 +571,9 @@ def ssd_inputs(b, S, nh, hp, st, dtype, device, seed):
 
 def phase_model_kernels(device):
     """Each model kernel against its plain version at the tests' shapes and
-    the path's widths (D = 3584 and 7168; hd = 112; hp = st = 64, chunk
-    256); returns (name, case, ratio) rows."""
+    the paths' widths (D = 3584 and 7168; hd = 112; hp = st = 64, chunk
+    256; whisper-small's 12 heads of 64 over 1,500 frames; mamba2-2.7b's
+    state of 128, and 96 below it); returns (name, case, ratio) rows."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RMS
     from repro_torch.kernels import ssd_scan as SSD
@@ -566,11 +590,17 @@ def phase_model_kernels(device):
             w = randn(shape[-1:], wd, device, 2)
             rows.append(("rmsnorm", (shape, str(xd), str(wd)), tol_ratio(
                 RMS.rmsnorm(x, w), RMS.rmsnorm_ref(x, w), "rmsnorm")))
+    # the last three: whisper-small's encoder (1,500 frames, no multiple
+    # of the 64-key tile), its decoder prompt and its decode step (one
+    # query) against the 1,500 frames
     for B, S, T, H, K, hd in ((1, 128, 128, 4, 4, 64),
                               (2, 96, 160, 8, 2, 32),
                               (1, 257, 129, 6, 3, 64),
                               (2, 512, 512, 8, 8, 112),
-                              (2, 100, 72, 4, 2, 112)):
+                              (2, 100, 72, 4, 2, 112),
+                              (8, 1500, 1500, 12, 12, 64),
+                              (8, 32, 1500, 12, 12, 64),
+                              (8, 1, 1500, 12, 12, 64)):
         for dt in (f32, bf16):
             q = randn((B, S, H, hd), dt, device, 3)
             k = randn((B, T, K, hd), dt, device, 4)
@@ -583,10 +613,14 @@ def phase_model_kernels(device):
                                        FA.flash_attention_ref(
                                            q, k, v, causal=causal),
                                        "flash_attention")))
+    # the last two run the kernels' tiles of 128 state columns: 96
+    # (zero-filled) and mamba2-2.7b's 128
     for b, S, nh, hp, st, chunk in ((1, 64, 4, 32, 16, 16),
                                     (2, 128, 8, 32, 16, 32),
                                     (1, 96, 6, 16, 8, 32),
-                                    (2, 1024, 16, 64, 64, 256)):
+                                    (2, 1024, 16, 64, 64, 256),
+                                    (2, 1024, 16, 64, 96, 256),
+                                    (2, 1024, 16, 64, 128, 256)):
         for dt in (f32, bf16):
             args = ssd_inputs(b, S, nh, hp, st, dt, device, 6)
             y, h = SSD.ssd_scan(*args, chunk=chunk)
@@ -778,18 +812,21 @@ def block_check(cfg, params, tokens):
     return rows
 
 
-def f32_check(cfg, params, tokens, logits_k, logits_p):
-    """The trunk of the prefill of ``tokens`` in float32 (the bf16 weights
-    widened) on the kernels and on the plain versions, with the logits at
-    every position; and the bf16 last-position logits of both runs against
-    the plain float32 ones."""
+def f32_check(cfg, params, tokens, logits_k, logits_p, embeds=None):
+    """The trunk of the prefill of ``tokens`` (and the enc-dec family's
+    ``embeds``) in float32 (the bf16 weights widened) on the kernels and
+    on the plain versions, with the logits at every position; and the
+    bf16 last-position logits of both runs against the plain float32
+    ones."""
     from repro_torch.models import forward, logits_fn
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     p32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
                else v.float()) for k, v in params.items()}
-    lk = logits_fn(cfg32, p32, forward(cfg32, p32, tokens)[0])
+    e32 = None if embeds is None else embeds.float()
+    lk = logits_fn(cfg32, p32, forward(cfg32, p32, tokens, embeds=e32)[0])
     with plain_kernels():
-        lp = logits_fn(cfg32, p32, forward(cfg32, p32, tokens)[0])
+        lp = logits_fn(cfg32, p32,
+                       forward(cfg32, p32, tokens, embeds=e32)[0])
     del p32
     top2 = lp.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > (F32_LOGIT_REL_L2
@@ -801,6 +838,17 @@ def f32_check(cfg, params, tokens, logits_k, logits_p):
             "top1_equal": int(same.sum()),
             "bf16_kernels_vs_f32": rel_l2(logits_k, lp[:, -1]),
             "bf16_plain_vs_f32": rel_l2(logits_p, lp[:, -1])}
+
+
+def check_f32(tag, f32):
+    """The float32 gates of ``f32_check``'s record (see [9])."""
+    require(f32["rel_l2"] <= F32_LOGIT_REL_L2,
+            f"{tag} float32 kernels vs plain logits rel L2 {f32['rel_l2']}")
+    require(f32["top1_agree"], f"{tag} float32 top-1 differs on a clear row")
+    require(f32["bf16_kernels_vs_f32"]
+            <= BF16_PARITY * f32["bf16_plain_vs_f32"],
+            f"{tag}: the kernels' bf16 logits stray further from float32 "
+            "than the plain versions'")
 
 
 def device_us(e):
@@ -828,16 +876,22 @@ def traced_busy(prof, units: int, top: int = 5):
 
 def kernel_parts_ms(fn, args, names, device, reps=3):
     """Each named kernel's mean card time (ms) within one call of ``fn``,
-    from ``torch.profiler`` over ``reps`` calls after one to warm up."""
+    from ``torch.profiler`` over ``reps`` calls after one to warm up; a
+    window that reports no device time for them is taken again, twice at
+    most (as in ``device_ms``), and None means not measured."""
     from torch.profiler import ProfilerActivity, profile
-    fn(*args)
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
+    for _ in range(3):
+        fn(*args)
         torch.cuda.synchronize(device)
-    return {n: sum(device_us(e) for e in prof.key_averages()
-                   if n in e.key) / reps / 1e3 for n in names}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize(device)
+        parts = {n: sum(device_us(e) for e in prof.key_averages()
+                        if n in e.key) / reps / 1e3 for n in names}
+        if any(parts.values()):
+            return parts
+    return None
 
 
 def profile_decode(cfg, params, device, slots, max_len):
@@ -879,8 +933,11 @@ def phase_small_card_vs_cpu(device, arch="zamba2-7b"):
     p_dev = {k: ({n: t.to(device) for n, t in v.items()}
                  if isinstance(v, dict) else v.to(device))
              for k, v in p_cpu.items()}
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 66)))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 66)))
+    emb = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        if cfg.family == "encdec" else None)
     worst = 0.0
 
     def ratio(x, y):
@@ -890,7 +947,8 @@ def phase_small_card_vs_cpu(device, arch="zamba2-7b"):
     outs = []
     for dev, params in ((device, p_dev), (cpu, p_cpu)):
         t = toks.to(dev)
-        logits, cache = prefill(cfg, params, t[:, :64], max_len=72)
+        logits, cache = prefill(cfg, params, t[:, :64], max_len=72,
+                                embeds=None if emb is None else emb.to(dev))
         steps = [logits]
         for i in range(2):
             lg, cache = decode_step(cfg, params, cache, t[:, 64 + i])
@@ -992,13 +1050,7 @@ def model_kernel_records(device, flush, launches):
 
     nh, hp, st, Q = 112, 64, 64, 256
     args = ssd_inputs(B, S, nh, hp, st, bf16, device, 12)
-    tri = Q * (Q + 1) // 2
-    n_chunk = S // Q
-    ops = (B * n_chunk * tri * st * 2                    # C B^T, per chunk
-           + B * n_chunk * nh * (tri * hp * 2            # masked M x
-                                 + 2 * Q * st * hp * 2))  # C h, state
-    nbytes = (2 * B * S * nh * hp * 2 + B * S * nh * 4 + nh * 4
-              + 2 * B * S * st * 4 + B * nh * hp * st * 4)
+    nbytes, ops = ssd_work(B, S, nh, hp, st, Q)
     record("ssd_scan", args, lambda *a: SSD.ssd_scan(*a, chunk=Q),
            lambda *a: SSD.ssd_scan_ref(*a, chunk=Q), None,
            nbytes=nbytes, ops=ops, ops_rate=BF16_OPS_PER_S,
@@ -1009,6 +1061,20 @@ def model_kernel_records(device, flush, launches):
         lambda *a: SSD.ssd_scan(*a, chunk=Q), args,
         ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"), device)
     return out
+
+
+def ssd_work(B, S, nh, hp, st, Q):
+    """Bytes (x, dt, A, B, C read once, y and the state written once; x
+    bf16) and operations (C B^T a chunk, the masked M x, C h and the
+    state's product a head) of one SSD scan."""
+    tri = Q * (Q + 1) // 2
+    n_chunk = S // Q
+    ops = (B * n_chunk * tri * st * 2                    # C B^T, per chunk
+           + B * n_chunk * nh * (tri * hp * 2            # masked M x
+                                 + 2 * Q * st * hp * 2))  # C h, state
+    nbytes = (2 * B * S * nh * hp * 2 + B * S * nh * 4 + nh * 4
+              + 2 * B * S * st * 4 + B * nh * hp * st * 4)
+    return nbytes, ops
 
 
 def device_ms(fn, device, reps=20):
@@ -1068,12 +1134,13 @@ def rmsnorm_record(x, w, device, flush, plain_reps=10):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the Fig. 5 replay runs the cell's first 300 of its 500 steps (cut when
-#: phase [18] took the script past 1,050 s; [13b]'s clean twins need its
-#: first PERTURB_T steps); the plain event core's check runs at T = 20:
-#: its per-chunk torch loop makes each pricing miss a fraction of a second
-#: (T = 50, then 30, until the script's wall neared its limit beside [17])
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 300, 20, 4
+#: the Fig. 5 replay runs the cell's first 275 of its 500 steps (300 when
+#: phase [18] took the script past 1,050 s, 275 when [19] did; [13b]'s
+#: clean twins need its first PERTURB_T steps); the plain event core's
+#: check runs at T = 10: its per-chunk torch loop makes each pricing miss
+#: a fraction of a second (T = 50, then 30, then 20, each cut as the
+#: script's wall neared its limit)
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 275, 10, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1302,11 +1369,11 @@ def simpolicy_oracle(backend):
 PERTURB_APP, PERTURB_SYSTEMS, PERTURB_SWEEP_T = "mandelbrot", ("epyc",
                                                               "epyc_het"), 20
 PERTURB_ONSET, PERTURB_CPU_ONSET = 250, 2
-#: [13b]'s depth: the T = 500 cell cut to its first 300 steps to keep the
-#: script inside its time limit beside phase [17]; the onset at
-#: step 250 stays inside, and each lane's total is held beside its clean
-#: twin's over the same 300 steps
-PERTURB_T = 300
+#: [13b]'s depth: the T = 500 cell cut to its first 275 steps to keep the
+#: script inside its time limit beside phases [17]-[19] (300 until [19]
+#: came); the onset at step 250 stays inside, and each lane's total is
+#: held beside its clean twin's over the same 275 steps
+PERTURB_T = 275
 REACTIVE_LANES = [("ReactiveSim", "LT"), ("AwareSim", "LT")]
 SIMULATE_ALGS = (1, 2, 3, 4, 6)
 
@@ -2981,14 +3048,16 @@ def moe_stats():
         M.moe_block = orig
 
 
-def family_params(arch, device, n_layers=None, seed=0):
-    """``arch`` at full width (its first ``n_layers`` layers, if given) in
-    bf16 with random weights from a seeded ``torch.Generator``."""
+def family_params(arch, device, n_layers=None, seed=0, **cut):
+    """``arch`` at full width (its first ``n_layers`` layers, if given, and
+    the other depths in ``cut``) in bf16 with random weights from a seeded
+    ``torch.Generator``."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     cfg = get_config(arch)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cut["n_layers"] = n_layers
+    cfg = dataclasses.replace(cfg, **cut)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device=device)
@@ -3007,9 +3076,30 @@ def prompt_tokens(cfg, device, B=FAMILY_BATCH, S=FAMILY_PROMPT, seed=0):
         0, cfg.vocab_size, (B, S))).to(device)
 
 
-def serve_family(cfg, params, device, steps, tokens):
-    """The serving path of one arch: ``prefill`` of ``tokens`` on the
-    kernels into a cache of ``S + steps`` positions (launch counts, wall,
+def expected_launches(cfg):
+    """The model kernels' launches of one prefill and of one decode step.
+    Dense and MoE: rmsnorm 2 a layer (4 with QK-norm) + the final norm,
+    flash attention 1 a layer in prefill; SSM: rmsnorm 2 a layer + 1,
+    ssd_scan 1 a layer in prefill; enc-dec (LayerNorm, no rmsnorm): flash
+    attention 1 an encoder layer and 2 a decoder layer (self, cross) in
+    prefill, 1 a decoder layer (cross) in decode."""
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        return ({"rmsnorm": 0, "flash_attention": cfg.encoder_layers + 2 * L,
+                 "ssd_scan": 0},
+                {"rmsnorm": 0, "flash_attention": L, "ssd_scan": 0})
+    norms = L * (4 if cfg.qk_norm else 2) + 1
+    ssm = cfg.family == "ssm"
+    return ({"rmsnorm": norms, "flash_attention": 0 if ssm else L,
+             "ssd_scan": L if ssm else 0},
+            {"rmsnorm": norms, "flash_attention": 0, "ssd_scan": 0})
+
+
+def serve_family(cfg, params, device, steps, tokens, embeds=None,
+                 max_len=None):
+    """The serving path of one arch: ``prefill`` of ``tokens`` (and the
+    enc-dec family's ``embeds``) on the kernels into a cache of
+    ``max_len`` (default ``S + steps``) positions (launch counts, wall,
     peak), then up to ``steps`` decode steps on the prompts' slots through
     ``live`` (the ``ContinuousBatcher``).  Returns the run's record and
     the prefill's logits."""
@@ -3019,21 +3109,21 @@ def serve_family(cfg, params, device, steps, tokens):
     from repro_torch.models import (decode_step, init_decode_cache,
                                     padded_vocab, prefill)
     B, S = tokens.shape
-    prefill(cfg, params, tokens[:, :128])              # warm-up, not kept
+    max_len = S + steps if max_len is None else max_len
+    want, want_step = expected_launches(cfg)
+    prefill(cfg, params, tokens[:, :128], embeds=embeds)  # warm-up
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, tokens, max_len=S + steps)
+    logits, cache = prefill(cfg, params, tokens, embeds=embeds,
+                            max_len=max_len)
     torch.cuda.synchronize(device)
     prefill_s = time.perf_counter() - t0
     counts = model_counts()
     peak = torch.cuda.max_memory_allocated(device)
-    per_step = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
-    require(counts == {"rmsnorm": per_step, "flash_attention": cfg.n_layers,
-                       "ssd_scan": 0},
-            f"{cfg.name} prefill launches {counts}, want {per_step} / "
-            f"{cfg.n_layers} / 0")
+    require(counts == want,
+            f"{cfg.name} prefill launches {counts}, want {want}")
     require(tuple(logits.shape) == (B, padded_vocab(cfg))
             and bool(torch.isfinite(logits).all()),
             f"{cfg.name} prefill logits {tuple(logits.shape)}")
@@ -3050,14 +3140,32 @@ def serve_family(cfg, params, device, steps, tokens):
     decode_counts = model_counts()
     del cache
     require(0 < stats["steps"] <= steps, f"{cfg.name} decode steps")
-    require(decode_counts == {"rmsnorm": per_step * stats["steps"],
-                              "flash_attention": 0, "ssd_scan": 0},
-            f"{cfg.name} decode launches {decode_counts}")
+    require(decode_counts == {k: n * stats["steps"]
+                              for k, n in want_step.items()},
+            f"{cfg.name} decode launches {decode_counts}, want "
+            f"{want_step} a step")
     return {"prefill_s": prefill_s, "prefill_tokens": B * S,
             "prefill_tokens_per_s": B * S / prefill_s,
             "peak_gb": peak / 1e9, "prefill_launches": counts,
             "decode": stats, "per_token_s": per_tok,
             "decode_launches": decode_counts}, logits
+
+
+def stack_block_check(apply, layers, x, blocks, name="block"):
+    """A stack of layers on the kernels from ``x``, ``apply(p, x)`` a
+    layer, up to the last of ``blocks``; each of ``blocks`` also on the
+    plain versions from the same input.  Returns ((block, rel L2) rows,
+    the kernels' output of the last layer run)."""
+    rows = []
+    for i, p in enumerate(layers[:max(blocks) + 1]):
+        out = apply(p, x)
+        if i in blocks:
+            with plain_kernels():
+                ref = apply(p, x)
+            rows.append((f"{name}{i}", rel_l2(out, ref)))
+            del ref
+        x = out
+    return rows, x
 
 
 def dense_block_check(cfg, params, tokens, blocks):
@@ -3066,23 +3174,15 @@ def dense_block_check(cfg, params, tokens, blocks):
     same input: (block, rel L2) rows."""
     from repro_torch.models import model as M
     B, S = tokens.shape
-    x = params["embed"][tokens]
     pos = torch.arange(S, device=tokens.device).expand(B, S)
-    rows = []
-    for i, p in enumerate(M.unstack_layers(params)[:max(blocks) + 1]):
-        out, _ = M._dense_block(p, cfg, x, pos)
-        if i in blocks:
-            with plain_kernels():
-                ref, _ = M._dense_block(p, cfg, x, pos)
-            rows.append((f"block{i}", rel_l2(out, ref)))
-            del ref
-        x = out
-    return rows
+    return stack_block_check(
+        lambda p, x: M._dense_block(p, cfg, x, pos)[0],
+        M.unstack_layers(params), params["embed"][tokens], blocks)[0]
 
 
-def launches_of(runs):
+def launches_of(runs, names=("rmsnorm", "flash_attention")):
     """The model kernels' launches over the runs' prefills and decodes."""
-    out = {"rmsnorm": 0, "flash_attention": 0}
+    out = {k: 0 for k in names}
     for r in runs:
         for k in out:
             out[k] += r["prefill_launches"][k] + r["decode_launches"][k]
@@ -3124,13 +3224,7 @@ def qwen3_serving(device):
         logits_p, _ = prefill(cfg2, params2, t2)
     f32 = f32_check(cfg2, params2, t2, logits_k, logits_p)
     log(f"[18a] 2 layers, float32, 2 x {FAMILY_PROMPT}: {json.dumps(f32)}")
-    require(f32["rel_l2"] <= F32_LOGIT_REL_L2,
-            f"qwen3 float32 kernels vs plain logits rel L2 {f32['rel_l2']}")
-    require(f32["top1_agree"], "qwen3 float32 top-1 differs on a clear row")
-    require(f32["bf16_kernels_vs_f32"]
-            <= BF16_PARITY * f32["bf16_plain_vs_f32"],
-            "qwen3: the kernels' bf16 logits stray further from float32 "
-            "than the plain versions'")
+    check_f32("qwen3", f32)
     run["float32_2_layers"] = f32
     del params2, logits_k, logits_p
     torch.cuda.empty_cache()
@@ -3185,41 +3279,57 @@ def family_serving(arch, n_layers, steps, device):
     return run
 
 
+def flash_record(B, S, T, H, K, hd, causal, seed, device, flush):
+    """Flash attention at one bf16 call (q (B, S, H, hd), k and v (B, T,
+    K, hd) from ``seed``; causal calls have S = T): held against its plain
+    version, a rerun's bits, its time in turns with SDPA's, its plain
+    version's, and the bound (the score and value products' operations; q,
+    k, v read and o written once)."""
+    from repro_torch.kernels import flash_attention as FA
+    bf16 = torch.bfloat16
+    q = randn((B, S, H, hd), bf16, device, seed)
+    k, v = (randn((B, T, K, hd), bf16, device, seed + 1 + i)
+            for i in range(2))
+
+    def kernel():
+        return FA.flash_attention(q, k, v, causal=causal)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+    o = kernel()
+    o_ref = FA.flash_attention_ref(q, k, v, causal=causal)
+    pairs = S * (S + 1) // 2 if causal else S * T
+    rec = with_bound({
+        "max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+        "tol_ratio": tol_ratio(o, o_ref, "flash_attention"),
+        "rerun_bit_equal": torch.equal(o, kernel()),
+        **turns_ms({"ms": kernel, "library_ms": lib}, 10, device, flush),
+        "plain_ms": time_call(
+            lambda: FA.flash_attention_ref(q, k, v, causal=causal), (), 1,
+            device, flush),
+        "shape": {"B": B, "S": S, "T": T, "H": H, "K": K, "hd": hd,
+                  "causal": causal},
+        "ops": 4 * B * H * hd * pairs,
+        "bytes": (2 * B * S * H * hd + 2 * B * T * K * hd) * 2},
+        BF16_OPS_PER_S)
+    del q, k, v, o, o_ref
+    torch.cuda.empty_cache()
+    return rec
+
+
 def family_kernel_records(device, flush):
     """[18g]: rmsnorm at qwen3-32b's QK-norm calls (rows of 128: 64 query
     and 8 kv heads of 8 x 2048 tokens) and flash attention at its prefill
     call (64 / 8 heads of 128, causal), each against its plain version and
     the library call."""
-    from repro_torch.kernels import flash_attention as FA
     bf16 = torch.bfloat16
     B, S, H, K, hd = FAMILY_BATCH, FAMILY_PROMPT, 64, 8, 128
     rms = [rmsnorm_record(randn((B, S, h, hd), bf16, device, 80 + h),
                           randn((hd,), bf16, device, 81), device, flush,
                           plain_reps=5) for h in (H, K)]
-    q = randn((B, S, H, hd), bf16, device, 90)
-    k, v = (randn((B, S, K, hd), bf16, device, 91 + i) for i in range(2))
-    o, o_ref = FA.flash_attention(q, k, v), FA.flash_attention_ref(q, k, v)
-    pairs = S * (S + 1) // 2
-    flash = with_bound({
-        "max_abs_err": float((o.float() - o_ref.float()).abs().max()),
-        "tol_ratio": tol_ratio(o, o_ref, "flash_attention"),
-        "rerun_bit_equal": torch.equal(o, FA.flash_attention(q, k, v)),
-        **turns_ms({"ms": lambda: FA.flash_attention(q, k, v),
-                    "library_ms": lambda: (
-                        torch.nn.functional.scaled_dot_product_attention(
-                            q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), is_causal=True,
-                            enable_gqa=True))}, 10, device, flush),
-        "plain_ms": time_call(lambda: FA.flash_attention_ref(q, k, v), (),
-                              1, device, flush),
-        "shape": {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
-                  "causal": True},
-        "ops": 4 * B * H * hd * pairs,
-        "bytes": (2 * B * S * H * hd + 2 * B * S * K * hd) * 2},
-        BF16_OPS_PER_S)
-    del q, k, v, o, o_ref
-    torch.cuda.empty_cache()
-    return rms, flash
+    return rms, flash_record(B, S, S, H, K, hd, True, 90, device, flush)
 
 
 def phase_families(device, flush, model_records):
@@ -3270,6 +3380,240 @@ def phase_families(device, flush, model_records):
     wall = time.perf_counter() - t_phase
     log(json.dumps({"families": runs, "launches": launches, "wall_s": wall}))
     log(f"[18] {wall:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the SSM and enc-dec families' serving
+# ---------------------------------------------------------------------------
+
+#: [19a] mamba2-2.7b: prompts of FAMILY_BATCH x FAMILY_PROMPT, its decode
+#: steps, and the blocks held against the plain versions
+MAMBA_DECODE = 64
+MAMBA_BLOCKS = (0, 32, 63)
+#: [19b] whisper-small: clips of its encoder's 1,500 stub frames, a
+#: decoder prompt into a cache of its decoder context (448 positions),
+#: its decode steps, and the encoder and decoder blocks held (the last the
+#: last layer: the decoder reads the whole encoder's output)
+WHISPER_PROMPT, WHISPER_CONTEXT, WHISPER_DECODE = 32, 448, 64
+WHISPER_BLOCKS = (0, 6, 11)
+SSM_ENCDEC_ARCHS = ("mamba2-2.7b", "whisper-small")
+
+
+def stub_frames(cfg, device, B=FAMILY_BATCH, seed=0):
+    """Whisper's stub frame embeddings (B, encoder_seq, d_model) in bf16,
+    from a seeded ``torch.Generator``: what the reference's stubbed audio
+    front end hands the encoder."""
+    return randn((B, cfg.encoder_seq, cfg.d_model), torch.bfloat16, device,
+                 seed)
+
+
+def mamba_serving(device):
+    """[19a]: mamba2-2.7b at full width and depth: serving, the decode
+    step's profile, blocks 0 / 32 / 63 against the plain versions; then
+    its 2-layer cut in float32 against the plain versions."""
+    from repro_torch.models import model as M
+    from repro_torch.models import prefill
+    from repro_torch.models.ssm import ssm_layer_apply
+    cfg, params, info = family_params("mamba2-2.7b", device)
+    log(f"[19a] mamba2-2.7b init: {json.dumps(info)} ({cfg.n_params()} by "
+        f"the config)")
+    tokens = prompt_tokens(cfg, device)
+    run, _ = serve_family(cfg, params, device, MAMBA_DECODE, tokens)
+    run.update(info)
+    log(f"[19a] mamba2-2.7b prefill {FAMILY_BATCH} x {FAMILY_PROMPT}: "
+        f"{run['prefill_s']:.3f} s, peak {run['peak_gb']:.2f} GB, launches "
+        f"{json.dumps(run['prefill_launches'])}; decode "
+        f"{json.dumps(run['decode'])}, launches "
+        f"{json.dumps(run['decode_launches'])}")
+    run["decode_profile"] = profile_decode(cfg, params, device,
+                                           FAMILY_BATCH,
+                                           FAMILY_PROMPT + MAMBA_DECODE)
+    log(f"[19a] decode step profile: {json.dumps(run['decode_profile'])}")
+    blocks, _ = stack_block_check(
+        lambda p, x: ssm_layer_apply(p, x, cfg)[0], M.unstack_layers(params),
+        params["embed"][tokens], MAMBA_BLOCKS, "mamba")
+    worst = max(blocks, key=lambda r: r[1])
+    log(f"[19a] blocks {MAMBA_BLOCKS}, bf16, kernels vs plain from the "
+        f"same input: {blocks} (bound {BLOCK_REL_L2})")
+    require(worst[1] <= BLOCK_REL_L2, f"mamba2 {worst[0]}: {worst[1]}")
+    run["blocks_rel_l2"] = dict(blocks)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg2, params2, _ = family_params("mamba2-2.7b", device, n_layers=2)
+    t2 = tokens[:2]
+    logits_k, _ = prefill(cfg2, params2, t2)
+    with plain_kernels():
+        logits_p, _ = prefill(cfg2, params2, t2)
+    f32 = f32_check(cfg2, params2, t2, logits_k, logits_p)
+    log(f"[19a] 2 layers, float32, 2 x {FAMILY_PROMPT}: {json.dumps(f32)}")
+    check_f32("mamba2", f32)
+    run["float32_2_layers"] = f32
+    del params2, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return run
+
+
+def whisper_blocks(cfg, params, tokens, embeds):
+    """whisper-small's encoder and decoder blocks of ``WHISPER_BLOCKS`` on
+    the kernels and on the plain versions from the same input, the
+    kernels' output carried on; the decoder's cross attention over the
+    kernels' encoder output.  Returns (block, rel L2) rows."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import layer_norm
+    rows, h = stack_block_check(lambda p, x: M._encoder_layer(cfg, p, x),
+                                M.unstack_layers(params, "enc_layers"),
+                                M._encoder_input(cfg, embeds),
+                                WHISPER_BLOCKS, "enc")
+    enc_out = layer_norm(h, params["enc_final_norm"],
+                         params["enc_final_norm_b"], cfg.norm_eps)
+    S, D = tokens.shape[1], cfg.d_model
+    x = (params["embed"][tokens]
+         + M._sinusoid(S, D, tokens.device).to(params["embed"].dtype))
+    dec, _ = stack_block_check(
+        lambda p, x: M._decoder_layer(cfg, p, x,
+                                      M._cross_kv(cfg, p, enc_out))[0],
+        M.unstack_layers(params, "dec_layers"), x, WHISPER_BLOCKS, "dec")
+    return rows + dec
+
+
+def whisper_serving(device):
+    """[19b]: whisper-small at full width and depth: serving 8 clips of
+    stub frames with a 32-token prompt into a 448-position cache, the
+    decode step's profile, encoder and decoder blocks against the plain
+    versions; then its 2 + 2-layer cut in float32."""
+    from repro_torch.models import prefill
+    cfg, params, info = family_params("whisper-small", device)
+    log(f"[19b] whisper-small init: {json.dumps(info)} ({cfg.n_params()} "
+        f"by the config)")
+    tokens = prompt_tokens(cfg, device, S=WHISPER_PROMPT)
+    embeds = stub_frames(cfg, device)
+    run, _ = serve_family(cfg, params, device, WHISPER_DECODE, tokens,
+                          embeds=embeds, max_len=WHISPER_CONTEXT)
+    run.update(info)
+    log(f"[19b] whisper-small prefill {FAMILY_BATCH} x {cfg.encoder_seq} "
+        f"frames + {WHISPER_PROMPT} tokens: {run['prefill_s']:.3f} s, peak "
+        f"{run['peak_gb']:.2f} GB, launches "
+        f"{json.dumps(run['prefill_launches'])}; decode "
+        f"{json.dumps(run['decode'])}, launches "
+        f"{json.dumps(run['decode_launches'])}")
+    run["decode_profile"] = profile_decode(cfg, params, device,
+                                           FAMILY_BATCH, WHISPER_CONTEXT)
+    log(f"[19b] decode step profile: {json.dumps(run['decode_profile'])}")
+    blocks = whisper_blocks(cfg, params, tokens, embeds)
+    worst = max(blocks, key=lambda r: r[1])
+    log(f"[19b] blocks {WHISPER_BLOCKS} of the encoder and the decoder, "
+        f"bf16, kernels vs plain from the same input: {blocks} (bound "
+        f"{BLOCK_REL_L2})")
+    require(worst[1] <= BLOCK_REL_L2, f"whisper {worst[0]}: {worst[1]}")
+    run["blocks_rel_l2"] = dict(blocks)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg2, params2, _ = family_params("whisper-small", device, n_layers=2,
+                                     encoder_layers=2)
+    t2, e2 = tokens[:2], embeds[:2]
+    logits_k, _ = prefill(cfg2, params2, t2, embeds=e2)
+    with plain_kernels():
+        logits_p, _ = prefill(cfg2, params2, t2, embeds=e2)
+    f32 = f32_check(cfg2, params2, t2, logits_k, logits_p, embeds=e2)
+    log(f"[19b] 2 + 2 layers, float32, 2 clips: {json.dumps(f32)}")
+    check_f32("whisper", f32)
+    run["float32_2_layers"] = f32
+    del params2, logits_k, logits_p, embeds
+    torch.cuda.empty_cache()
+    return run
+
+
+def ssm_encdec_kernel_records(device, flush):
+    """[19d]: the SSD scan at mamba2-2.7b's prefill call (8 x 2048, 80
+    heads of 64, state 128, chunk 256) with its three kernels' shares,
+    flash attention at whisper-small's encoder call (8 x 1,500 frames, 12
+    heads of 64, non-causal) beside SDPA, and rmsnorm at mamba2's rows
+    (8 x 2048 of d_model 2,560 and of the gated norm's 5,120) in turns
+    with ``rms_norm``."""
+    from repro_torch.kernels import ssd_scan as SSD
+    bf16 = torch.bfloat16
+    B, S = FAMILY_BATCH, FAMILY_PROMPT
+    nh, hp, st, Q = 80, 64, 128, 256
+    args = ssd_inputs(B, S, nh, hp, st, bf16, device, 100)
+    y, h = SSD.ssd_scan(*args, chunk=Q)
+    y_ref, h_ref = SSD.ssd_scan_ref(*args, chunk=Q)
+    nbytes, ops = ssd_work(B, S, nh, hp, st, Q)
+
+    def kernel():
+        return SSD.ssd_scan(*args, chunk=Q)
+    ssd = with_bound({
+        "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                           for g, w in ((y, y_ref), (h, h_ref))),
+        "tol_ratio": max(tol_ratio(y, y_ref, "ssd_scan"),
+                         tol_ratio(h, h_ref, "ssd_scan")),
+        "rerun_bit_equal": all(torch.equal(a, b)
+                               for a, b in zip((y, h), kernel())),
+        "ms": time_call(kernel, (), 10, device, flush),
+        "plain_ms": time_call(lambda: SSD.ssd_scan_ref(*args, chunk=Q), (),
+                              2, device, flush),
+        "library_ms": None,
+        "parts_ms": kernel_parts_ms(
+            lambda: SSD.ssd_scan(*args, chunk=Q), (),
+            ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"),
+            device),
+        "shape": {"b": B, "S": S, "nh": nh, "hp": hp, "st": st, "chunk": Q},
+        "bytes": nbytes, "ops": ops}, BF16_OPS_PER_S)
+    del args, y, h, y_ref, h_ref
+    torch.cuda.empty_cache()
+    flash = flash_record(B, 1500, 1500, 12, 12, 64, False, 110, device,
+                         flush)
+    rms = [rmsnorm_record(randn((B, S, d), bf16, device, 120 + i),
+                          randn((d,), bf16, device, 121 + i), device, flush,
+                          plain_reps=5) for i, d in enumerate((2560, 5120))]
+    return ssd, flash, rms
+
+
+def phase_ssm_encdec(device, flush, model_records):
+    """Phase [19]: (a) mamba2-2.7b and (b) whisper-small served at full
+    width and depth; (c) their smoke cuts, card against CPU; (d) the
+    kernels at their calls, added to the kernels' records."""
+    import gc
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"mamba2-2.7b": mamba_serving(device)}
+    log(f"[19a] {time.perf_counter() - t_phase:.1f} s")
+    runs["whisper-small"] = whisper_serving(device)
+    log(f"[19b] {time.perf_counter() - t_phase:.1f} s")
+    card_cpu = {a: phase_small_card_vs_cpu(device, a)
+                for a in SSM_ENCDEC_ARCHS}
+    log(f"[19c] smoke archs, float32, card vs CPU (largest difference / "
+        f"largest magnitude): {json.dumps(card_cpu)}")
+    require(max(card_cpu.values()) <= 1e-4, f"[19c] card vs CPU {card_cpu}")
+    ssd, flash, rms = ssm_encdec_kernel_records(device, flush)
+    for tag, r in [("ssd_scan at mamba2's prefill call", ssd),
+                   ("flash_attention at whisper's encoder call", flash)] + [
+            (f"rmsnorm at mamba2's rows of {r['shape']['D']}", r)
+            for r in rms]:
+        require(r["tol_ratio"] <= 1.0 and r["rerun_bit_equal"],
+                f"{tag}: tol_ratio {r['tol_ratio']}, rerun "
+                f"{r['rerun_bit_equal']}")
+        log(f"[19d] {tag} {json.dumps(r)}")
+    launches = launches_of(runs.values(),
+                           ("rmsnorm", "flash_attention", "ssd_scan"))
+    at = {"rmsnorm": ("at_mamba_call", rms),
+          "flash_attention": ("at_whisper_encoder_call", flash),
+          "ssd_scan": ("at_mamba_prefill_call", ssd)}
+    for r in model_records:
+        if r["name"] in launches:
+            r.setdefault("launches_by_path",
+                         {"prefill/decode [8]": r["launches"]})
+            r["launches_by_path"]["serve ssm/encdec [19]"] = \
+                launches[r["name"]]
+            r["launches"] = sum(r["launches_by_path"].values())
+            key, rec = at[r["name"]]
+            r[key] = rec
+    wall = time.perf_counter() - t_phase
+    log(json.dumps({"ssm_encdec": runs, "launches": launches,
+                    "wall_s": wall}))
+    log(f"[19] {wall:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3577,7 +3921,10 @@ def run() -> int:
     log(f"[17] {time.perf_counter() - t_start:.1f} s so far")
     log("[18] the dense, VL and MoE families' serving at full width")
     phase_families(device, flush, model_records)
-    log(f"[18] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[18] {time.perf_counter() - t_start:.1f} s so far")
+    log("[19] the SSM and enc-dec families' serving at full width")
+    phase_ssm_encdec(device, flush, model_records)
+    log(f"[19] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

@@ -9,13 +9,19 @@
 // L is built from differences of cum, as the TPU kernel builds it.  y is
 // written in x's dtype, the final state (hp, st) in float32.
 //
-// What bounds it.  At the prefill's shapes (Q = 256, hp = st = 64, nh =
-// 112) a chunk costs a (Q, Q) score product over st, the masked (Q, Q) by
-// (Q, hp) product, and two (Q, 64, 64) products for the offset and the
+// Widths.  hp <= 64, and the state st <= 128, as the TPU kernel's tiles
+// (st = 64 or 128).  Every kernel is a template on kS, the state columns
+// of its tiles: 64 for st <= 64 (Zamba2), 128 above (Mamba2-2.7B); widths
+// below kS are zero-filled.  The state is never split into two launches
+// of 64 whose outputs are added: y would be rounded to bf16 twice.
+//
+// What bounds it.  At Zamba2's prefill (Q = 256, hp = st = 64, nh = 112) a
+// chunk costs a (Q, Q) score product over st, the masked (Q, Q) by
+// (Q, hp) product, and two (Q, 64, st) products for the offset and the
 // state: about 120 operations for each byte of x, B, C, dt read and y
-// written, below the tensor cores' ~295 a byte, so on the tensor cores the
-// work is bound by its bytes; on the CUDA cores (67 TFLOP/s float32) it
-// would be bound by its operations.
+// written (about 150 at st = 128), below the tensor cores' ~295 a byte, so
+// on the tensor cores the work is bound by its bytes; on the CUDA cores (67
+// TFLOP/s float32) it would be bound by its operations.
 //
 // Two designs, by the dtype of x.
 //
@@ -26,10 +32,10 @@
 //      heads, chunk): cum (summed in order by one thread a head, as
 //      torch.cumsum sums it on the card, since exp of its differences
 //      amplifies any other rounding of a long chunk's sums), the chunk's
-//      own state S_c = (x w)^T B with w_j = exp(cum_{Q-1} - cum_j) dt_j,
-//      and its total decay.  It also leaves cum and dt by head, and the
-//      blocks of the first head block leave B and C as bf16 hi/lo planes
-//      (256 aligned bytes a row, zero past st), for kernel 3.
+//      own state S_c = (x w)^T B (64 x kS) with w_j = exp(cum_{Q-1} -
+//      cum_j) dt_j, and its total decay.  It also leaves cum and dt by
+//      head, and the blocks of the first head block leave B and C as bf16
+//      hi/lo planes (4 kS aligned bytes a row, zero past st), for kernel 3.
 //   2. ssd_pass_kernel, one thread per (batch, head, state element): the
 //      serial pass over chunks, h <- h exp(total_c) + S_c, in float32 as
 //      the reference runs it; it leaves the state before each chunk as a
@@ -44,27 +50,40 @@
 // (x w)^T B) are Hopper warpgroup products (wgmma, wgmma.cuh) with float32
 // accumulators: a block is two warpgroups, each owning all 64 rows of a
 // tile for 2 of the 4 heads.  Operands in shared memory are bf16 tiles of
-// 64 x 64 with the 128-byte swizzle, and every one arrives by cp.async
-// (x as it is, B, C and h from the planes), the next while the current
-// one is multiplied.  x is bf16 and enters as it is.  Every float32
-// operand (B, C, the masked decay tile M, h, x w) enters as a bf16 hi/lo
-// pair: three products where both operands are float32, two where one is
-// bf16, so no operand loses more than about 2^-16 of itself.  M and x w
-// are built in registers, in the layout of a wgmma A operand, from the
-// C B^T halves and from x's transposed fragments (ldmatrix,
+// 64 rows in 64-column blocks with the 128-byte swizzle (kS / 64 blocks
+// across the state), and every one arrives by cp.async (x as it is, B, C
+// and h from the planes), the next while the current one is multiplied.
+// C B^T and C h^T take kS / 16 k-steps over the state; (x w)^T B is one
+// m64n64 or m64n128 product a k-step.  x is bf16 and enters as it is.
+// Every float32 operand (B, C, the masked decay tile M, h, x w) enters as
+// a bf16 hi/lo pair: three products where both operands are float32, two
+// where one is bf16, so no operand loses more than about 2^-16 of itself.
+// M and x w are built in registers, in the layout of a wgmma A operand,
+// from the C B^T halves and from x's transposed fragments (ldmatrix,
 // tensor_core.cuh); two 16-column steps are in flight, so that one step's
 // fragments are built while the step before multiplies.  What holds kernel
 // 3 is M's construction (an exp and a split for each of its elements, for
 // every head) and the bytes of x, h and y; see PERF.md.  Heads past nh,
-// rows past the chunk and widths below 64 are zero-filled or masked.
+// rows past the chunk and widths below 64 (hp) or kS (st) are zero-filled
+// or masked.
+//
+// Shared memory a block, of the 227 KB a block may take: kernels 1 and 3
+// hold (4 kS / 64 + 8) tiles of 8 KB and cum and dt of 4 heads (32 Q
+// bytes), + 1 KB to align: kS = 64, 105 KB at Q = 256 (two blocks an SM)
+// and 129 KB at Q = 1024; kS = 128, 137 KB at Q = 256 (one block an SM)
+// and 161 KB at Q = 1024.  At kS = 128 kernel 1 holds a 64 x 128 float32
+// accumulator for each of a thread's two heads (128 registers): both
+// kernels run one block an SM at kS = 128, with up to 255 registers a
+// thread.
 //
 // float32 x (ssd_kernel, as first written): the TPU kernel's arithmetic on
 // the CUDA cores.  One block of 256 threads owns
-// one (batch, head) and walks the chunks in order, h (64 x 64 float32) in
+// one (batch, head) and walks the chunks in order, h (64 x kS float32) in
 // shared memory; the chunk's rows are tiled by 64, and for each row tile
 // the masked 64 x 64 tile of (C B^T) * exp(cum_i - cum_j) * dt_j is formed
 // in shared memory and multiplied into y; the state update walks the
-// column tiles once more.  91 KB of shared memory a block.
+// column tiles once more.  89 KB of shared memory a block at kS = 64, 137
+// KB at kS = 128 (KB = 1,024 bytes throughout).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,12 +93,19 @@
 
 namespace {
 
-constexpr int kT = 64;          // tile rows and columns
+constexpr int kT = 64;          // tile rows and columns; the widest hp
 constexpr int kStride = kT + 1;
+constexpr int kMaxState = 2 * kT;
 constexpr int kMaxChunk = 1024;
 constexpr int kThreads = 256;   // 16 x 16
-constexpr size_t kSmemBytes =
-    sizeof(float) * (2 * kMaxChunk + 5 * kT * kStride);
+
+// the float32 kernel's shared memory: cum and dt, the x and M tiles
+// (64 x 64), and the C, B and h tiles (64 x kS)
+template <int kS>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (2 * kMaxChunk + 2 * kT * kStride + 3 * kT * (kS + 1));
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 template <typename T>
@@ -88,14 +114,15 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
 // rows [r0, r0 + kT) of a (., width) float32 matrix with row stride `ld`,
-// zero past `rows` and past `width`
+// kS columns at a row stride of kS + 1, zero past `rows` and past `width`
+template <int kS>
 __device__ __forceinline__ void stage_f32(float* dst, const float* src,
                                           size_t ld, int r0, int rows,
                                           int width) {
-  for (int idx = threadIdx.x; idx < kT * kT; idx += kThreads) {
-    const int r = idx / kT, c = idx % kT;
+  for (int idx = threadIdx.x; idx < kT * kS; idx += kThreads) {
+    const int r = idx / kS, c = idx % kS;
     const int row = r0 + r;
-    dst[r * kStride + c] =
+    dst[r * (kS + 1) + c] =
         (row < rows && c < width) ? src[row * ld + c] : 0.f;
   }
 }
@@ -112,7 +139,9 @@ __device__ __forceinline__ void stage_x(float* dst, const T* src, size_t ld,
 }
 
 // out[a][c] = sum_{s < n} P[ty + 16a][s] * R[tx + 16c][s] over two staged
-// tiles: a 4 x 4 register tile a thread, 8 shared loads for 16 products
+// tiles of row stride LD: a 4 x 4 register tile a thread, 8 shared loads
+// for 16 products
+template <int LD>
 __device__ __forceinline__ void tile_product(float (&out)[4][4],
                                              const float* P, const float* R,
                                              int n) {
@@ -124,9 +153,9 @@ __device__ __forceinline__ void tile_product(float (&out)[4][4],
   for (int s = 0; s < n; ++s) {
     float pv[4], rv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) pv[a] = P[(ty + 16 * a) * kStride + s];
+    for (int a = 0; a < 4; ++a) pv[a] = P[(ty + 16 * a) * LD + s];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) rv[c] = R[(tx + 16 * c) * kStride + s];
+    for (int c = 0; c < 4; ++c) rv[c] = R[(tx + 16 * c) * LD + s];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -134,21 +163,23 @@ __device__ __forceinline__ void tile_product(float (&out)[4][4],
   }
 }
 
-template <typename T>
+template <typename T, int kS>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const float* __restrict__ Bm,
            const float* __restrict__ Cm, T* __restrict__ y,
            float* __restrict__ state, int S, int nh, int hp, int st,
            int Q) {
+  constexpr int kSS = kS + 1;          // row stride of the state tiles
+  constexpr int kSC = kS / 16;         // a thread's state columns
   extern __shared__ float smem[];
   float* cum = smem;                    // [kMaxChunk]
   float* dts = cum + kMaxChunk;         // [kMaxChunk]: dt, then state weights
-  float* Cs = dts + kMaxChunk;          // [kT][kStride]  C rows i
-  float* Bs = Cs + kT * kStride;        // [kT][kStride]  B rows j
-  float* Xs = Bs + kT * kStride;        // [kT][kStride]  x rows j
+  float* Xs = dts + kMaxChunk;          // [kT][kStride]  x rows j
   float* Ms = Xs + kT * kStride;        // [kT][kStride]  masked decay tile
-  float* Hs = Ms + kT * kStride;        // [kT][kStride]  h[p][s]
+  float* Cs = Ms + kT * kStride;        // [kT][kSS]      C rows i
+  float* Bs = Cs + kT * kSS;            // [kT][kSS]      B rows j
+  float* Hs = Bs + kT * kSS;            // [kT][kSS]      h[p][s]
 
   const int bi = blockIdx.x / nh, hh = blockIdx.x % nh;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -160,7 +191,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float* Bb = Bm + static_cast<size_t>(bi) * S * st;
   const float* Cb = Cm + static_cast<size_t>(bi) * S * st;
 
-  for (int idx = tid; idx < kT * kStride; idx += kThreads) Hs[idx] = 0.f;
+  for (int idx = tid; idx < kT * kSS; idx += kThreads) Hs[idx] = 0.f;
 
   for (int c0 = 0; c0 < S; c0 += Q) {
     // dt of the chunk, and cum = inclusive cumsum of dt * A (one warp:
@@ -194,12 +225,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const float* Cc = Cb + static_cast<size_t>(c0) * st;
 
     for (int i0 = 0; i0 < Q; i0 += kT) {
-      stage_f32(Cs, Cc, st, i0, Q, st);
+      stage_f32<kS>(Cs, Cc, st, i0, Q, st);
       __syncthreads();
 
       // offset from the carried state: exp(cum_i) * (C_i . h[p])
       float acc[4][4];
-      tile_product(acc, Cs, Hs, st);
+      tile_product<kSS>(acc, Cs, Hs, st);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int ig = i0 + ty + 16 * a;
@@ -210,11 +241,11 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
       for (int j0 = 0; j0 <= i0; j0 += kT) {
         __syncthreads();  // Bs, Xs and Ms of the previous tile consumed
-        stage_f32(Bs, Bc, st, j0, Q, st);
+        stage_f32<kS>(Bs, Bc, st, j0, Q, st);
         stage_x(Xs, xc, x_ld, j0, Q, hp);
         __syncthreads();
         float sc[4][4];
-        tile_product(sc, Cs, Bs, st);
+        tile_product<kSS>(sc, Cs, Bs, st);
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const int i = ty + 16 * a, ig = i0 + i;
@@ -262,28 +293,28 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int j = tid; j < Q; j += kThreads)
       dts[j] = expf(cum_last - cum[j]) * dts[j];
     const float g = expf(cum_last);
-    float hacc[4][4];
+    float hacc[4][kSC];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        hacc[a][cc] = Hs[(ty + 16 * a) * kStride + tx + 16 * cc] * g;
+      for (int cc = 0; cc < kSC; ++cc)
+        hacc[a][cc] = Hs[(ty + 16 * a) * kSS + tx + 16 * cc] * g;
     for (int j0 = 0; j0 < Q; j0 += kT) {
       __syncthreads();
-      stage_f32(Bs, Bc, st, j0, Q, st);
+      stage_f32<kS>(Bs, Bc, st, j0, Q, st);
       stage_x(Xs, xc, x_ld, j0, Q, hp);
       __syncthreads();
       const int nj = min(kT, Q - j0);
       for (int j = 0; j < nj; ++j) {
         const float w = dts[j0 + j];
-        float bv[4];
+        float bv[kSC];
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) bv[cc] = Bs[j * kStride + tx + 16 * cc];
+        for (int cc = 0; cc < kSC; ++cc) bv[cc] = Bs[j * kSS + tx + 16 * cc];
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const float xw = Xs[j * kStride + ty + 16 * a] * w;
 #pragma unroll
-          for (int cc = 0; cc < 4; ++cc) hacc[a][cc] += xw * bv[cc];
+          for (int cc = 0; cc < kSC; ++cc) hacc[a][cc] += xw * bv[cc];
         }
       }
     }
@@ -291,28 +322,29 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        Hs[(ty + 16 * a) * kStride + tx + 16 * cc] = hacc[a][cc];
+      for (int cc = 0; cc < kSC; ++cc)
+        Hs[(ty + 16 * a) * kSS + tx + 16 * cc] = hacc[a][cc];
     __syncthreads();
   }
 
   float* sb = state + static_cast<size_t>(blockIdx.x) * hp * st;
   for (int idx = tid; idx < hp * st; idx += kThreads) {
     const int p = idx / st, s = idx % st;
-    sb[idx] = Hs[p * kStride + s];
+    sb[idx] = Hs[p * kSS + s];
   }
 }
 
-template <typename T>
+template <typename T, int kS>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* B, const void* C, void* y, void* state, int b,
                    int S, int nh, int hp, int st, int Q,
                    cudaStream_t stream) {
+  constexpr size_t kSmem = smem_bytes<kS>();
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      ssd_kernel<T, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
   if (err != cudaSuccess) return err;
-  ssd_kernel<T><<<b * nh, kThreads, kSmemBytes, stream>>>(
+  ssd_kernel<T, kS><<<b * nh, kThreads, kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<T*>(y),
@@ -327,15 +359,16 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 namespace bf16 {
 
 using tc::swz;
+using tc::swz_tile;
 constexpr int kHB = 4;               // heads a block
 constexpr int kWarps = 8;            // a 16-row slab of a tile x 2 heads
 constexpr int kThreads2 = kWarps * 32;
 constexpr int kTileBytes = kT * kT * 2;  // one 64 x 64 bf16 tile
-constexpr int kPlane = 2 * kT;       // bf16 a plane row: hi[64] then lo[64]
 
-// A plane holds float32 rows of up to 64 values as bf16 hi (columns 0-63)
-// and lo (64-127), zero past the row's width: 256 aligned bytes a row, so
-// that any tile of it is a cp.async copy.
+// A plane holds float32 rows of up to kS values as bf16 hi (columns
+// 0 .. kS-1) and lo (kS .. 2 kS-1), zero past the row's width: 4 kS aligned
+// bytes a row, so that any tile of it is a cp.async copy.  A tile of kS
+// state columns is kS / 64 column blocks of 64 x 64 (swz_tile<kT>).
 struct Args {
   const __nv_bfloat16* x;
   const float* dt;
@@ -357,37 +390,40 @@ struct Args {
 };
 
 // float32 offsets of the workspace's parts, each 256-byte aligned; `end`
-// is its size.  The wrapper sizes the workspace by the same sums.
+// is its size.  A plane row of kS columns is kS float32 values.  The
+// wrapper sizes the workspace by the same sums.
 struct Workspace {
   size_t s_c, total, h_pl, b_pl, c_pl, cum_t, dt_t, end;
-  Workspace(int b, int S, int nh, int hp, int st, int Q) {
+  Workspace(int b, int S, int nh, int hp, int st, int Q, int kS) {
     const auto up = [](size_t n) { return (n + 63) / 64 * 64; };
     const size_t nc = S / Q;
     s_c = 0;
     total = up(static_cast<size_t>(b) * nc * nh * hp * st);
     h_pl = total + up(static_cast<size_t>(b) * nc * nh);
-    b_pl = h_pl + static_cast<size_t>(b) * nc * nh * kT * kPlane / 2;
-    c_pl = b_pl + static_cast<size_t>(b) * S * kPlane / 2;
-    cum_t = c_pl + static_cast<size_t>(b) * S * kPlane / 2;
+    b_pl = h_pl + static_cast<size_t>(b) * nc * nh * kT * kS;
+    c_pl = b_pl + static_cast<size_t>(b) * S * kS;
+    cum_t = c_pl + static_cast<size_t>(b) * S * kS;
     dt_t = cum_t + up(static_cast<size_t>(b) * S * nh);
     end = dt_t + up(static_cast<size_t>(b) * S * nh);
   }
 };
 
 // Rows [0, nrows) of a float32 matrix (row stride ld; zero at columns >=
-// ncols), split into bf16 hi and lo, as plane rows.  The loads of each half
-// are issued before its first store.
+// ncols), split into bf16 hi and lo, as plane rows of kS columns.  The
+// loads of each half are issued before its first store.
+template <int kS>
 __device__ __forceinline__ void write_plane(__nv_bfloat16* pl,
                                             const float* src, size_t ld,
                                             int nrows, int ncols, bool vec) {
-  constexpr int kIters = kT * kT / 4 / kThreads2 / 2;  // two batches
+  constexpr int kQuads = kS / 4;                         // float4 a row
+  constexpr int kIters = kT * kQuads / kThreads2 / 2;    // two batches
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float4 v[kIters];
 #pragma unroll
     for (int it = 0; it < kIters; ++it) {
       const int idx = threadIdx.x + (half * kIters + it) * kThreads2;
-      const int r = idx >> 4, c = (idx & 15) * 4;
+      const int r = idx / kQuads, c = (idx % kQuads) * 4;
       v[it] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < nrows) {
         const float* s = src + static_cast<size_t>(r) * ld + c;
@@ -404,29 +440,31 @@ __device__ __forceinline__ void write_plane(__nv_bfloat16* pl,
 #pragma unroll
     for (int it = 0; it < kIters; ++it) {
       const int idx = threadIdx.x + (half * kIters + it) * kThreads2;
-      const int r = idx >> 4, c = (idx & 15) * 4;
+      const int r = idx / kQuads, c = (idx % kQuads) * 4;
       if (r >= nrows) continue;
       uint32_t h0, l0, h1, l1;
       tc::split(v[it].x, v[it].y, h0, l0);
       tc::split(v[it].z, v[it].w, h1, l1);
-      __nv_bfloat16* row = pl + static_cast<size_t>(r) * kPlane + c;
+      __nv_bfloat16* row = pl + static_cast<size_t>(r) * 2 * kS + c;
       *reinterpret_cast<uint2*>(row) = make_uint2(h0, h1);
-      *reinterpret_cast<uint2*>(row + kT) = make_uint2(l0, l1);
+      *reinterpret_cast<uint2*>(row + kS) = make_uint2(l0, l1);
     }
   }
 }
 
 // Rows [0, 64) of a float32 matrix (row stride ld) as they are into a
-// 64 x 64 float32 tile (256 bytes a row), zero at rows >= nrows and
+// 64 x kS float32 tile (4 kS bytes a row), zero at rows >= nrows and
 // columns >= ncols: by cp.async when the rows are float4 chunks, else by
 // plain loads; the caller commits and waits
+template <int kS>
 __device__ __forceinline__ void stage_raw(uint32_t dst, const float* src,
                                           size_t ld, int nrows, int ncols,
                                           bool vec) {
-  for (int idx = threadIdx.x; idx < kT * kT / 4; idx += kThreads2) {
-    const int r = idx >> 4, c = (idx & 15) * 4;
+  constexpr int kQuads = kS / 4;
+  for (int idx = threadIdx.x; idx < kT * kQuads; idx += kThreads2) {
+    const int r = idx / kQuads, c = (idx % kQuads) * 4;
     const float* s = src + static_cast<size_t>(r) * ld + c;
-    const uint32_t d = dst + (r * kT + c) * 4;
+    const uint32_t d = dst + (r * kS + c) * 4;
     if (vec) {
       const bool in = r < nrows && c < ncols;
       tc::cp_async16(d, in ? s : src, in ? 16 : 0);
@@ -441,24 +479,27 @@ __device__ __forceinline__ void stage_raw(uint32_t dst, const float* src,
   }
 }
 
-// A float32 tile from stage_raw split into swizzled bf16 hi and lo tiles,
-// and into plane rows (pl, if not null; rows < nrows only)
+// A float32 tile from stage_raw split into swizzled bf16 hi and lo tiles
+// (kS / 64 column blocks each), and into plane rows (pl, if not null;
+// rows < nrows only)
+template <int kS>
 __device__ __forceinline__ void split_raw(uint32_t hi, uint32_t lo,
                                           __nv_bfloat16* pl, const float* raw,
                                           int nrows) {
-  for (int idx = threadIdx.x; idx < kT * kT / 4; idx += kThreads2) {
-    const int r = idx >> 4, c = (idx & 15) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(raw + r * kT + c);
+  constexpr int kQuads = kS / 4;
+  for (int idx = threadIdx.x; idx < kT * kQuads; idx += kThreads2) {
+    const int r = idx / kQuads, c = (idx % kQuads) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(raw + r * kS + c);
     uint32_t h0, l0, h1, l1;
     tc::split(v.x, v.y, h0, l0);
     tc::split(v.z, v.w, h1, l1);
-    const uint32_t off = swz(r, c);
+    const uint32_t off = swz_tile<kT>(r, c);
     tc::st_shared_v2(hi + off, h0, h1);
     tc::st_shared_v2(lo + off, l0, l1);
     if (pl && r < nrows) {
-      __nv_bfloat16* row = pl + static_cast<size_t>(r) * kPlane + c;
+      __nv_bfloat16* row = pl + static_cast<size_t>(r) * 2 * kS + c;
       *reinterpret_cast<uint2*>(row) = make_uint2(h0, h1);
-      *reinterpret_cast<uint2*>(row + kT) = make_uint2(l0, l1);
+      *reinterpret_cast<uint2*>(row + kS) = make_uint2(l0, l1);
     }
   }
 }
@@ -490,16 +531,19 @@ __device__ __forceinline__ void stage_x(uint32_t dst,
   }
 }
 
-// Rows [0, 64) of a plane (zero-filled at rows >= nrows) into swizzled hi
-// and lo tiles, by cp.async; the caller commits and waits
+// Rows [0, 64) of a plane of kS columns (zero-filled at rows >= nrows)
+// into swizzled hi and lo tiles of kS / 64 column blocks, by cp.async; the
+// caller commits and waits
+template <int kS>
 __device__ __forceinline__ void stage_plane(uint32_t hi, uint32_t lo,
                                             const __nv_bfloat16* pl,
                                             int nrows) {
-  for (int idx = threadIdx.x; idx < kT * 16; idx += kThreads2) {
-    const int r = idx >> 4, c = (idx & 15) * 8;  // plane column
+  constexpr int kChunks = 2 * kS / 8;  // 16-byte chunks of a plane row
+  for (int idx = threadIdx.x; idx < kT * kChunks; idx += kThreads2) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;  // plane column
     const bool in = r < nrows;
-    const __nv_bfloat16* s = pl + static_cast<size_t>(r) * kPlane + c;
-    tc::cp_async16((c < kT ? hi : lo) + swz(r, c & (kT - 1)),
+    const __nv_bfloat16* s = pl + static_cast<size_t>(r) * 2 * kS + c;
+    tc::cp_async16((c < kS ? hi : lo) + swz_tile<kT>(r, c % kS),
                    in ? s : pl, in ? 16 : 0);
   }
 }
@@ -551,21 +595,38 @@ __device__ __forceinline__ void load_dt(float* dts, const Args& a, size_t t0,
   }
 }
 
+// d (64 x kS) += A B over one k-step: B MN-major, kS / 64 column blocks
+// LBO apart (the descriptor's)
+template <int NT>
+__device__ __forceinline__ void mma_rs_state(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  if constexpr (NT == 8) wg::mma_rs_n64(d, a, db);
+  else wg::mma_rs_n128(d, a, db);
+}
+
 // 1. the chunk's own state S_c = (x w)^T B, per head, and its total decay;
 // the blocks of the first head block also write the chunk's rows of B and
-// C as planes for kernel 3
-__global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
+// C as planes for kernel 3.  At kS = 128 a thread's two 64 x 128
+// accumulators take 128 registers: one block an SM, 255 registers a
+// thread.
+template <int kS>
+__global__ void __launch_bounds__(kThreads2, kS == kT ? 2 : 1)
+ssd_state_kernel(Args a) {
+  constexpr int kSW = kS / kT;        // column blocks across the state
+  constexpr int kPlane = 2 * kS;      // bf16 a plane row
   extern __shared__ unsigned char smem_raw[];
   // tiles at 1024-byte boundaries, as wgmma's swizzled descriptors need
   const uint32_t raw = tc::smem_addr(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  const uint32_t sBh = tc::smem_addr(smem), sBl = sBh + kTileBytes;
-  const uint32_t sX0 = sBl + kTileBytes;          // kHB tiles, x of even j
+  const uint32_t sBh = tc::smem_addr(smem), sBl = sBh + kSW * kTileBytes;
+  const uint32_t sX0 = sBl + kSW * kTileBytes;    // kHB tiles, x of even j
   const uint32_t sX1 = sX0 + kHB * kTileBytes;    // kHB tiles, x of odd j
   const uint32_t sRaw = sX1 + kHB * kTileBytes;   // B_j as it is, float32
   const float* raw_b = reinterpret_cast<const float*>(
-      smem + (2 + 2 * kHB) * kTileBytes);
-  float* dts = reinterpret_cast<float*>(smem + (4 + 2 * kHB) * kTileBytes);
+      smem + (2 * kSW + 2 * kHB) * kTileBytes);
+  float* dts = reinterpret_cast<float*>(
+      smem + (4 * kSW + 2 * kHB) * kTileBytes);
   float* cum = dts + kHB * a.Q;
 
   const int Q = a.Q;
@@ -579,7 +640,7 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
 
   const auto load_j = [&](int j0) {  // B_j and x_j, as they are
     const int nrows = min(kT, Q - j0);
-    stage_raw(sRaw, a.B + (t0 + j0) * a.st, a.st, nrows, a.st, a.vec_bc);
+    stage_raw<kS>(sRaw, a.B + (t0 + j0) * a.st, a.st, nrows, a.st, a.vec_bc);
     const uint32_t dst = (j0 / kT) % 2 ? sX1 : sX0;
 #pragma unroll
     for (int hh = 0; hh < kHB; ++hh)
@@ -593,8 +654,8 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
   load_dt(dts, a, t0, h0, nheads, Q);
   if (hb == 0)
     for (int j0 = 0; j0 < Q; j0 += kT)
-      write_plane(a.c_pl + (t0 + j0) * kPlane, a.C + (t0 + j0) * a.st, a.st,
-                  min(kT, Q - j0), a.st, a.vec_bc);
+      write_plane<kS>(a.c_pl + (t0 + j0) * kPlane, a.C + (t0 + j0) * a.st,
+                      a.st, min(kT, Q - j0), a.st, a.vec_bc);
   __syncthreads();
   if (warp < nheads && lane == 0)
     seq_cumsum(cum + warp * Q, dts + warp * Q, a.A[h0 + warp], Q);
@@ -617,19 +678,19 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
   // warp = (slab, pair): rows p = 16 slab + g (+8), columns s, of heads
   // 2 pair and 2 pair + 1
   const int slab = warp & 3, pair = warp >> 2;
-  float acc[2][8][4];
+  float acc[2][kS / 8][4];
 #pragma unroll
   for (int hl = 0; hl < 2; ++hl)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kS / 8; ++n)
       acc[hl][n][0] = acc[hl][n][1] = acc[hl][n][2] = acc[hl][n][3] = 0.f;
 
   for (int j0 = 0; j0 < Q; j0 += kT) {
     const int nrows = min(kT, Q - j0);
     tc::cp_async_wait<0>();
     __syncthreads();  // B_j and x_j have landed
-    split_raw(sBh, sBl, hb == 0 ? a.b_pl + (t0 + j0) * kPlane : nullptr,
-              raw_b, nrows);
+    split_raw<kS>(sBh, sBl, hb == 0 ? a.b_pl + (t0 + j0) * kPlane : nullptr,
+                  raw_b, nrows);
     wg::fence_proxy();
     __syncthreads();  // B_j split; its float32 tile is free
     if (j0 + kT < Q) load_j(j0 + kT);  // the next tile, while this one runs
@@ -654,7 +715,7 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
         for (int hl = 0; hl < 2; ++hl) wg::touch_a(xs[hl]);
       }
       const uint32_t offA = swz(ks * 16 + (lane & 7) + (lane >> 4) * 8,
-                                    slab * 16 + ((lane >> 3) & 1) * 8);
+                                slab * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int hl = 0; hl < 2; ++hl) {
         const int hh = 2 * pair + hl;
@@ -674,14 +735,15 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
         }
       }
       wg::fence();
+      // B_j's 16 rows of this step; its column blocks are kTileBytes apart
       const uint64_t dbh = wg::desc(sBh + ks * 16 * 128, kTileBytes, 1024);
       const uint64_t dbl = wg::desc(sBl + ks * 16 * 128, kTileBytes, 1024);
 #pragma unroll
       for (int hl = 0; hl < 2; ++hl) {
         if (2 * pair + hl >= nheads) continue;
-        wg::mma_rs_n64(acc[hl], xs[hl][0], dbh);
-        wg::mma_rs_n64(acc[hl], xs[hl][0], dbl);
-        wg::mma_rs_n64(acc[hl], xs[hl][1], dbh);
+        mma_rs_state(acc[hl], xs[hl][0], dbh);
+        mma_rs_state(acc[hl], xs[hl][0], dbl);
+        mma_rs_state(acc[hl], xs[hl][1], dbh);
       }
       wg::commit();
     }
@@ -702,7 +764,7 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
     float* out = a.s_c + ((static_cast<size_t>(bb) * a.nc + c) * a.nh + h0 +
                           hh) * a.hp * a.st;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kS / 8; ++n)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int p = slab * 16 + g + 8 * r, s = n * 8 + 2 * t4;
@@ -723,10 +785,11 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_state_kernel(Args a) {
 // h <- h exp(total_c) + S_c; the state before each chunk c > 0 is written
 // as a plane (zero past hp and st) for kernel 3, the final state as it is.
 // Each batch of chunks is read before any is written.
+template <int kS>
 __global__ void ssd_pass_kernel(Args a) {
   constexpr int kBatch = 8;
-  const int e = blockIdx.y * blockDim.x + threadIdx.x;  // (p, s) of 64 x 64
-  const int p = e / kT, s = e % kT;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;  // (p, s) of 64 x kS
+  const int p = e / kS, s = e % kS;
   const bool in = p < a.hp && s < a.st;
   const int bb = blockIdx.x / a.nh, hh = blockIdx.x % a.nh;
   const size_t k0 = static_cast<size_t>(bb) * a.nc * a.nh + hh;
@@ -747,10 +810,10 @@ __global__ void ssd_pass_kernel(Args a) {
       if (c >= a.nc) break;
       if (c > 0) {
         __nv_bfloat16* row = a.h_pl +
-            ((k0 + static_cast<size_t>(c) * a.nh) * kT + p) * kPlane + s;
+            ((k0 + static_cast<size_t>(c) * a.nh) * kT + p) * 2 * kS + s;
         const __nv_bfloat16 hi = __float2bfloat16_rn(h);
         row[0] = hi;
-        row[kT] = __float2bfloat16_rn(h - __bfloat162float(hi));
+        row[kS] = __float2bfloat16_rn(h - __bfloat162float(hi));
       }
       h = __fadd_rn(__fmul_rn(h, expf(g[i])), s_c[i]);  // as torch rounds
     }
@@ -762,21 +825,30 @@ __global__ void ssd_pass_kernel(Args a) {
 // owns the tile's 64 rows for two of the heads; the two warpgroups each
 // form half of the C B^T tile and put it in shared memory, where M's
 // construction reads the whole.  Every tile arrives by cp.async from the
-// planes and x: the second pair of heads' h while the first pair's offset
-// is formed, the next column tile's x while one tile's M x runs (its B
-// after, as the halves lie where B is kept).
-__global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
+// planes and x: at kS = 64 the second pair of heads' h while the first
+// pair's offset is formed (a pair's h takes one x buffer), at kS = 128 B
+// (a pair's h takes both); the next column tile's x while one tile's M x
+// runs (its B after, as the halves lie where B is kept).  C, B and h are
+// kS / 64 column blocks each; C B^T and C h^T take kS / 16 k-steps.  At
+// kS = 128 its shared memory leaves room for one block an SM, so it may
+// take up to 255 registers a thread (at 128 it spills).
+template <int kS>
+__global__ void __launch_bounds__(kThreads2, kS == kT ? 2 : 1)
+ssd_out_kernel(Args a) {
+  constexpr int kSW = kS / kT;        // column blocks across the state
+  constexpr int kPlane = 2 * kS;      // bf16 a plane row
   extern __shared__ unsigned char smem_raw[];
   // tiles at 1024-byte boundaries, as wgmma's swizzled descriptors need
   const uint32_t raw = tc::smem_addr(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  const uint32_t sCh = tc::smem_addr(smem), sCl = sCh + kTileBytes;
-  const uint32_t sBh = sCl + kTileBytes, sBl = sBh + kTileBytes;
-  const uint32_t sX0 = sBl + kTileBytes;          // kHB tiles, x of even j
+  const uint32_t sCh = tc::smem_addr(smem), sCl = sCh + kSW * kTileBytes;
+  const uint32_t sBh = sCl + kSW * kTileBytes, sBl = sBh + kSW * kTileBytes;
+  const uint32_t sX0 = sBl + kSW * kTileBytes;    // kHB tiles, x of even j
   const uint32_t sX1 = sX0 + kHB * kTileBytes;    // kHB tiles, x of odd j
   // C B^T halves [slab][half][16][lane], over B once it is consumed
-  float* xcb = reinterpret_cast<float*>(smem + 2 * kTileBytes);
-  float* dts = reinterpret_cast<float*>(smem + (4 + 2 * kHB) * kTileBytes);
+  float* xcb = reinterpret_cast<float*>(smem + 2 * kSW * kTileBytes);
+  float* dts = reinterpret_cast<float*>(
+      smem + (4 * kSW + 2 * kHB) * kTileBytes);
   float* cum = dts + kHB * a.Q;
 
   // the row tiles of one (batch, head block, chunk) are neighbours in the
@@ -799,18 +871,21 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
   const __nv_bfloat16* h_pl =
       a.h_pl + (static_cast<size_t>(bb) * a.nc + c) * a.nh * kT * kPlane;
 
-  // h of heads r and 2 + r (hi, lo each) into the x buffer r
+  // h of heads r and 2 + r (hi, lo each: 2 kS / 64 tiles a head) into
+  // the x buffer r at kS = 64, into both x buffers at kS = 128
+  const auto h_buf = [&](int r) { return kSW == 1 && r ? sX1 : sX0; };
   const auto load_h = [&](int r) {
-    const uint32_t base = r ? sX1 : sX0;
+    const uint32_t base = h_buf(r);
 #pragma unroll
     for (int q = 0; q < 2; ++q)
       if (2 * q + r < nheads)
-        stage_plane(base + 2 * q * kTileBytes, base + (2 * q + 1) * kTileBytes,
-                    h_pl + static_cast<size_t>(h0 + 2 * q + r) * kT * kPlane,
-                    a.hp);
+        stage_plane<kS>(
+            base + 2 * q * kSW * kTileBytes,
+            base + (2 * q + 1) * kSW * kTileBytes,
+            h_pl + static_cast<size_t>(h0 + 2 * q + r) * kT * kPlane, a.hp);
   };
   const auto load_b = [&](int j0) {  // B_j
-    stage_plane(sBh, sBl, a.b_pl + (t0 + j0) * kPlane, min(kT, Q - j0));
+    stage_plane<kS>(sBh, sBl, a.b_pl + (t0 + j0) * kPlane, min(kT, Q - j0));
   };
   const auto load_x = [&](int j0) {  // x_j of the block's heads
     const uint32_t dst = (j0 / kT) % 2 ? sX1 : sX0;
@@ -823,7 +898,7 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
   };
 
   // group 0: C_i, and the first two heads' h
-  stage_plane(sCh, sCl, a.c_pl + (t0 + i0) * kPlane, len - i0);
+  stage_plane<kS>(sCh, sCl, a.c_pl + (t0 + i0) * kPlane, len - i0);
   if (carry) load_h(0);
   tc::cp_async_commit();
   if (!carry) {
@@ -873,25 +948,31 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
       y[hl][n][0] = y[hl][n][1] = y[hl][n][2] = y[hl][n][3] = 0.f;
 
   // the carried state's part: y += exp(cum_i) (C_i h^T), C and h as hi/lo;
-  // in round r the warp takes its head 2 pair + r
+  // in round r the warp takes its head 2 pair + r.  At kS = 64 round 0
+  // loads the second pair's h into the other buffer and round 1 B_0 and
+  // x_0; at kS = 128 round 0 loads B_0, round 1 the second pair's h over
+  // the first's (waiting for it), and x_0 follows the rounds.
   if (carry) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (r == 0) {
+      if (kSW == 1 && r == 1) {
+        load_b(0);
+        load_x(0);
+      } else if (kSW == 1 || r == 1) {
         load_h(1);
       } else {
         load_b(0);
-        load_x(0);
       }
       tc::cp_async_commit();
-      tc::cp_async_wait<1>();
+      if (kSW == 1 || r == 0) tc::cp_async_wait<1>();
+      else tc::cp_async_wait<0>();
       wg::fence_proxy();
       __syncthreads();
       if (2 * pair + r < nheads) {  // the same for the whole warpgroup
         // C_i h^T over the 64 rows, C and h from shared memory (h stored
         // [p][s]: k = s, n = p), hi*hi, hi*lo, lo*hi
-        const uint32_t sHh = (r ? sX1 : sX0) + 2 * pair * kTileBytes;
-        const uint32_t sHl = sHh + kTileBytes;
+        const uint32_t sHh = h_buf(r) + 2 * pair * kSW * kTileBytes;
+        const uint32_t sHl = sHh + kSW * kTileBytes;
         float off[8][4];
 #pragma unroll
         for (int n = 0; n < 8; ++n)
@@ -899,13 +980,15 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
         wg::touch(off);
         wg::fence();
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
+        for (int ks = 0; ks < kS / 16; ++ks) {
           if (ks * 16 >= a.st) continue;
-          const uint64_t ch = wg::desc(sCh + ks * 32, 16, 1024);
-          const uint64_t cl = wg::desc(sCl + ks * 32, 16, 1024);
-          wg::mma_ss_n64(off, ch, wg::desc(sHh + ks * 32, 16, 1024), 1);
-          wg::mma_ss_n64(off, ch, wg::desc(sHl + ks * 32, 16, 1024), 1);
-          wg::mma_ss_n64(off, cl, wg::desc(sHh + ks * 32, 16, 1024), 1);
+          // k-step ks: column block ks / 4, 32 bytes a step within it
+          const uint32_t kb = (ks >> 2) * kTileBytes + (ks & 3) * 32;
+          const uint64_t ch = wg::desc(sCh + kb, 16, 1024);
+          const uint64_t cl = wg::desc(sCl + kb, 16, 1024);
+          wg::mma_ss_n64(off, ch, wg::desc(sHh + kb, 16, 1024), 1);
+          wg::mma_ss_n64(off, ch, wg::desc(sHl + kb, 16, 1024), 1);
+          wg::mma_ss_n64(off, cl, wg::desc(sHh + kb, 16, 1024), 1);
         }
         wg::commit();
         wg::wait<0>();
@@ -920,6 +1003,10 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
         }
       }
       __syncthreads();  // h consumed before its buffer is reloaded
+    }
+    if (kSW > 1) {
+      load_x(0);
+      tc::cp_async_commit();
     }
   }
 
@@ -938,11 +1025,12 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
     wg::touch(cbh);
     wg::fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < kS / 16; ++ks) {
       if (ks * 16 >= a.st) continue;
-      const uint32_t kb = pair * 32 * 128 + ks * 32;
-      const uint64_t ch = wg::desc(sCh + ks * 32, 16, 1024);
-      const uint64_t cl = wg::desc(sCl + ks * 32, 16, 1024);
+      const uint32_t kc = (ks >> 2) * kTileBytes + (ks & 3) * 32;
+      const uint32_t kb = kc + pair * 32 * 128;
+      const uint64_t ch = wg::desc(sCh + kc, 16, 1024);
+      const uint64_t cl = wg::desc(sCl + kc, 16, 1024);
       wg::mma_ss_n32(cbh, ch, wg::desc(sBh + kb, 16, 1024), 1);
       wg::mma_ss_n32(cbh, ch, wg::desc(sBl + kb, 16, 1024), 1);
       wg::mma_ss_n32(cbh, cl, wg::desc(sBh + kb, 16, 1024), 1);
@@ -1055,14 +1143,16 @@ __global__ void __launch_bounds__(kThreads2, 2) ssd_out_kernel(Args a) {
   }
 }
 
+template <int kS>
 cudaError_t run(const void* x, const void* dt, const void* A, const void* B,
                 const void* C, void* y, void* state, void* ws,
                 long long ws_floats, int b, int S, int nh, int hp, int st,
                 int Q, cudaStream_t stream) {
+  constexpr int kSW = kS / kT;
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const Workspace w(b, S, nh, hp, st, Q);
+  const Workspace w(b, S, nh, hp, st, Q, kS);
   if (ws_floats < 0 || static_cast<size_t>(ws_floats) < w.end || !aligned(ws))
     return cudaErrorInvalidValue;
   float* wsf = static_cast<float*>(ws);
@@ -1087,27 +1177,28 @@ cudaError_t run(const void* x, const void* dt, const void* A, const void* B,
   a.vec_x = hp % 8 == 0 && aligned(x) && aligned(y);
   a.vec_bc = st % 4 == 0 && aligned(B) && aligned(C);
 
-  // + 1024: room to align the tiles
-  const int smem1 = (4 + 2 * kHB) * kTileBytes + 2 * kHB * Q * 4 + 1024;
-  const int smem3 = (4 + 2 * kHB) * kTileBytes + 2 * kHB * Q * 4 + 1024;
+  // (4 kSW + 2 kHB) tiles, cum and dt of kHB heads, + 1024: room to align
+  // the tiles (at most 161 KB: kS = 128, Q = 1024)
+  const int smem = (4 * kSW + 2 * kHB) * kTileBytes + 2 * kHB * Q * 4 + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+      ssd_state_kernel<kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      ssd_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem3);
+      ssd_out_kernel<kS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks1 = static_cast<long long>(b) * a.nhb * a.nc;
   const long long blocks3 = blocks1 * ((Q + kT - 1) / kT);
   if (blocks3 > 0x7fffffffLL || static_cast<long long>(b) * nh > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
 
-  ssd_state_kernel<<<static_cast<unsigned>(blocks1), kThreads2, smem1,
-                     stream>>>(a);
+  ssd_state_kernel<kS><<<static_cast<unsigned>(blocks1), kThreads2, smem,
+                         stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_pass_kernel<<<dim3(b * nh, kT * kT / 256), 256, 0, stream>>>(a);
+  ssd_pass_kernel<kS><<<dim3(b * nh, kT * kS / 256), 256, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_out_kernel<<<static_cast<unsigned>(blocks3), kThreads2, smem3,
-                   stream>>>(a);
+  ssd_out_kernel<kS><<<static_cast<unsigned>(blocks3), kThreads2, smem,
+                       stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1116,8 +1207,10 @@ cudaError_t run(const void* x, const void* dt, const void* A, const void* B,
 }  // namespace
 
 // x_dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, three
-// launches).  ws: float32 scratch of ws_floats values for bfloat16 x (the
-// wrapper's _workspace_floats), unused for float32.  Returns a cudaError_t.
+// launches).  st <= 64 runs the kernels of 64 state columns, 64 < st <= 128
+// those of 128.  ws: float32 scratch of ws_floats values for bfloat16 x
+// (the wrapper's _workspace_floats), unused for float32.  Returns a
+// cudaError_t.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C, void* y,
                                void* state, void* ws, long long ws_floats,
@@ -1125,14 +1218,20 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                int chunk, int x_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || S <= 0 || nh <= 0 || hp <= 0 || hp > kT || st <= 0 ||
-      st > kT || chunk <= 0 || chunk > kMaxChunk || S % chunk)
+      st > kMaxState || chunk <= 0 || chunk > kMaxChunk || S % chunk)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = st > kT;
   cudaError_t err;
   if (x_dtype == 0)
-    err = launch<float>(x, dt, A, B, C, y, state, b, S, nh, hp, st, chunk, s);
+    err = wide ? launch<float, 2 * kT>(x, dt, A, B, C, y, state, b, S, nh,
+                                       hp, st, chunk, s)
+               : launch<float, kT>(x, dt, A, B, C, y, state, b, S, nh, hp,
+                                   st, chunk, s);
   else if (x_dtype == 1 && ws != nullptr)
-    err = bf16::run(x, dt, A, B, C, y, state, ws, ws_floats, b, S, nh, hp, st,
-                    chunk, s);
+    err = wide ? bf16::run<2 * kT>(x, dt, A, B, C, y, state, ws, ws_floats,
+                                   b, S, nh, hp, st, chunk, s)
+               : bf16::run<kT>(x, dt, A, B, C, y, state, ws, ws_floats, b, S,
+                               nh, hp, st, chunk, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -27,25 +27,34 @@ import torch
 from .common import DTYPE_CODES, check, cuda_device, launch
 
 _SOURCE = "ssd_scan.cu"
-#: the largest head and state widths the kernel's 64 x 64 tiles hold, and
+#: the largest head width the kernel's 64-row tiles hold, the largest
+#: state (its tiles hold 64 or 128 state columns, as the TPU kernel's), and
 #: the longest chunk its shared cumulative sums hold
 MAX_HEADDIM = 64
-MAX_STATE = 64
+MAX_STATE = 128
 MAX_CHUNK = 1024
+
+
+def state_columns(st: int) -> int:
+    """The state columns of the kernels' tiles for a state of ``st``: 64,
+    or 128 above 64 (the narrower state zero-filled)."""
+    return 64 if st <= 64 else 128
 
 
 def _workspace_floats(b, S, nh, hp, st, chunk) -> int:
     """float32 values of the bfloat16 kernels' scratch (``Workspace`` in
     ``csrc/ssd_scan.cu``, which checks the size): each chunk's own state,
     each chunk's total decay, the state before each chunk as a bf16 hi/lo
-    plane of 64 rows, B and C as planes, and cum and dt by head; each part
-    rounded up to 64 values."""
+    plane of 64 rows, B and C as planes (a plane row of kS state columns
+    is kS float32 values), and cum and dt by head; each part rounded up to
+    64 values."""
     def up(n):
         return -(-n // 64) * 64
 
     nc = S // chunk
+    ks = state_columns(st)
     return (up(b * nc * nh * hp * st) + up(b * nc * nh)
-            + b * nc * nh * 64 * 64 + 2 * b * S * 64 + 2 * up(b * S * nh))
+            + b * nc * nh * 64 * ks + 2 * b * S * ks + 2 * up(b * S * nh))
 
 
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
@@ -100,8 +109,8 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
     """x (b, S, nh, hp) float32 or bfloat16, dt (b, S, nh), A (nh,) and
-    B, C (b, S, st) float32; hp, st <= 64, chunk = min(chunk, S) <= 1024
-    and a divisor of S.  Returns (y (b, S, nh, hp) in x's dtype, state
+    B, C (b, S, st) float32; hp <= 64, st <= 128, chunk = min(chunk, S)
+    <= 1024 and a divisor of S.  Returns (y (b, S, nh, hp) in x's dtype, state
     (b, nh, hp, st) float32).  ``head_block`` is the TPU kernel's head
     tile, kept for parity: the bfloat16 kernels fix theirs at 4 heads a
     block, the float32 kernel runs one block per (batch, head)."""

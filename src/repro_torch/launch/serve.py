@@ -6,9 +6,11 @@ then chunk-self-scheduled dispatch with online algorithm selection over the
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --requests 2048 --replicas 16 --selector QLearn --reward LT
 
-The port of ``repro.launch.serve``: every arch the port registers is
-served (the dense, MoE and hybrid families), at ``smoke_reduce``, as the
-reference's ``--smoke`` (set by default; no flag clears it).
+The port of ``repro.launch.serve``: every arch of the reference is served
+(the dense, MoE, SSM, hybrid and enc-dec families), at ``smoke_reduce``,
+as the reference's ``--smoke`` (set by default; no flag clears it).  The
+enc-dec family decodes from a zero cache, its cross-attention cache
+included, as the reference's launcher does.
 """
 
 from __future__ import annotations

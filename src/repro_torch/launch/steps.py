@@ -96,9 +96,11 @@ def make_serve_step(cfg: ModelConfig):
 
 def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
     """prefill_step(params, batch) -> (logits, cache) of
-    ``batch["tokens"]`` (``models.prefill``)."""
+    ``batch["tokens"]`` and, for the enc-dec family, ``batch["embeds"]``
+    (``models.prefill``)."""
     def prefill_step(params, batch):
-        return prefill(cfg, params, batch["tokens"], attn_impl=attn_impl)
+        return prefill(cfg, params, batch["tokens"],
+                       embeds=batch.get("embeds"), attn_impl=attn_impl)
     return prefill_step
 
 

@@ -8,7 +8,8 @@ the card).  ``--smoke`` (the default) trains the reduced same-family
 config; ``--full`` the whole architecture.  The step-plan autotuner (the
 paper's selection technique, L2) picks the execution plan online;
 checkpoints are atomic and async; injected failures exercise the restart
-path.  The archs are those whose family the port trains (dense).
+path.  The archs are those whose family the port trains (dense); any
+other arch is refused with the reason (``NOT_TRAINED``).
 
 Besides the reference's summary line, it prints one JSON line per plan it
 ran: the steps, their wall seconds and tokens a second, the peak of
@@ -37,6 +38,15 @@ from ..runtime import Trainer, TrainerConfig
 
 #: the archs whose family the port trains
 TRAIN_ARCHS = [a for a in ARCH_NAMES if get_config(a).family == "dense"]
+#: why the port trains no other family: the launcher's refusal
+NOT_TRAINED = {
+    "ssm": "its SSD scan has no backward kernel yet (ROADMAP queue 1, "
+           "item 2: SSM and hybrid training)",
+    "hybrid": "its SSD scan has no backward kernel yet (ROADMAP queue 1, "
+              "item 2: SSM and hybrid training)",
+    "moe": "the port serves it; its training is not ported",
+    "encdec": "the port serves it; its training is not ported",
+}
 #: default checkpoint directory: the checkout's build directory
 DEFAULT_CKPT = str(Path(__file__).resolve().parents[3] / "build"
                    / "train_ckpt")
@@ -87,7 +97,7 @@ def plan_summary(history, records, tokens_per_step: int) -> List[Dict]:
 
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=TRAIN_ARCHS, default="llama3.2-3b")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="llama3.2-3b")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
@@ -100,6 +110,10 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
+    family = get_config(args.arch).family
+    if args.arch not in TRAIN_ARCHS:
+        ap.error(f"the port trains the dense family only: {args.arch} is "
+                 f"{family}, and {NOT_TRAINED[family]}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -1,5 +1,6 @@
-"""repro_torch.models — the dense (with qwen2-vl's M-RoPE backbone), MoE
-and hybrid (Zamba2) families: init, forward, loss, caches, prefill and
+"""repro_torch.models — the architecture zoo: the dense (with qwen2-vl's
+M-RoPE backbone), MoE, SSM (Mamba2), hybrid (Zamba2) and enc-dec (the
+Whisper backbone) families: init, forward, loss, caches, prefill and
 decode, on the port's kernels; the dense family is also trained."""
 
 from .decode import (decode_cache_specs, decode_step, init_decode_cache,

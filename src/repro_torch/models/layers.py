@@ -1,10 +1,9 @@
-"""Neural-net building blocks of the dense, VL, MoE and hybrid (Zamba2)
-paths.
+"""Neural-net building blocks shared by all architecture families.
 
-The port of ``repro.models.layers`` but ``layer_norm`` (the enc-dec
-family's, which waits for its slice): RoPE and Qwen2-VL's M-RoPE, the
-attentions, SwiGLU, the sort-based MoE dispatch, and ``gelu_mlp``, also
-the block of the learned-selection policy net.  RMSNorm goes to the
+The port of ``repro.models.layers``: RMSNorm and the enc-dec family's
+LayerNorm, RoPE and Qwen2-VL's M-RoPE, the attentions, SwiGLU, the
+sort-based MoE dispatch, and ``gelu_mlp`` (Whisper's MLP, also the block
+of the learned-selection policy net).  RMSNorm goes to the
 ``rmsnorm`` kernel and prefill / training attention to the
 ``flash_attention`` kernel; under autograd on the card
 both run as ``torch.autograd.Function``s whose backwards are the
@@ -12,10 +11,10 @@ both run as ``torch.autograd.Function``s whose backwards are the
 through XLA's autodiff of these twins); the attention forward then also
 keeps each row's log-sum-exp, from which its backward takes the softmax
 (bf16 products on the tensor cores).  Single-token decode attention,
-RoPE, the SwiGLU and GELU products and the MoE's routing and batched
-expert products stay plain PyTorch (and plain autograd), as the
-reference leaves them to XLA.  Layouts are the
-reference's: q (B, S, H, hd), k and v (B, T, K, hd).
+RoPE, LayerNorm (the reference has no Pallas kernel for it), the SwiGLU
+and GELU products and the MoE's routing and batched expert products stay
+plain PyTorch (and plain autograd), as the reference leaves them to XLA.
+Layouts are the reference's: q (B, S, H, hd), k and v (B, T, K, hd).
 """
 
 from __future__ import annotations
@@ -31,6 +30,18 @@ from ..kernels.rmsnorm import rmsnorm
 
 def rms_norm(x, w, eps: float = 1e-5):
     return rmsnorm(x, w, eps=eps)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm over the last axis, spelled as the reference's: in
+    float32, the mean, the variance of ``x - mean``, then ``rsqrt``; the
+    result in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
 
 
 def matmul(x, w):

@@ -1,22 +1,24 @@
-"""Architecture assembly: init / forward / logits / loss for the dense,
-MoE and hybrid families.
+"""Architecture assembly: init / forward / logits / loss for every
+family.
 
-The port of ``repro.models.model`` for three families: ``dense``
-(llama-style: a stack of attention + SwiGLU blocks, served, and trained
-here; qwen2-vl's backbone is one, with M-RoPE), ``moe`` (the same
-attention with a top-k mixture of SwiGLU experts, served) and ``hybrid``
+The port of ``repro.models.model``: ``dense`` (llama-style: a stack of
+attention + SwiGLU blocks, served, and trained here; qwen2-vl's backbone
+is one, with M-RoPE), ``moe`` (the same attention with a top-k mixture of
+SwiGLU experts), ``ssm`` (Mamba2: a stack of Mamba2 layers), ``hybrid``
 (Zamba2: a stack of Mamba2 layers with one *shared* attention + SwiGLU
-block applied after every ``attn_every`` of them, served).  Parameters are
-plain dicts of tensors; the layers are stacked with a leading L, as the
-reference stacks them, and a Python loop over L takes the place of
-``lax.scan``: a forward takes each stack apart once with ``unbind(0)``
-(views, and one stacked gradient in the backward).  With ``cfg.remat``
-each block runs under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint``), and the loss is the reference's blockwise
-cross-entropy, each sequence chunk checkpointed.  The reference's sharding
-hints are no-ops on one device and are left out
-(``repro_torch.distributed.ctx``).  The ssm and encdec families wait for
-their slice (ROADMAP queue 1).
+block applied after every ``attn_every`` of them) and ``encdec`` (the
+Whisper backbone: a LayerNorm / GELU encoder over stub frame embeddings
+and a decoder with causal self-attention and cross-attention to the
+encoder's output, sinusoidal positions in both), the last four served.
+Parameters are plain dicts of tensors; the layers are stacked with a
+leading L, as the reference stacks them, and a Python loop over L takes
+the place of ``lax.scan``: a forward takes each stack apart once with
+``unbind(0)`` (views, and one stacked gradient in the backward).  With
+``cfg.remat`` each dense or MoE block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), and the
+loss is the reference's blockwise cross-entropy, each sequence chunk
+checkpointed.  The reference's sharding hints are no-ops on one device
+and are left out (``repro_torch.distributed.ctx``).
 """
 
 from __future__ import annotations
@@ -31,13 +33,12 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed.ctx import moe_groups
 from .layers import (apply_mrope, apply_rope, decode_attention,
-                     full_attention, matmul, moe_block, rms_norm, swiglu)
+                     full_attention, gelu_mlp, layer_norm, matmul, moe_block,
+                     rms_norm, swiglu)
 from .ssm import init_ssm_layer, ssm_layer_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the families whose init, forward, loss, caches, prefill and decode are
-#: ported
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 CE_CHUNK = 512                # sequence chunk for the blockwise CE loss
 
 
@@ -45,12 +46,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1); "
-            f"the port runs and serves the {', '.join(PORTED_FAMILIES)} "
-            "families")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # ===========================================================================
@@ -106,8 +104,35 @@ def _init_moe_layer(gen, cfg: ModelConfig, dtype, device):
     }
 
 
+def _init_encdec_layer(gen, cfg: ModelConfig, dtype, device, cross: bool):
+    """One Whisper layer: LayerNorms with biases, attention, the GELU MLP
+    with biases; a decoder layer (``cross``) adds the cross-attention's
+    ``x``-prefixed projections and its LayerNorm ``lnx``."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(D)
+
+    def const(v, n):
+        return torch.full((n,), v, dtype=dtype, device=device)
+
+    p = {
+        "ln1": const(1.0, D), "ln1_b": const(0.0, D),
+        "ln2": const(1.0, D), "ln2_b": const(0.0, D),
+        **_init_attn(gen, cfg, dtype, device),
+        "w1": (_normal(gen, (D, Fd), device) * s).to(dtype),
+        "b1": const(0.0, Fd),
+        "w2": (_normal(gen, (Fd, D), device) * s).to(dtype),
+        "b2": const(0.0, D),
+    }
+    if cross:
+        p.update({"x" + k: v
+                  for k, v in _init_attn(gen, cfg, dtype, device).items()})
+        p["lnx"] = const(1.0, D)
+        p["lnx_b"] = const(0.0, D)
+    return p
+
+
 _INIT_LAYER = {"dense": _init_dense_layer, "moe": _init_moe_layer,
-               "hybrid": init_ssm_layer}
+               "ssm": init_ssm_layer, "hybrid": init_ssm_layer}
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -119,13 +144,14 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator], *,
                 device: Optional[Union[str, torch.device]] = None) -> Dict:
     """Random parameters from ``key`` (a seed, or a ``torch.Generator`` on
-    ``device``), on ``device`` (default the card).  The layers (dense or
-    MoE blocks, or Mamba2 layers) are stacked with a leading L: each layer is
-    drawn and written into its slot of the stack, so the peak is one
-    layer's float32 draw (an expert stack's, for the MoE family).
-    ``device="meta"`` gives the tree's structure, shapes and dtypes alone,
-    holding no memory (a restore's template)."""
-    _require_ported(cfg)
+    ``device``), on ``device`` (default the card), in the reference's
+    layout.  The layers (dense or MoE blocks, Mamba2 layers, or the
+    enc-dec family's ``enc_layers`` and ``dec_layers``) are stacked with a
+    leading L: each layer is drawn and written into its slot of the stack,
+    so the peak is one layer's float32 draw (an expert stack's, for the
+    MoE family).  ``device="meta"`` gives the tree's structure, shapes and
+    dtypes alone, holding no memory (a restore's template)."""
+    _check_family(cfg)
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
     gen = key
@@ -141,32 +167,53 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = (_normal(gen, (D, V), dev)
                              / math.sqrt(D)).to(dtype)
-    layers: Dict[str, torch.Tensor] = {}
-    for i in range(cfg.n_layers):
-        layer = _INIT_LAYER[cfg.family](gen, cfg, dtype, dev)
-        for name, t in layer.items():
-            if name not in layers:
-                layers[name] = torch.empty((cfg.n_layers,) + t.shape,
-                                           dtype=t.dtype, device=dev)
-            layers[name][i] = t
-    params["layers"] = layers
+    if cfg.family == "encdec":
+        params["enc_layers"] = _stack_layers(
+            cfg.encoder_layers, lambda: _init_encdec_layer(
+                gen, cfg, dtype, dev, cross=False), dev)
+        params["dec_layers"] = _stack_layers(
+            cfg.n_layers, lambda: _init_encdec_layer(
+                gen, cfg, dtype, dev, cross=True), dev)
+        params["enc_final_norm"] = torch.ones((D,), dtype=dtype, device=dev)
+        params["enc_final_norm_b"] = torch.zeros((D,), dtype=dtype,
+                                                 device=dev)
+        params["final_norm_b"] = torch.zeros((D,), dtype=dtype, device=dev)
+        return params
+    params["layers"] = _stack_layers(
+        cfg.n_layers, lambda: _INIT_LAYER[cfg.family](gen, cfg, dtype, dev),
+        dev)
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_dense_layer(gen, cfg, dtype, dev)
     return params
 
 
-def layer_params(params: Dict, i: int) -> Dict:
-    """Layer ``i`` of the stacked parameters (views, no copy)."""
-    return {name: t[i] for name, t in params["layers"].items()}
+def _stack_layers(n: int, draw, device) -> Dict[str, torch.Tensor]:
+    """n layers from ``draw()``, each written into its slot of stacks
+    with a leading n."""
+    layers: Dict[str, torch.Tensor] = {}
+    for i in range(n):
+        for name, t in draw().items():
+            if name not in layers:
+                layers[name] = torch.empty((n,) + t.shape, dtype=t.dtype,
+                                           device=device)
+            layers[name][i] = t
+    return layers
 
 
-def unstack_layers(params: Dict) -> List[Dict]:
-    """Every layer of the stacked parameters, from one ``unbind(0)`` a
-    stack (views).  Under autograd the backward of ``unbind`` stacks the
-    layers' gradients once, where indexing each layer (``t[i]``) would
-    write a zero-filled copy of the whole stack per layer."""
-    names = list(params["layers"])
-    slices = [params["layers"][n].unbind(0) for n in names]
+def layer_params(params: Dict, i: int, group: str = "layers") -> Dict:
+    """Layer ``i`` of the stacked parameters ``params[group]`` (views, no
+    copy)."""
+    return {name: t[i] for name, t in params[group].items()}
+
+
+def unstack_layers(params: Dict, group: str = "layers") -> List[Dict]:
+    """Every layer of the stacked parameters ``params[group]``, from one
+    ``unbind(0)`` a stack (views).  Under autograd the backward of
+    ``unbind`` stacks the layers' gradients once, where indexing each
+    layer (``t[i]``) would write a zero-filled copy of the whole stack per
+    layer."""
+    names = list(params[group])
+    slices = [params[group][n].unbind(0) for n in names]
     return [dict(zip(names, ts)) for ts in zip(*slices)]
 
 
@@ -181,28 +228,37 @@ def _positions3(positions):
 
 
 def _attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
-                cache=None, cache_len=None):
+                kv=None, cache=None, cache_len=None, prefix=""):
     """Shared attention application.  Returns (out, (k, v)).
 
     Without a cache, the flash kernel (the reference picks its full or its
     chunked attention by length; both are the kernel's function).
+    kv: precomputed (k, v) for cross attention, taken as they are (no
+    norm, no rotation).
     cache: (k_cache, v_cache) for decode (x is a single step); the step's
     k and v are written into the caches at ``cache_len`` in place, and the
-    caches are returned."""
+    caches are returned.
+    prefix: of the projections' names (``"x"``: the cross attention's)."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = matmul(x, p["wq"]).reshape(B, S, H, hd)
-    k = matmul(x, p["wk"]).reshape(B, S, K, hd)
-    v = matmul(x, p["wv"]).reshape(B, S, K, hd)
-    if cfg.qk_norm and "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if positions is not None and cfg.mrope:
-        q = apply_mrope(q, _positions3(positions), cfg.rope_theta)
-        k = apply_mrope(k, _positions3(positions), cfg.rope_theta)
-    elif positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    g = lambda n: p[prefix + n]  # noqa: E731
+    q = matmul(x, g("wq")).reshape(B, S, H, hd)
+    if kv is None:
+        k = matmul(x, g("wk")).reshape(B, S, K, hd)
+        v = matmul(x, g("wv")).reshape(B, S, K, hd)
+    else:
+        k, v = kv
+    if cfg.qk_norm and (prefix + "q_norm") in p:
+        q = rms_norm(q, g("q_norm"), cfg.norm_eps)
+        if kv is None:
+            k = rms_norm(k, g("k_norm"), cfg.norm_eps)
+    if positions is not None and kv is None:
+        if cfg.mrope:
+            q = apply_mrope(q, _positions3(positions), cfg.rope_theta)
+            k = apply_mrope(k, _positions3(positions), cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         k_cache, v_cache = cache
@@ -215,7 +271,7 @@ def _attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
         o = full_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal)
         kv_out = (k, v)
-    out = matmul(o.reshape(B, S, H * hd), p["wo"])
+    out = matmul(o.reshape(B, S, H * hd), g("wo"))
     return out, kv_out
 
 
@@ -252,14 +308,18 @@ def _moe_block_apply(p, cfg, x, positions, cache=None, cache_len=None):
 # forward (prefill trunk)
 # ===========================================================================
 
-def forward(cfg: ModelConfig, params: Dict, tokens, *,
+def forward(cfg: ModelConfig, params: Dict, tokens, *, embeds=None,
             attn_impl: str = "auto", collect_cache: bool = False,
             max_len: Optional[int] = None):
     """Token trunk -> final hidden states (B, S, D).
 
+    embeds: the enc-dec family's encoder input, (B, encoder_seq, D) stub
+    frame embeddings; unused by the other families.
     collect_cache: also return the caches (the prefill path): the layers'
     (k, v) stacks (L, B, S, K, hd) for the dense and MoE families, the
-    segments' states and (k, v) for the hybrid one, in the reference's
+    layers' conv windows and states for the SSM one, the segments' states
+    and (k, v) for the hybrid one, the decoder's (k, v) and the cross
+    attention's (xk, xv) stacks for the enc-dec one, in the reference's
     layouts.  Each layer's k and v are written into stacks allocated once
     with ``max_len`` (default S) positions, zero past S: the port's
     addition, so that a full-width prefill never holds the cache twice
@@ -267,23 +327,30 @@ def forward(cfg: ModelConfig, params: Dict, tokens, *,
     of attention, kept for parity: every choice is the flash kernel here.
     Returns (hidden, cache_or_None, aux dict); the MoE family's aux holds
     ``expert_load`` (L, E), the tokens routed to each expert of each layer
-    (the MoE's LIB signal)."""
-    _require_ported(cfg)
+    (the MoE's LIB signal), the enc-dec family's ``enc_out``, the
+    encoder's output."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        return _encdec_forward(cfg, params, tokens, embeds=embeds,
+                               collect_cache=collect_cache, max_len=max_len)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    kv = None
-    if collect_cache:
-        n_kv = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
-                else cfg.n_layers)
-        kv = _kv_stacks(cfg, n_kv, x, max_len)
-    if cfg.family == "hybrid":
-        x, states = _hybrid_forward(cfg, params, x, positions, kv)
-        cache = (states, kv) if collect_cache else None
-        aux = {}
+    aux: Dict = {}
+    if cfg.family == "ssm":
+        x, cache = _ssm_forward(cfg, params, x, collect_cache)
     else:
-        x, aux = _stack_forward(cfg, params, x, positions, kv)
-        cache = kv
+        kv = None
+        if collect_cache:
+            n_kv = (cfg.n_layers // cfg.attn_every
+                    if cfg.family == "hybrid" else cfg.n_layers)
+            kv = _kv_stacks(cfg, n_kv, x, max_len)
+        if cfg.family == "hybrid":
+            x, states = _hybrid_forward(cfg, params, x, positions, kv)
+            cache = (states, kv) if collect_cache else None
+        else:
+            x, aux = _stack_forward(cfg, params, x, positions, kv)
+            cache = kv
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, cache, aux
 
@@ -364,6 +431,125 @@ def _hybrid_forward(cfg, params, x, positions, kv):
     return x, {"conv": conv, "state": state}
 
 
+def _ssm_forward(cfg, params, x, collect):
+    """Mamba2: the stack of Mamba2 layers.  Collecting the cache, each
+    layer's conv window and final state are written into stacks allocated
+    at the first layer: {"conv": (L, B, k-1, ch), "state": (L, B, nh, hp,
+    st) float32}, the reference's layout."""
+    cache = None
+    for i, p in enumerate(unstack_layers(params)):
+        x, st = ssm_layer_apply(p, x, cfg, collect_state=collect)
+        if collect:
+            if cache is None:
+                cache = {k: t.new_empty((cfg.n_layers,) + t.shape)
+                         for k, t in st.items()}
+            for k, t in st.items():
+                cache[k][i] = t
+    return x, cache
+
+
+def _sinusoid(S: int, D: int, device=None):
+    """Whisper's sinusoidal positions of 0 .. S-1: (S, D) float32."""
+    return _sinusoid_at(torch.arange(S, device=device), D)
+
+
+def _sinusoid_at(positions, D: int):
+    """The rows of ``_sinusoid`` at ``positions`` (a 1-d tensor, on any
+    device): sin of pos / 10000^(2i/D) for i < D/2, then cos, each row
+    computed as the whole table computes it."""
+    pos = positions.float()[:, None]
+    i = torch.arange(D // 2, device=positions.device).float()[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=positions.device),
+                          2 * i / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encoder_input(cfg, embeds):
+    """The encoder's input: the stub frame embeddings (B, Senc, D) plus
+    the positions, each in the parameters' dtype, as the reference adds
+    them."""
+    dtype = _dtype(cfg)
+    _, Senc, D = embeds.shape
+    return embeds.to(dtype) + _sinusoid(Senc, D, embeds.device).to(dtype)
+
+
+def _encoder_layer(cfg, p, h):
+    """One Whisper encoder layer: LayerNorm, non-causal self-attention,
+    LayerNorm, GELU MLP."""
+    a = layer_norm(h, p["ln1"], p["ln1_b"], cfg.norm_eps)
+    h = h + _attn_apply(p, cfg, a, None, causal=False)[0]
+    m = layer_norm(h, p["ln2"], p["ln2_b"], cfg.norm_eps)
+    return h + gelu_mlp(m, p["w1"], p["b1"], p["w2"], p["b2"])
+
+
+def _encoder(cfg, params, embeds):
+    """Whisper's encoder over the stub frame embeddings (B, Senc, D): its
+    layers, then the final LayerNorm.  Returns its output (B, Senc, D)."""
+    h = _encoder_input(cfg, embeds)
+    for p in unstack_layers(params, "enc_layers"):
+        h = _encoder_layer(cfg, p, h)
+    return layer_norm(h, params["enc_final_norm"],
+                      params["enc_final_norm_b"], cfg.norm_eps)
+
+
+def _cross_kv(cfg, p, enc_out):
+    """A decoder layer's cross-attention k and v of the encoder's output:
+    (B, Senc, K, hd) each."""
+    B, Senc, _ = enc_out.shape
+    shape = (B, Senc, cfg.n_kv_heads, cfg.head_dim)
+    return (matmul(enc_out, p["xwk"]).reshape(shape),
+            matmul(enc_out, p["xwv"]).reshape(shape))
+
+
+def _decoder_layer(cfg, p, x, xkv, cache=None, cache_len=None):
+    """One Whisper decoder layer: LayerNorm, causal self-attention (on a
+    decode step, over the cache), LayerNorm, cross-attention over the
+    encoder's (xk, xv), LayerNorm, GELU MLP.  Returns (x, its (k, v))."""
+    a = layer_norm(x, p["ln1"], p["ln1_b"], cfg.norm_eps)
+    o, kv = _attn_apply(p, cfg, a, None, causal=True, cache=cache,
+                        cache_len=cache_len)
+    x = x + o
+    c = layer_norm(x, p["lnx"], p["lnx_b"], cfg.norm_eps)
+    o2, _ = _attn_apply(p, cfg, c, None, causal=False, kv=xkv, prefix="x")
+    x = x + o2
+    m = layer_norm(x, p["ln2"], p["ln2_b"], cfg.norm_eps)
+    return x + gelu_mlp(m, p["w1"], p["b1"], p["w2"], p["b2"]), kv
+
+
+def _encdec_forward(cfg, params, tokens, *, embeds, collect_cache,
+                    max_len=None):
+    """Whisper backbone.  embeds: (B, encoder_seq, D) stub frame
+    embeddings.  Collecting the cache, each decoder layer's (k, v) is
+    written into stacks of ``max_len`` positions and its cross (xk, xv)
+    into stacks of the encoder's length, all allocated once: returns
+    (hidden, ((k, v), xk, xv) or None, {"enc_out": ...})."""
+    if embeds is None:
+        raise ValueError("the encdec family needs frontend embeddings "
+                         "(embeds)")
+    enc_out = _encoder(cfg, params, embeds)
+    B, S = tokens.shape
+    D = cfg.d_model
+    x = (params["embed"][tokens]
+         + _sinusoid(S, D, tokens.device).to(_dtype(cfg)))
+    kv = xk = xv = None
+    if collect_cache:
+        kv = _kv_stacks(cfg, cfg.n_layers, x, max_len)
+        xshape = (cfg.n_layers,) + enc_out.shape[:2] + (cfg.n_kv_heads,
+                                                         cfg.head_dim)
+        xk, xv = enc_out.new_empty(xshape), enc_out.new_empty(xshape)
+    for i, p in enumerate(unstack_layers(params, "dec_layers")):
+        xkv = _cross_kv(cfg, p, enc_out)
+        x, kv_i = _decoder_layer(cfg, p, x, xkv)
+        if collect_cache:
+            _write_kv(kv, i, kv_i)
+            xk[i], xv[i] = xkv
+        del kv_i, xkv
+    x = layer_norm(x, params["final_norm"], params["final_norm_b"],
+                   cfg.norm_eps)
+    cache = ((kv, xk, xv) if collect_cache else None)
+    return x, cache, {"enc_out": enc_out}
+
+
 # ===========================================================================
 # logits
 # ===========================================================================
@@ -412,6 +598,8 @@ def chunked_ce_loss(cfg, params, hidden, labels, z_loss: float = 1e-4):
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """batch: {"tokens": (B, S), "labels": (B, S)}.  Returns (loss, aux)."""
-    hidden, _, aux = forward(cfg, params, batch["tokens"])
+    """batch: {"tokens": (B, S), "labels": (B, S), ["embeds"]}.  Returns
+    (loss, aux)."""
+    hidden, _, aux = forward(cfg, params, batch["tokens"],
+                             embeds=batch.get("embeds"))
     return chunked_ce_loss(cfg, params, hidden, batch["labels"]), aux

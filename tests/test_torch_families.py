@@ -313,11 +313,13 @@ def test_prefill_and_serve_steps_match_jax():
 
 def test_serve_launcher_defaults_to_llama_and_serves_every_arch():
     """The launcher's ``--arch`` defaults to llama3.2-3b, as the
-    reference's; every arch the port registers is one of its choices and
-    is served (``live`` on the CPU, the reference's 24 warm-up
-    requests)."""
+    reference's; its choices are the reference's archs, all ten, and each
+    is served (``live`` on the CPU, the reference's 24 warm-up requests),
+    the SSM and enc-dec families' included; an unknown arch is refused."""
+    from repro.configs import ARCH_NAMES as J_ARCHS
     from repro_torch.launch import serve
     assert serve.parse_args([]).arch == "llama3.2-3b"
+    assert T_ARCHS == J_ARCHS and len(T_ARCHS) == 10
     for name in T_ARCHS:
         assert serve.parse_args(["--arch", name]).arch == name
         cfg = t_smoke(t_get_config(name))
@@ -326,7 +328,7 @@ def test_serve_launcher_defaults_to_llama_and_serves_every_arch():
         assert stats["steps"] == 6 and stats["tokens"] == 24, name
         assert per_tok > 0
     with pytest.raises(SystemExit):
-        serve.parse_args(["--arch", "mamba2-2.7b"])
+        serve.parse_args(["--arch", "mamba2-7b"])
 
 
 def test_ctx_flags_match_jax():

@@ -83,6 +83,10 @@ FAMILIES_SLICE = {
     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.grok_1_314b",
     "repro_torch.distributed.ctx",
 }
+#: the SSM and enc-dec serving slice: their configs
+SSM_ENCDEC_SLICE = {
+    "repro_torch.configs.mamba2_2p7b", "repro_torch.configs.whisper_small",
+}
 
 
 def _env():
@@ -112,6 +116,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert TRAINING_SLICE <= set(MODULES)
     assert DENSE_TRAIN_SLICE <= set(MODULES)
     assert FAMILIES_SLICE <= set(MODULES)
+    assert SSM_ENCDEC_SLICE <= set(MODULES)
     assert rec["bad"] == []
 
 
@@ -197,3 +202,25 @@ def test_training_entry_points_default_to_the_card():
         make_plan_builder(cfg, AdamWConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "whisper-small"])
+def test_ssm_and_encdec_serving_defaults_to_the_card(arch):
+    """``init_params``, ``init_decode_cache``, ``live`` and the serve
+    launcher run the SSM and enc-dec families on the card unless asked for
+    the CPU; without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.launch import serve
+    from repro_torch.models import init_decode_cache, init_params
+    cfg = smoke_reduce(get_config(arch))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_decode_cache(cfg, 2, 8)
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.live(cfg, params, slots=2, max_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch])

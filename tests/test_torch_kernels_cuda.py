@@ -327,13 +327,18 @@ def test_rmsnorm_of_no_rows_launches_nothing(card):
 #: long key range with one kv head, and a full 2048-token prefill; then
 #: llama3.2-3b's training call cut to 6 / 2 heads (groups of 3, hd 128),
 #: and the serving prefills of qwen3-32b (groups of 8: 64 / 8 heads, cut
-#: to 16 / 2) and olmoe-1b-7b (groups of 1: 16 / 16 heads, cut to 4 / 4)
+#: to 16 / 2) and olmoe-1b-7b (groups of 1: 16 / 16 heads, cut to 4 / 4);
+#: last, whisper-small's calls cut to 2 of its 12 heads of 64: the
+#: encoder's 1,500 frames (no multiple of the 64-key tile), the decoder's
+#: 32-token prompt against them, and decode's one query against them
 FLASH = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
          (1, 257, 129, 6, 3, 64), (2, 256, 256, 4, 4, 112),
          (2, 100, 72, 4, 2, 112), (1, 300, 300, 2, 1, 128),
          (1, 257, 129, 6, 3, 112), (2, 64, 2048, 4, 1, 112),
          (1, 2048, 2048, 2, 2, 112), (1, 2048, 2048, 6, 2, 128),
-         (1, 2048, 2048, 16, 2, 128), (2, 2048, 2048, 4, 4, 128)]
+         (1, 2048, 2048, 16, 2, 128), (2, 2048, 2048, 4, 4, 128),
+         (2, 1500, 1500, 2, 2, 64), (2, 32, 1500, 2, 2, 64),
+         (3, 1, 1500, 2, 2, 64)]
 
 
 @pytest.mark.cuda
@@ -378,14 +383,19 @@ def test_flash_kernel_lse_matches_plain_lse(card, B, S, T, H, K, hd, causal,
     assert torch.equal(o, FA.flash_attention(q, k, v, causal=causal))
 
 
-#: the last three are the edges of the bfloat16 kernels' head blocks and
-#: chunk-parallel passes: 3 heads in a block of 4 with 16 chunks of 16,
-#: 6 heads (a block and a half) over 8 chunks of 256, and the serving
-#: width of 112 heads in one chunk of 1024
+#: small shapes, then the edges of the bfloat16 kernels' head blocks and
+#: chunk-parallel passes: 3 heads in a block of 4 with 16 chunks of 16, 6 heads (a block
+#: and a half) over 8 chunks of 256, and the serving width of 112 heads in
+#: one chunk of 1024; the last four run the tiles of 128 state columns:
+#: st = 96 (zero-filled to 128), Mamba2-2.7B's 128 at its 80 heads and
+#: chunk of 256, an odd st of 101 (rows of B and C no float4 chunks), and
+#: 128 in one chunk of 1024
 SSD_CASES = [(1, 64, 4, 32, 16, 16), (2, 128, 8, 32, 16, 32),
              (1, 96, 6, 16, 8, 32), (2, 512, 8, 64, 64, 256),
              (1, 256, 3, 64, 64, 128), (1, 256, 3, 64, 64, 16),
-             (2, 2048, 6, 64, 64, 256), (1, 1024, 112, 64, 64, 1024)]
+             (2, 2048, 6, 64, 64, 256), (1, 1024, 112, 64, 64, 1024),
+             (2, 512, 6, 64, 96, 256), (1, 1024, 80, 64, 128, 256),
+             (1, 192, 3, 32, 101, 64), (1, 1024, 4, 64, 128, 1024)]
 
 
 def _ssd_args(b, S, nh, hp, st, dtype, device):
@@ -424,6 +434,9 @@ def test_model_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="is on"):
         RMS.rmsnorm(q, torch.ones(64))
     args = _ssd_args(1, 64, 2, 96, 16, "float32", card)
+    with pytest.raises(ValueError, match="exceed"):
+        SSD.ssd_scan(*args, chunk=32)
+    args = _ssd_args(1, 64, 2, 32, 136, "float32", card)
     with pytest.raises(ValueError, match="exceed"):
         SSD.ssd_scan(*args, chunk=32)
 

@@ -162,6 +162,7 @@ SSD_CASES = [
     (2, 128, 8, 32, 16, 32, 4),
     (1, 96, 6, 16, 8, 32, 2),      # nh = 6, head block 2
     (1, 128, 4, 64, 64, 64, 4),    # the path's hp = st = 64
+    (1, 128, 4, 64, 128, 64, 4),   # Mamba2-2.7B's state of 128
 ]
 
 

@@ -183,24 +183,41 @@ def test_prefill_then_decode_equals_forward(model):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "whisper-small"])
-def test_other_families_wait_for_their_slice(arch):
-    """The SSM and enc-dec archs are refused by name, and their families
-    by the model: init, forward, the cache and decode (ROADMAP queue 1);
-    the dense, MoE and hybrid families are served."""
-    with pytest.raises(KeyError, match="ROADMAP"):
-        t_get_config(arch)
-    family = get_config(arch).family
-    hybrid = t_smoke(t_get_config("zamba2-7b"))
-    other = dataclasses.replace(hybrid, family=family)
-    params = T.init_params(hybrid, 0, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: T.init_params(other, 0, device="cpu"),
-                 lambda: T.forward(other, params, toks),
-                 lambda: T.prefill(other, params, toks),
-                 lambda: T.init_decode_cache(other, 1, 8, device="cpu"),
-                 lambda: T.decode_step(other, params, {}, toks[:, 0])):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            call()
+def test_ssm_and_encdec_forward_collects_the_reference_caches(arch):
+    """The SSM and enc-dec families' ``forward`` with ``collect_cache``
+    (the prefill trunk) from the reference's weights: the hidden states
+    and the raw caches in the reference's structure (the SSM's stacked
+    conv windows and states; the enc-dec's decoder (k, v), cross xk and
+    xv), within REL; ``max_len`` pads only the decoder's k and v."""
+    cfg = dataclasses.replace(smoke_reduce(get_config(arch)), remat=False)
+    tcfg = dataclasses.replace(t_smoke(t_get_config(arch)), remat=False)
+    params = init_params(cfg, jax.random.PRNGKey(1))
+    tparams = convert.model_params_from_jax(
+        jax.tree.map(np.asarray, params), device="cpu")
+    toks = _tokens(cfg, 2, 32, seed=4)
+    rng = np.random.default_rng(4)
+    emb = (rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)
+                               ).astype(np.float32)
+           if cfg.family == "encdec" else None)
+    jkw = {} if emb is None else {"embeds": jnp.asarray(emb)}
+    tkw = {} if emb is None else {"embeds": torch.from_numpy(emb)}
+    h, jc, _ = forward(cfg, params, jnp.asarray(toks), collect_cache=True,
+                       **jkw)
+    th, tc, _ = T.forward(tcfg, tparams, torch.from_numpy(toks),
+                          collect_cache=True, max_len=40, **tkw)
+    assert_rel(th, h)
+    if cfg.family == "ssm":
+        assert set(tc) == set(jc) == {"conv", "state"}
+        for name in jc:
+            assert_rel(tc[name], jc[name])
+    else:
+        ((k, v), xk, xv), ((jk, jv), jxk, jxv) = tc, jc
+        for got, want in ((k, jk), (v, jv)):
+            assert got.shape[2] == 40
+            assert not bool(got[:, :, 32:].any())
+            assert_rel(got[:, :, :32], want)
+        for got, want in ((xk, jxk), (xv, jxv)):
+            assert_rel(got, want)
 
 
 def test_entry_points_default_to_the_card():
