@@ -56,9 +56,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
     a rerun bit-equal; every rmsnorm row (these, the prefill's and [17a]'s
     training call) is timed in turns with ``rms_norm``;
 12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
-    T=275, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
-    lanes, 18,150 decisions; the cell's T = 500 cut to its first 275 steps
-    to keep the script inside its limit beside [18] and [19]) on the kernels, the
+    T=125, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
+    lanes, 8,250 decisions; the cell's T = 500 cut to its first 125 steps
+    to keep the script inside its limit beside [18]-[20]) on the kernels, the
     sweep, the lockstep replay and the SimPolicy pricing each on a backend
     of its own: the walls, the
     replay's ``PathTimes`` split, the host's decide and learn remainder, the
@@ -66,19 +66,19 @@ kernels, and prints one JSON line per result.  Phases, in order:
     timed at the replay's largest call; replay steps under
     ``torch.profiler`` (the card's busy time and launches a step, its idle
     share); the same grid with two learned lanes
-    at T = 10 on the kernels and on the plain event core, and at T = 4 on
+    at T = 5 on the kernels and on the plain event core, and at T = 4 on
     the card and on the CPU, histories, totals and policy states bit-equal;
     and SimPolicy's decision equal to the exhaustive Oracle's on the
     noise-free ``tc``/``epyc`` loop;
 13. perturbed and heterogeneous machines: (a) the ``mandelbrot`` portfolio
-    at T = 20 on ``epyc`` and ``epyc_het`` under each kind of perturbation
+    at T = 10 on ``epyc`` and ``epyc_het`` under each kind of perturbation
     (a PE slowdown, four failed PEs, a noise burst, a ``cov`` workload
     drift) on the kernels, on the plain event core on the card and on the
     CPU, loop times, ``lib`` and chunk counts bit-equal, with the fused
     calls' largest B and K and the lanes forced whole; (b) the Fig. 5 cell
-    ``mandelbrot``/``epyc`` cut to T = 275 with 20 % of the PEs 8x slower
-    from step 250: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
-    both chunk modes (26 lanes, 21,450 decisions), its walls,
+    ``mandelbrot``/``epyc`` cut to T = 125 with 20 % of the PEs 8x slower
+    from step 100: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
+    both chunk modes (26 lanes, 9,750 decisions), its walls,
     ``PathTimes``, pricing and launches, and every lane's total beside its
     clean twin's over the same steps of [12]; steps 8-15 of that grid perturbed from step 0 under
     ``torch.profiler``; both event-loop kernels timed at the perturbed
@@ -188,7 +188,31 @@ kernels, and prints one JSON line per result.  Phases, in order:
     and rmsnorm at mamba2's rows (16,384 of 2,560 and of 5,120) in turns
     with ``rms_norm``, added to the kernels' records
     (``at_mamba_prefill_call``, ``at_whisper_encoder_call``,
-    ``at_mamba_call``).
+    ``at_mamba_call``);
+20. the SSM and hybrid families' training: (a) ``ssd_scan_bwd`` against
+    its plain version (autograd through ``ssd_scan_ref``) at states 16,
+    64, 96 and 128 and a call whose S is its chunk, float32 within
+    ``MODEL_TOL["ssd_scan"]`` and bf16 within ``BWD_BF16_REL_L2``, with
+    no and with a random gradient of the final state, every gradient
+    finite and a rerun bit-equal; (b) the SSD backward at mamba2-2.7b's
+    and Zamba2's training calls (4 x 2048; 80 heads, state 128; 112
+    heads, state 64) and the flash backward at Zamba2's shared block (32 /
+    32 heads of 112, causal), each against its plain version and timed
+    after an L2 flush beside its bound, its plain version and (flash)
+    SDPA's backward, and at the steps' own calls (4 x 1024); (c) both
+    archs' ``smoke_reduce`` on the card: one backward in float32 and bf16
+    with no leaf without a gradient, and 8 float32 steps from one start
+    on the card and the CPU within ``TRAIN_CARD_CPU_REL``; (d)
+    ``launch.train.main`` for mamba2-2.7b at full width and depth (64
+    layers, d_model 2,560, bf16) and (e) zamba2-7b at full width cut to
+    18 of its 81 layers (2 segments; the launcher's wiring, it has no
+    depth flag), 4 x 1024 tokens a step, 5 steps under ExhaustiveSel over
+    the five ``DEFAULT_PLANS``: per plan its step seconds, tokens/s, peak
+    allocated memory and kernel launches a step (held exactly: the SSD
+    scan once a layer and microbatch, twice under remat; its backward
+    once), the settled plan, the loss (finite, and lower on the first
+    step's batch after training than at that step), and the final save's
+    wall (the disk checked first, the checkpoint deleted after).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -223,6 +247,7 @@ REPLACES = {
     # backward kernels compute
     "rmsnorm_bwd": "src/repro/models/layers.py:20",
     "flash_attention_bwd": "src/repro/models/layers.py:91",
+    "ssd_scan_bwd": "src/repro/models/ssm.py:36",
 }
 #: NVIDIA H100 SXM data sheet: HBM bandwidth, non-tensor float32 peak and
 #: dense bf16 tensor-core peak
@@ -1134,13 +1159,13 @@ def rmsnorm_record(x, w, device, flush, plain_reps=10):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the Fig. 5 replay runs the cell's first 275 of its 500 steps (300 when
-#: phase [18] took the script past 1,050 s, 275 when [19] did; [13b]'s
-#: clean twins need its first PERTURB_T steps); the plain event core's
-#: check runs at T = 10: its per-chunk torch loop makes each pricing miss
-#: a fraction of a second (T = 50, then 30, then 20, each cut as the
-#: script's wall neared its limit)
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 275, 10, 4
+#: the Fig. 5 replay runs the cell's first 125 of its 500 steps (300 when
+#: phase [18] took the script past 1,050 s, 275 when [19] did, 125 when
+#: [20] did; [13b]'s clean twins need its first PERTURB_T steps); the
+#: plain event core's check runs at T = 5: its per-chunk torch loop
+#: makes each pricing miss a fraction of a second (T = 50, then 30, 20,
+#: 10, each cut as the script's wall neared its limit)
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 125, 5, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1304,7 +1329,8 @@ def profile_replay(device, warm: int = 8, steps: int = 4, lanes=None):
 
 def replay_checks(device):
     """The grid with two learned lanes: kernels against the plain event core
-    on the card at T = 30, the card against the CPU at T = 4, bit-equal;
+    on the card at T = REPLAY_CHECK_T, the card against the CPU at T = 4,
+    bit-equal;
     returns what was compared."""
     from repro_torch import TorchBatchedBackend
     from repro_torch.core import set_default_state
@@ -1367,13 +1393,15 @@ def simpolicy_oracle(backend):
 # ---------------------------------------------------------------------------
 
 PERTURB_APP, PERTURB_SYSTEMS, PERTURB_SWEEP_T = "mandelbrot", ("epyc",
-                                                              "epyc_het"), 20
-PERTURB_ONSET, PERTURB_CPU_ONSET = 250, 2
-#: [13b]'s depth: the T = 500 cell cut to its first 275 steps to keep the
-#: script inside its time limit beside phases [17]-[19] (300 until [19]
-#: came); the onset at step 250 stays inside, and each lane's total is
-#: held beside its clean twin's over the same 275 steps
-PERTURB_T = 275
+                                                              "epyc_het"), 10
+PERTURB_ONSET, PERTURB_CPU_ONSET = 100, 2
+#: [13b]'s depth: the T = 500 cell cut to keep the script inside its time
+#: limit beside phases [17]-[20] (300 until [19] came, 275 until [20]
+#: did, its onset at step 250); since [20] the cut keeps the cell's 25
+#: steps after the onset and cuts those before it to 100 (onset at 100,
+#: T = 125), and each lane's total is held beside its clean twin's over
+#: the same 125 steps.  [13a]'s lane sets run T = 10 (20 until [20])
+PERTURB_T = 125
 REACTIVE_LANES = [("ReactiveSim", "LT"), ("AwareSim", "LT")]
 SIMULATE_ALGS = (1, 2, 3, 4, 6)
 
@@ -2676,41 +2704,44 @@ def forward_lse_ms(q, k, v, device, flush):
     return out
 
 
-def smoke_llama(dtype="float32", **kw):
+def smoke_llama(dtype="float32", arch="llama3.2-3b", **kw):
+    """``arch``'s ``smoke_reduce`` in ``dtype`` (default the smoke llama)."""
     from repro_torch.configs import get_config, smoke_reduce
-    return dataclasses.replace(smoke_reduce(get_config("llama3.2-3b")),
+    return dataclasses.replace(smoke_reduce(get_config(arch)),
                                param_dtype=dtype, **kw)
 
 
-def leaves_get_gradients(device):
-    """[17b]: one backward of the smoke llama on the card, float32 and
-    bf16: every leaf, and every layer of a stacked leaf, has a gradient
-    that is finite and not all zero (every embedding row too: the head is
-    tied, so the logits reach all of them)."""
+def leaves_get_gradients(device, arch="llama3.2-3b", tag="[17b]"):
+    """[17b] / [20c]: one backward of ``arch``'s smoke cut (default the
+    smoke llama) on the card, float32 and bf16: every leaf, and every
+    layer of a stacked leaf, has a gradient that is finite and not all
+    zero (every embedding row too where the head is tied: the logits then
+    reach all of them)."""
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import init_params, loss_fn
     from repro_torch.optim import tree_items
     out = {}
     for dt in ("float32", "bfloat16"):
-        cfg = smoke_llama(dt)
+        cfg = smoke_llama(dt, arch)
+        rows = ("layers", "embed") if cfg.tie_embeddings else ("layers",)
         params = init_params(cfg, 0, device=device)
         toks = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (4, 129)).astype(np.int32)).to(device)
         (loss, _), grads = value_and_grad(
             lambda p, b: loss_fn(cfg, p, b), params,
             {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-        require(bool(torch.isfinite(loss)), f"[17b] {dt} loss {loss}")
+        require(bool(torch.isfinite(loss)), f"{tag} {dt} loss {loss}")
         empty = []
         for path, g in tree_items(grads):
             g = g.float()
             per = (g.reshape(g.shape[0], -1).abs().sum(1)
-                   if path[0] in ("layers", "embed") else
-                   g.abs().sum().reshape(1))
+                   if path[0] in rows else g.abs().sum().reshape(1))
             if not bool(torch.isfinite(g).all()) or bool((per == 0).any()):
                 empty.append("/".join(path))
         out[dt] = {"loss": float(loss), "leaves": len(list(tree_items(
             grads))), "without_gradient": empty}
-        require(not empty, f"[17b] {dt}: leaves without a gradient {empty}")
+        require(not empty, f"{tag} {arch} {dt}: leaves without a gradient "
+                f"{empty}")
     return out
 
 
@@ -2724,18 +2755,18 @@ def same_trees(a, b, atol=0.0):
     return worst, bits
 
 
-def train_runs(device, tmp):
-    """[17c] and [17d]: the smoke llama in float32, 8 steps from one start
-    (the CPU's init saved as each run's step-0 checkpoint) on the card and
-    on the CPU; and the reference test's restart equivalence on the
-    card."""
+def card_vs_cpu(device, tmp, arch="llama3.2-3b", tag="[17c]"):
+    """[17c] / [20c]: ``arch``'s smoke cut (default the smoke llama) in
+    float32, 8 steps from one start (the CPU's init saved as each run's
+    step-0 checkpoint) on the card and on the CPU, the losses within
+    TRAIN_CARD_CPU_REL."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import Trainer, TrainerConfig
-    cfg = smoke_llama()
+    cfg = smoke_llama(arch=arch)
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                       global_batch=4, seed=3)
@@ -2743,18 +2774,29 @@ def train_runs(device, tmp):
     start = {"params": params, "opt": adamw_init(params, opt)}
     runs = {}
     for label, dev in (("card", device), ("cpu", "cpu")):
-        CheckpointManager(f"{tmp}/{label}").save(0, start)
+        CheckpointManager(f"{tmp}/{arch}-{label}").save(0, start)
         runs[label] = Trainer(
-            cfg, opt, data, TrainerConfig(ckpt_dir=f"{tmp}/{label}",
+            cfg, opt, data, TrainerConfig(ckpt_dir=f"{tmp}/{arch}-{label}",
                                           ckpt_every=100, async_ckpt=False),
             step_fn=make_train_step(cfg, opt), device=dev).train(8)
     card, cpu = runs["card"]["losses"], runs["cpu"]["losses"]
     rel = float(np.max(np.abs(np.subtract(card, cpu)) / np.abs(cpu)))
-    c_vs_c = {"steps": 8, "losses_card": card, "losses_cpu": cpu,
-              "loss_rel": rel, "tolerance": TRAIN_CARD_CPU_REL}
-    require(rel <= TRAIN_CARD_CPU_REL, f"[17c] card vs CPU {c_vs_c}")
+    out = {"steps": 8, "losses_card": card, "losses_cpu": cpu,
+           "loss_rel": rel, "tolerance": TRAIN_CARD_CPU_REL}
+    require(rel <= TRAIN_CARD_CPU_REL, f"{tag} {arch} card vs CPU {out}")
+    return out
 
-    rcfg = dataclasses.replace(cfg, vocab_size=128)
+
+def train_runs(device, tmp):
+    """[17c] and [17d]: the smoke llama's card against the CPU; and the
+    reference test's restart equivalence on the card."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    c_vs_c = card_vs_cpu(device, tmp)
+
+    rcfg = dataclasses.replace(smoke_llama(), vocab_size=128)
     ropt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
     rdata = DataConfig(vocab_size=128, seq_len=16, global_batch=4, seed=3)
 
@@ -2897,6 +2939,22 @@ def full_width_resume(cfg, ckpt, probe, device):
     return out
 
 
+def checkpoint_dir(cfg, name, tag):
+    """An empty checkpoint directory under the checkout's ``build/``, with
+    the disk checked for the final save (bf16 weights, float32 moments)."""
+    import shutil
+    ckpt = ROOT / "build" / f"chip_smoke_{name}_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    need = cfg.n_params() * (2 + 4 + 4)
+    free = shutil.disk_usage(ckpt.parent).free
+    log(f"{tag} {cfg.name}: the checkpoint needs ~{need / 1e9:.1f} GB, the "
+        f"disk has {free / 1e9:.1f} GB free")
+    require(free > 1.1 * need, f"{tag} the disk cannot hold {cfg.name}'s "
+            f"final checkpoint: {free} bytes free, {need} needed")
+    return ckpt
+
+
 def full_width_run(device):
     """[17e]: ``repro_torch.launch.train.main`` at full width: llama3.2-3b,
     28 layers, d_model 3072, bf16, 4 x 2048 tokens a step, 9 steps under
@@ -2907,15 +2965,7 @@ def full_width_run(device):
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     cfg = get_config("llama3.2-3b")
-    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    ckpt.parent.mkdir(parents=True, exist_ok=True)
-    need = cfg.n_params() * (2 + 4 + 4)      # bf16 params, float32 m and v
-    free = shutil.disk_usage(ckpt.parent).free
-    log(f"[17e] checkpoint needs ~{need / 1e9:.1f} GB, the disk has "
-        f"{free / 1e9:.1f} GB free")
-    require(free > 1.1 * need, f"[17e] the disk cannot hold the final "
-            f"checkpoint: {free} bytes free, {need} needed")
+    ckpt = checkpoint_dir(cfg, "train", "[17e]")
     torch.cuda.empty_cache()
     log(f"[17e] allocated before the run: "
         f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
@@ -3617,6 +3667,412 @@ def phase_ssm_encdec(device, flush, model_records):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the SSM and hybrid families' training
+# ---------------------------------------------------------------------------
+
+#: (b, S, nh, hp, st, chunk) of [20a]: states 16, 64, 96 and 128, and a
+#: call whose S is its chunk
+SSD_BWD_SHAPES = ((1, 64, 2, 32, 16, 32), (2, 256, 4, 64, 64, 64),
+                  (1, 512, 3, 64, 96, 128), (2, 512, 8, 64, 128, 256),
+                  (1, 256, 4, 64, 128, 256))
+#: tokens a step of [20d] and [20e]: 4 sequences (mb4_remat needs a batch
+#: that splits into 4), each cut from 2048 to 1024 tokens: at 4 x 2048
+#: mb1_noremat keeps ~0.96 GB a Mamba2 layer (61 GB over 64) beside the
+#: 32.4 GB of state, past 80 GB (PERF.md section 4)
+SSM_TRAIN_B, SSM_TRAIN_S = 4, 1024
+#: 5 steps: the fewest at which the tuner explores each of the five plans
+#: (7 until the script passed 1,050 s with [20], PERF.md section 4)
+SSM_FULL_STEPS = 5
+#: zamba2-7b trains cut to 18 of its 81 layers (2 segments): at full depth
+#: its 6.75e9 parameters take 81 GB in bf16 weights and gradients and
+#: float32 moments (27 layers, 3 segments, until the script passed 1,050 s)
+ZAMBA_TRAIN_LAYERS, ZAMBA_STEPS = 18, 5
+
+
+def ssd_bwd_work(B, S, nh, hp, st, Q):
+    """Bytes (x, dy, dt, A, B, C read once, dx, ddt, dA, dB, dC written
+    once; x, dy and dx bf16) and operations of one SSD backward, as
+    ``ssd_scan_bwd.cu`` computes it: per chunk, C B^T and the two products
+    of the heads' summed Pm with B and C over the causal pairs; per head
+    and chunk, dy x^T and (s o L)^T dy over the pairs, and the five
+    state-wide products (the chunk's state, its gradient's part, H^T dy,
+    G B and G^T x)."""
+    tri = Q * (Q + 1) // 2
+    n_chunk = S // Q
+    ops = B * n_chunk * (3 * tri * st * 2
+                         + nh * (2 * tri * hp * 2 + 5 * Q * hp * st * 2))
+    nbytes = (3 * B * S * nh * hp * 2 + 2 * B * S * nh * 4
+              + 2 * nh * 4 + 4 * B * S * st * 4)
+    return nbytes, ops
+
+
+def ssd_bwd_args(b, S, nh, hp, st, dtype, device, seed, with_dstate=False):
+    args = ssd_inputs(b, S, nh, hp, st, dtype, device, seed)
+    dy = randn((b, S, nh, hp), dtype, device, seed + 4, 0.5)
+    dstate = (randn((b, nh, hp, st), torch.float32, device, seed + 5, 0.5)
+              if with_dstate else None)
+    return args, dy, dstate
+
+
+def ssd_bwd_within(errs, dtype) -> bool:
+    """float32: each gradient within the forward's float32 tolerance of
+    its largest magnitude; bf16: relative L2 within BWD_BF16_REL_L2."""
+    if dtype == torch.float32:
+        return all(e[0] <= MODEL_TOL["ssd_scan"] for e in errs)
+    return all(e[1] <= BWD_BF16_REL_L2 for e in errs)
+
+
+def ssd_bwd_small(device):
+    """[20a]: ``ssd_scan_bwd`` against its plain version at
+    SSD_BWD_SHAPES, float32 and bf16, with no and with a random gradient
+    of the final state: every gradient finite and within its tolerance,
+    and a rerun bit-equal."""
+    from repro_torch.kernels import ssd_scan as SSD
+    rows = []
+    for i, (b, S, nh, hp, st, Q) in enumerate(SSD_BWD_SHAPES):
+        for dt in (torch.float32, torch.bfloat16):
+            for with_dstate in (False, True):
+                args, dy, ds = ssd_bwd_args(b, S, nh, hp, st, dt, device,
+                                            200 + 10 * i, with_dstate)
+                got = SSD.ssd_scan_bwd(*args, dy, ds, chunk=Q)
+                errs = grad_errors(got, SSD.ssd_scan_bwd_ref(
+                    *args, dy, ds, chunk=Q))
+                again = SSD.ssd_scan_bwd(*args, dy, ds, chunk=Q)
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                rows.append({"shape": [b, S, nh, hp, st, Q],
+                             "dtype": str(dt), "dstate": with_dstate,
+                             "max_rel": [e[0] for e in errs],
+                             "rel_l2": [e[1] for e in errs],
+                             "ok": ssd_bwd_within(errs, dt),
+                             "rerun_bit_equal": same})
+    for r in rows:
+        log(f"[20a] ssd_scan_bwd {json.dumps(r)}")
+    require(all(r["ok"] and r["rerun_bit_equal"] for r in rows),
+            "ssd_scan_bwd outside its tolerance or not bit-equal on rerun "
+            "at the small shapes")
+    return rows
+
+
+def ssd_bwd_record(shape, seed, device, flush, train_S):
+    """[20b]: the SSD backward at one training call (bf16) against its
+    plain version, a rerun's bits, its time after an L2 flush with its
+    three kernels' shares beside the bound and the plain version's time
+    (no library call computes it), and its time at the training step's
+    own call (``train_S`` tokens a sequence)."""
+    from repro_torch.kernels import ssd_scan as SSD
+    b, S, nh, hp, st, Q = shape
+    args, dy, _ = ssd_bwd_args(b, S, nh, hp, st, torch.bfloat16, device,
+                               seed)
+    got = SSD.ssd_scan_bwd(*args, dy, chunk=Q)
+    want = SSD.ssd_scan_bwd_ref(*args, dy, chunk=Q)
+    errs = grad_errors(got, want)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del want
+    again = SSD.ssd_scan_bwd(*args, dy, chunk=Q)
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    del got, again
+    nbytes, ops = ssd_bwd_work(b, S, nh, hp, st, Q)
+    rec = with_bound({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": REPLACES["ssd_scan_bwd"],
+        "max_abs_err": err, "rel_l2": [e[1] for e in errs],
+        "tolerance": {"bf16_rel_l2": BWD_BF16_REL_L2},
+        "within": ssd_bwd_within(errs, torch.bfloat16),
+        "rerun_bit_equal": same,
+        "ms": time_call(lambda: SSD.ssd_scan_bwd(*args, dy, chunk=Q), (),
+                        5, device, flush),
+        "plain_ms": time_call(lambda: SSD.ssd_scan_bwd_ref(
+            *args, dy, chunk=Q), (), 2, device, flush),
+        "library_ms": None,
+        "parts_ms": kernel_parts_ms(
+            lambda: SSD.ssd_scan_bwd(*args, dy, chunk=Q), (),
+            ("ssd_bwd_chunk_kernel", "ssd_bwd_pass_kernel",
+             "ssd_bwd_grad_kernel"), device),
+        "shape": {"b": b, "S": S, "nh": nh, "hp": hp, "st": st,
+                  "chunk": Q},
+        "bytes": nbytes, "ops": ops}, BF16_OPS_PER_S)
+    del args, dy
+    args, dy, _ = ssd_bwd_args(b, train_S, nh, hp, st, torch.bfloat16,
+                               device, seed)
+    rec["at_training_call"] = {
+        "S": train_S, "ms": time_call(
+            lambda: SSD.ssd_scan_bwd(*args, dy, chunk=Q), (), 5, device,
+            flush)}
+    del args, dy
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S):
+    """[20b]: the flash backward at Zamba2's shared block (causal, bf16)
+    against its plain version, timed after an L2 flush beside the bound,
+    the plain version and SDPA's backward, and at the training step's own
+    call."""
+    from repro_torch.kernels import flash_attention as FA
+    bf16 = torch.bfloat16
+    q, do = (randn((B, S, H, hd), bf16, device, seed + i) for i in range(2))
+    k, v = (randn((B, S, K, hd), bf16, device, seed + 2 + i)
+            for i in range(2))
+    o, lse = FA.flash_attention_lse(q, k, v, causal=True)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    errs = grad_errors(got, want)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, want, again
+    pairs = S * (S + 1) // 2
+    rec = with_bound({
+        "max_abs_err": err, "rel_l2": [e[1] for e in errs],
+        "within": bwd_within(errs, bf16), "rerun_bit_equal": same,
+        "ms": time_call(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=True), (), 5, device, flush),
+        "plain_ms": time_call(lambda: FA.flash_attention_bwd_ref(
+            q, k, v, o, do, causal=True), (), 2, device, flush),
+        "library_ms": time_grad(sdpa_graph, (q, k, v, do), 10, device,
+                                flush),
+        "shape": {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
+                  "causal": True},
+        "bytes": (4 * B * S * H * hd + 4 * B * S * K * hd) * 2,
+        "ops": 10 * B * H * hd * pairs}, BF16_OPS_PER_S)
+    del q, k, v, o, do, lse
+    q, do = (randn((B, train_S, H, hd), bf16, device, seed + i)
+             for i in range(2))
+    k, v = (randn((B, train_S, K, hd), bf16, device, seed + 2 + i)
+            for i in range(2))
+    o, lse = FA.flash_attention_lse(q, k, v, causal=True)
+    rec["at_training_call"] = {"S": train_S, "ms": time_call(
+        lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+        (), 5, device, flush)}
+    del q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
+def expected_step_launches(cfg, microbatches, remat):
+    """The kernel launches of one train step: per microbatch, each Mamba2
+    layer's SSD scan (twice under remat: the checkpoint recomputes it) and
+    backward, its two rmsnorms, each application of the hybrid's shared
+    block's flash attention and two rmsnorms (recomputed under remat), and
+    the final norm."""
+    L = cfg.n_layers
+    n_seg = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    norms = 2 * L + (2 + 2 * cfg.qk_norm) * n_seg
+    fwd = 2 if remat else 1
+    out = {"ssd_scan": fwd * L, "ssd_scan_bwd": L,
+           "rmsnorm": fwd * norms + 1, "rmsnorm_bwd": norms + 1}
+    if n_seg:
+        out.update(flash_attention=fwd * n_seg, flash_attention_bwd=n_seg)
+    return {k: v * microbatches for k, v in out.items()}
+
+
+def tuned_training(cfg, steps, ckpt, device):
+    """``launch.train.main``'s wiring (``Trainer`` + ``StepAutoTuner`` over
+    ``DEFAULT_PLANS`` under ExhaustiveSel + ``make_plan_builder``, its
+    per-plan records) for a config the launcher has no flag for (a
+    depth cut), SSM_TRAIN_B x SSM_TRAIN_S tokens a step."""
+    from repro_torch.data import DataConfig
+    from repro_torch.distributed import (DEFAULT_PLANS, StepAutoTuner,
+                                         make_plan_builder)
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 5),
+                          total_steps=steps, moment_dtype=cfg.moment_dtype)
+    records = []
+    tuner = StepAutoTuner(list(DEFAULT_PLANS), train.measured(
+        make_plan_builder(cfg, opt_cfg, device), device, records),
+        method="ExhaustiveSel")
+    trainer = Trainer(cfg, opt_cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN_S,
+        global_batch=SSM_TRAIN_B), TrainerConfig(
+            ckpt_dir=str(ckpt), ckpt_every=max(10, steps // 5)),
+        autotuner=tuner, device=device)
+    trainer.install_preemption_handler()
+    out = trainer.train(steps)
+    out["plans"] = train.plan_summary(tuner.history, records,
+                                      SSM_TRAIN_B * SSM_TRAIN_S)
+    out["history"] = list(tuner.history)
+    out["compile_s"] = {tuner.plans[i].name: t
+                        for i, t in tuner.compile_times.items()}
+    out["settled"] = tuner.selected_plan
+    return out
+
+
+def ssm_full_run(arch, device):
+    """[20d] / [20e]: ``arch`` at full width in bf16 through the training
+    entry points, SSM_TRAIN_B x SSM_TRAIN_S tokens a step under
+    ExhaustiveSel over DEFAULT_PLANS: mamba2-2.7b at full depth through
+    ``launch.train.main``; zamba2-7b cut to ZAMBA_TRAIN_LAYERS through the
+    same wiring.  Per plan its steps' seconds, tokens/s, peak allocated
+    memory and launches a step (held exactly against
+    ``expected_step_launches``), the settled plan, the loss (finite, and
+    lower after training on the first step's batch than that step's) and
+    the final save's wall (the checkpoint deleted after)."""
+    import gc
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import DEFAULT_PLANS
+    from repro_torch.launch import train
+    from repro_torch.models import loss_fn
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=ZAMBA_TRAIN_LAYERS)
+    steps = SSM_FULL_STEPS if cfg.family == "ssm" else ZAMBA_STEPS
+    tag = "20d" if cfg.family == "ssm" else "20e"
+    ckpt = checkpoint_dir(cfg, arch, f"[{tag}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if device.type == "cuda":
+        log(f"[{tag}] allocated before the run: "
+            f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        if cfg.family == "ssm":
+            out = train.main(["--arch", arch, "--full", "--seq-len",
+                              str(SSM_TRAIN_S), "--batch", str(SSM_TRAIN_B),
+                              "--steps", str(steps), "--ckpt", str(ckpt),
+                              "--device", str(device)])
+        else:
+            out = tuned_training(cfg, steps, ckpt, device)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+    losses = out["losses"]
+    n_par = sum(t.numel() for g in out["params"].values()
+                for t in (g.values() if isinstance(g, dict) else [g]))
+    layers = out["params"]["layers"]["A_log"].shape[0]
+    plans = {p.name: p for p in DEFAULT_PLANS}
+    rows = []
+    for r in out["plans"]:
+        p = plans[r["plan"]]
+        want = expected_step_launches(cfg, p.microbatches, p.remat)
+        rows.append({**r, "peak_gb": (r["peak_bytes"] or 0) / 1e9,
+                     "build_s": out["compile_s"].get(r["plan"]),
+                     "expected_launches": want,
+                     "launches_exact": r["launches_per_step"] == want})
+    # the loss falls where the batch is the same: the trained state's
+    # loss on the first step's batch against that step's (a step's loss
+    # moves with its batch by as much as a few steps move it)
+    first = {k: torch.from_numpy(v).to(device) for k, v in TokenPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN_S,
+                   global_batch=SSM_TRAIN_B)).batch_at(0).items()}
+    with torch.no_grad():
+        first_after = float(loss_fn(dataclasses.replace(cfg, remat=False),
+                                    out["params"], first)[0])
+    del first
+    summary = {
+        "arch": arch, "layers": layers, "d_model": cfg.d_model,
+        "dtype": cfg.param_dtype, "params": n_par,
+        # ModelConfig.n_params, the reference's count (it leaves out each
+        # Mamba2 layer's dt_bias and gate_norm)
+        "n_params": cfg.n_params(),
+        "tokens_per_step": SSM_TRAIN_B * SSM_TRAIN_S,
+        "steps": out["final_step"], "wall_s": wall, "losses": losses,
+        "first_batch_loss_after": first_after, "plans": rows,
+        "history": [h[0] for h in out["history"]],
+        "settled": out["settled"], "final_save_s": out["final_save_s"],
+        "checkpoint_gb": ckpt_bytes / 1e9, "launches": launches}
+    del out
+    gc.collect()
+    t1 = time.perf_counter()
+    shutil.rmtree(ckpt)
+    summary["checkpoint_rm_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    require(layers == cfg.n_layers, f"[{tag}] {layers} layers")
+    require(summary["steps"] == steps and len(losses) == steps
+            and bool(np.all(np.isfinite(losses)))
+            and first_after < losses[0], f"[{tag}] loss trace {losses}, "
+            f"the first batch's after training {first_after}")
+    require(summary["history"][:5] == [r["plan"] for r in rows]
+            and len(rows) == 5, f"[{tag}] not every plan explored")
+    bad = [(r["plan"], r["launches_per_step"], r["expected_launches"])
+           for r in rows if not r["launches_exact"]]
+    require(not bad, f"[{tag}] launches a step {bad}")
+    names = ["rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"]
+    if cfg.family == "hybrid":
+        names += ["flash_attention", "flash_attention_bwd"]
+    for name in names:
+        require(launches[name] > 0, f"[{tag}] {name} was never launched")
+    return summary
+
+
+def phase_ssm_training(device, flush, model_records, bwd_records):
+    """Phase [20]: (a) the SSD backward at small shapes, (b) the SSD and
+    flash backwards at the training calls, (c) the smoke cuts on the card,
+    (d) mamba2-2.7b and (e) zamba2-7b (18 layers) trained at full width.
+    Returns the SSD backward's kernel record; the training paths' launches
+    are added to the other kernels' records."""
+    import gc
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_bwd_small(device)
+    log(f"[20a] {time.perf_counter() - t_phase:.1f} s")
+    rec = ssd_bwd_record((TRAIN_B, TRAIN_S, 80, 64, 128, 256), 300, device,
+                         flush, SSM_TRAIN_S)
+    rec["at_zamba_call"] = ssd_bwd_record(
+        (TRAIN_B, TRAIN_S, 112, 64, 64, 256), 310, device, flush,
+        SSM_TRAIN_S)
+    flash = flash_bwd_record(TRAIN_B, TRAIN_S, 32, 32, 112, 320, device,
+                             flush, SSM_TRAIN_S)
+    for tag, r in (("ssd_scan_bwd at mamba2's call", rec),
+                   ("ssd_scan_bwd at zamba2's call", rec["at_zamba_call"]),
+                   ("flash_attention_bwd at zamba2's shared block", flash)):
+        log(f"[20b] {tag}: {json.dumps(r)}")
+        require(r["within"] and r["rerun_bit_equal"], f"[20b] {tag}: "
+                f"rel L2 {r['rel_l2']}, rerun {r['rerun_bit_equal']}")
+    log(f"[20b] {time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for arch in ("mamba2-2.7b", "zamba2-7b"):
+            log(f"[20c] {arch} smoke, gradients on the card: "
+                f"{json.dumps(leaves_get_gradients(device, arch, '[20c]'))}")
+            log(f"[20c] {arch} smoke, card vs CPU, float32: "
+                f"{json.dumps(card_vs_cpu(device, tmp, arch, '[20c]'))}")
+    log(f"[20c] {time.perf_counter() - t_phase:.1f} s")
+    runs = {}
+    for tag, arch in (("20d", "mamba2-2.7b"), ("20e", "zamba2-7b")):
+        t0 = time.perf_counter()
+        runs[arch] = full = ssm_full_run(arch, device)
+        log(f"[{tag}] {json.dumps(full)}")
+        for r in full["plans"]:
+            log(f"[{tag}] {r['plan']}: steps {r['step_s']} s, tokens/s "
+                f"{[round(t) for t in r['tokens_per_s']]}, peak "
+                f"{r['peak_gb']:.2f} GB, launches a step "
+                f"{json.dumps(r['launches_per_step'])}")
+        log(f"[{tag}] settled on {full['settled']}; loss {full['losses']}; "
+            f"final save {full['final_save_s']:.1f} s "
+            f"({full['checkpoint_gb']:.1f} GB); "
+            f"{time.perf_counter() - t0:.1f} s")
+    by_path = {f"train {a} [20]": r["launches"] for a, r in runs.items()}
+    rec["launches_by_path"] = {k: v["ssd_scan_bwd"]
+                               for k, v in by_path.items()}
+    rec["launches"] = sum(rec["launches_by_path"].values())
+    for r in model_records + bwd_records:
+        if r["name"] in ("rmsnorm", "flash_attention", "ssd_scan",
+                         "rmsnorm_bwd", "flash_attention_bwd"):
+            r.setdefault("launches_by_path", {})
+            for k, v in by_path.items():
+                r["launches_by_path"][k] = v[r["name"]]
+            r["launches"] = sum(r["launches_by_path"].values())
+        if r["name"] == "flash_attention_bwd":
+            r["at_zamba_call"] = flash
+    log(f"[20] {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3924,7 +4380,11 @@ def run() -> int:
     log(f"[18] {time.perf_counter() - t_start:.1f} s so far")
     log("[19] the SSM and enc-dec families' serving at full width")
     phase_ssm_encdec(device, flush, model_records)
-    log(f"[19] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[19] {time.perf_counter() - t_start:.1f} s so far")
+    log("[20] the SSM and hybrid families' training at full width")
+    bwd_records.append(phase_ssm_training(device, flush, model_records,
+                                          bwd_records))
+    log(f"[20] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

@@ -241,23 +241,38 @@ class StepAutoTuner:
 def warm_kernels(cfg: ModelConfig, device: torch.device) -> None:
     """Build the model kernels of a training step (nvcc, at first use) and
     run each once, forward and backward, at a tiny size in the model's
-    dtype, with one product on cuBLAS; a no-op on the CPU."""
+    dtype, with one product on cuBLAS: rmsnorm in every family, the SSD
+    scan in the SSM and hybrid families (at the config's state width, so
+    that the kernels of its tile width are built), flash attention in the
+    families that have attention; a no-op on the CPU."""
     if device.type != "cuda":
         return
     from ..kernels.flash_attention import flash_attention
     from ..kernels.rmsnorm import rmsnorm
+    from ..kernels.ssd_scan import ssd_scan
     dt = getattr(torch, cfg.param_dtype)
-    hd, K = cfg.head_dim, max(cfg.n_kv_heads, 1)
-    H = K * max(cfg.n_heads // K, 1)
-    x = torch.ones((2, 8, 16), dtype=dt, device=device, requires_grad=True)
-    w = torch.ones((16,), dtype=dt, device=device, requires_grad=True)
-    q = torch.ones((1, 64, H, hd), dtype=dt, device=device,
-                   requires_grad=True)
-    kv = torch.ones((1, 64, K, hd), dtype=dt, device=device,
-                    requires_grad=True)
+
+    def leaf(shape, dtype=dt, value=1.0):
+        return torch.full(shape, value, dtype=dtype, device=device,
+                          requires_grad=True)
+
+    x, w = leaf((2, 8, 16)), leaf((16,))
     with torch.enable_grad():
-        out = rmsnorm(x, w).sum() + flash_attention(q, kv, kv).float().sum()
+        out = rmsnorm(x, w).sum()
         out = out + (x.reshape(16, 16) @ w.expand(16, 16)).float().sum()
+        if cfg.family in ("ssm", "hybrid"):
+            f32 = torch.float32
+            bc = leaf((1, 64, cfg.ssm_state), f32)
+            y, _ = ssd_scan(leaf((1, 64, 2, cfg.ssm_headdim)),
+                            leaf((1, 64, 2), f32, 0.1), leaf((2,), f32, -1.0),
+                            bc, bc, chunk=32)
+            out = out + y.float().sum()
+        if cfg.family != "ssm":
+            hd, K = cfg.head_dim, max(cfg.n_kv_heads, 1)
+            H = K * max(cfg.n_heads // K, 1)
+            kv = leaf((1, 64, K, hd))
+            out = out + flash_attention(leaf((1, 64, H, hd)), kv,
+                                        kv).float().sum()
         out.backward()
     torch.cuda.synchronize(device)
 

@@ -18,6 +18,16 @@ back from one to the other.  ``ssd_scan.launches`` counts the wrapper's
 calls that reach the card: one for a float32 x (one kernel), and one for a
 bfloat16 x, whose chunk-parallel design runs three kernels in order on the
 stream (chunk states, the pass over chunks, the output).
+
+The gradient is the port's own kernel (``csrc/ssd_scan_bwd.cu``; the
+reference differentiates ``ssd_chunked`` with XLA): ``ssd_scan_bwd`` gives
+(dx, ddt, dA, dB, dC) from the inputs, the output's gradient and the final
+state's, and counts ``ssd_scan_bwd.launches`` (one a call: three kernels in
+order).  On the card, with autograd recording and an input that requires
+grad, ``ssd_scan`` runs as a ``torch.autograd.Function`` whose backward is
+that kernel; under ``no_grad`` it launches the forward alone, as serving
+does.  ``ssd_scan_bwd_ref`` is its plain version, autograd through
+:func:`ssd_scan_ref`.
 """
 
 from __future__ import annotations
@@ -27,12 +37,15 @@ import torch
 from .common import DTYPE_CODES, check, cuda_device, launch
 
 _SOURCE = "ssd_scan.cu"
+_BWD_SOURCE = "ssd_scan_bwd.cu"
 #: the largest head width the kernel's 64-row tiles hold, the largest
 #: state (its tiles hold 64 or 128 state columns, as the TPU kernel's), and
 #: the longest chunk its shared cumulative sums hold
 MAX_HEADDIM = 64
 MAX_STATE = 128
 MAX_CHUNK = 1024
+#: heads a block of the backward's gradient kernel (``kHG``)
+BWD_HEADS = 4
 
 
 def state_columns(st: int) -> int:
@@ -57,15 +70,33 @@ def _workspace_floats(b, S, nh, hp, st, chunk) -> int:
             + b * nc * nh * 64 * ks + 2 * b * S * ks + 2 * up(b * S * nh))
 
 
+def _bwd_workspace_floats(b, S, nh, hp, st, chunk) -> int:
+    """float32 values of the backward kernels' scratch (``Workspace`` in
+    ``csrc/ssd_scan_bwd.cu``, which checks the size): each chunk's state
+    and its gradient, the chunks' totals and dA partials, dB and dC
+    partials by group of ``BWD_HEADS`` heads, and the ticket counters; each
+    part rounded up to 64 values."""
+    def up(n):
+        return -(-n // 64) * 64
+
+    nc = S // chunk
+    groups = -(-nh // BWD_HEADS)
+    return (2 * up(b * nc * nh * hp * st) + 2 * up(b * nc * nh)
+            + 2 * up(b * S * groups * st) + up(b * nc + 1))
+
+
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
     """Plain version: the chunked SSD of ``repro.models.ssm.ssd_chunked``,
-    chunk = min(chunk, S), S a multiple of it."""
+    chunk = min(chunk, S), S a multiple of it.  It computes in float32 (in
+    float64 for a float64 x, so that gradients can be checked
+    numerically)."""
     b, S, nh, hp = x.shape
     st = B.shape[-1]
     chunk = min(chunk, S)
     nc = S // chunk
     if nc * chunk != S:
         raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    work = torch.promote_types(x.dtype, torch.float32)
 
     xc = x.reshape(b, nc, chunk, nh, hp)
     dtc = dt.reshape(b, nc, chunk, nh)
@@ -75,7 +106,7 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
     dA = dtc * A[None, None, None, :]                      # (b,nc,Q,nh)
     dA_cum = torch.cumsum(dA, dim=2)
     dA_total = dA_cum[:, :, -1]                             # (b,nc,nh)
-    xdt = xc.float() * dtc[..., None]                       # (b,nc,Q,nh,hp)
+    xdt = xc.to(work) * dtc[..., None]                      # (b,nc,Q,nh,hp)
 
     # intra-chunk: L[i, j] = exp(cum_i - cum_j), lower-triangular
     cum = dA_cum.permute(0, 1, 3, 2)                        # (b,nc,nh,Q)
@@ -91,10 +122,10 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
     # chunk states
     decay_to_end = torch.exp(dA_total[:, :, None, :] - dA_cum)
     S_c = torch.einsum("bcjs,bcjh,bcjhp->bchps", Bc, decay_to_end * dtc,
-                       xc.float())                          # (b,nc,nh,hp,st)
+                       xc.to(work))                         # (b,nc,nh,hp,st)
 
     # inter-chunk recurrence: the state before each chunk
-    h = torch.zeros((b, nh, hp, st), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, nh, hp, st), dtype=work, device=x.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -107,23 +138,10 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
     return y.to(x.dtype), h
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
-    """x (b, S, nh, hp) float32 or bfloat16, dt (b, S, nh), A (nh,) and
-    B, C (b, S, st) float32; hp <= 64, st <= 128, chunk = min(chunk, S)
-    <= 1024 and a divisor of S.  Returns (y (b, S, nh, hp) in x's dtype, state
-    (b, nh, hp, st) float32).  ``head_block`` is the TPU kernel's head
-    tile, kept for parity: the bfloat16 kernels fix theirs at 4 heads a
-    block, the float32 kernel runs one block per (batch, head)."""
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
-    device = cuda_device("ssd_scan", x)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, dt, A, B, C)):
-        # the output of a ctypes launch has no grad_fn: autograd would
-        # silently give everything upstream no gradient
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet (ROADMAP queue 1: hybrid "
-            "and SSM training); run it under torch.no_grad()")
+def _check_args(name, x, dt, A, B, C, chunk):
+    """The device, the chunk cut to S and the widths, as the kernels take
+    them; raises past the kernels' limits."""
+    device = cuda_device(name, x)
     b, S, nh, hp = x.shape
     st = B.shape[-1]
     chunk = min(chunk, S)
@@ -138,6 +156,30 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
     check("A", A, f32, (nh,), device)
     check("B", B, f32, (b, S, st), device)
     check("C", C, f32, (b, S, st), device)
+    return device, (b, S, nh, hp, st), chunk
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
+    """x (b, S, nh, hp) float32 or bfloat16, dt (b, S, nh), A (nh,) and
+    B, C (b, S, st) float32; hp <= 64, st <= 128, chunk = min(chunk, S)
+    <= 1024 and a divisor of S.  Returns (y (b, S, nh, hp) in x's dtype, state
+    (b, nh, hp, st) float32).  ``head_block`` is the TPU kernel's head
+    tile, kept for parity: the bfloat16 kernels fix theirs at 4 heads a
+    block, the float32 kernel runs one block per (batch, head).  On the
+    card under autograd (an input requires grad) it is differentiated by
+    :func:`ssd_scan_bwd`."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        return _SSDScan.apply(x, dt, A, B, C, chunk)
+    return _forward(x, dt, A, B, C, chunk)
+
+
+def _forward(x, dt, A, B, C, chunk):
+    device, (b, S, nh, hp, st), chunk = _check_args("ssd_scan", x, dt, A, B,
+                                                    C, chunk)
+    f32 = torch.float32
     y = torch.empty_like(x)
     state = torch.empty((b, nh, hp, st), dtype=f32, device=device)
     if x.numel():
@@ -152,5 +194,69 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, head_block: int = 8):
     return y, state
 
 
+def ssd_scan_bwd_ref(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 256):
+    """Plain version of the backward: (dx, ddt, dA, dB, dC) from autograd
+    through :func:`ssd_scan_ref`, for the output gradient ``dy`` and the
+    final state's gradient ``dstate`` (None: zero)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+        y, state = ssd_scan_ref(*leaves, chunk=chunk)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 256):
+    """The gradient of :func:`ssd_scan` at (x, dt, A, B, C) for the output
+    gradient ``dy`` (x's shape and dtype) and the final state's gradient
+    ``dstate`` ((b, nh, hp, st) float32, or None for zero): returns dx in
+    x's dtype and ddt, dA, dB, dC in float32.  The limits are the
+    forward's."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    device, (b, S, nh, hp, st), chunk = _check_args("ssd_scan_bwd", x, dt, A,
+                                                    B, C, chunk)
+    check("dy", dy, x.dtype, x.shape, device)
+    if dstate is not None:
+        check("dstate", dstate, torch.float32, (b, nh, hp, st), device)
+    dx = torch.empty_like(x)
+    ddt, dA, dB, dC = (torch.empty_like(t) for t in (dt, A, B, C))
+    if not x.numel():
+        return dx, ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    n_ws = _bwd_workspace_floats(b, S, nh, hp, st, chunk)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+    launch(_BWD_SOURCE, "ssd_scan_bwd_launch",
+           [t.data_ptr() for t in (x, dt, A, B, C, dy)]
+           + [None if dstate is None else dstate.data_ptr()]
+           + [t.data_ptr() for t in (dx, ddt, dA, dB, dC, ws)]
+           + [n_ws, b, S, nh, hp, st, chunk, DTYPE_CODES[x.dtype]], device)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class _SSDScan(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel (on CPU
+    tensors, both plain versions)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        grads = ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 ssd_scan.launches = 0
-WRAPPERS = (ssd_scan,)
+ssd_scan_bwd.launches = 0
+WRAPPERS = (ssd_scan, ssd_scan_bwd)

@@ -8,8 +8,11 @@ the card).  ``--smoke`` (the default) trains the reduced same-family
 config; ``--full`` the whole architecture.  The step-plan autotuner (the
 paper's selection technique, L2) picks the execution plan online;
 checkpoints are atomic and async; injected failures exercise the restart
-path.  The archs are those whose family the port trains (dense); any
-other arch is refused with the reason (``NOT_TRAINED``).
+path.  The archs are those whose family the port trains: dense
+(llama3.2-3b, granite-8b, mistral-nemo-12b, qwen3-32b, qwen2-vl-72b's
+backbone), ssm (mamba2-2.7b) and hybrid (zamba2-7b), the last two through
+the SSD scan's backward kernel; the MoE and enc-dec archs are refused
+with the reason (``NOT_TRAINED``).
 
 Besides the reference's summary line, it prints one JSON line per plan it
 ran: the steps, their wall seconds and tokens a second, the peak of
@@ -36,14 +39,12 @@ from ..distributed import DEFAULT_PLANS, StepAutoTuner, make_plan_builder
 from ..optim.adamw import AdamWConfig
 from ..runtime import Trainer, TrainerConfig
 
-#: the archs whose family the port trains
-TRAIN_ARCHS = [a for a in ARCH_NAMES if get_config(a).family == "dense"]
+#: the families the port trains, and their archs
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
+TRAIN_ARCHS = [a for a in ARCH_NAMES
+               if get_config(a).family in TRAIN_FAMILIES]
 #: why the port trains no other family: the launcher's refusal
 NOT_TRAINED = {
-    "ssm": "its SSD scan has no backward kernel yet (ROADMAP queue 1, "
-           "item 2: SSM and hybrid training)",
-    "hybrid": "its SSD scan has no backward kernel yet (ROADMAP queue 1, "
-              "item 2: SSM and hybrid training)",
     "moe": "the port serves it; its training is not ported",
     "encdec": "the port serves it; its training is not ported",
 }
@@ -112,8 +113,9 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
     family = get_config(args.arch).family
     if args.arch not in TRAIN_ARCHS:
-        ap.error(f"the port trains the dense family only: {args.arch} is "
-                 f"{family}, and {NOT_TRAINED[family]}")
+        ap.error(f"the port trains the {', '.join(TRAIN_FAMILIES)} "
+                 f"families: {args.arch} is {family}, and "
+                 f"{NOT_TRAINED[family]}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

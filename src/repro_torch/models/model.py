@@ -2,19 +2,20 @@
 family.
 
 The port of ``repro.models.model``: ``dense`` (llama-style: a stack of
-attention + SwiGLU blocks, served, and trained here; qwen2-vl's backbone
-is one, with M-RoPE), ``moe`` (the same attention with a top-k mixture of
-SwiGLU experts), ``ssm`` (Mamba2: a stack of Mamba2 layers), ``hybrid``
-(Zamba2: a stack of Mamba2 layers with one *shared* attention + SwiGLU
-block applied after every ``attn_every`` of them) and ``encdec`` (the
-Whisper backbone: a LayerNorm / GELU encoder over stub frame embeddings
-and a decoder with causal self-attention and cross-attention to the
-encoder's output, sinusoidal positions in both), the last four served.
-Parameters are plain dicts of tensors; the layers are stacked with a
-leading L, as the reference stacks them, and a Python loop over L takes
-the place of ``lax.scan``: a forward takes each stack apart once with
-``unbind(0)`` (views, and one stacked gradient in the backward).  With
-``cfg.remat`` each dense or MoE block runs under
+attention + SwiGLU blocks; qwen2-vl's backbone is one, with M-RoPE),
+``moe`` (the same attention with a top-k mixture of SwiGLU experts),
+``ssm`` (Mamba2: a stack of Mamba2 layers), ``hybrid`` (Zamba2: a stack of
+Mamba2 layers with one *shared* attention + SwiGLU block applied after
+every ``attn_every`` of them) and ``encdec`` (the Whisper backbone: a
+LayerNorm / GELU encoder over stub frame embeddings and a decoder with
+causal self-attention and cross-attention to the encoder's output,
+sinusoidal positions in both); all are served, and the dense, SSM and
+hybrid families are trained here.  Parameters are plain dicts of tensors;
+the layers are stacked with a leading L, as the reference stacks them,
+and a Python loop over L takes the place of ``lax.scan``: a forward takes
+each stack apart once with ``unbind(0)`` (views, and one stacked gradient
+in the backward).  With ``cfg.remat`` each dense, MoE or Mamba2 block, and
+each Zamba2 segment (its Mamba2 layers and the shared block), runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), and the
 loss is the reference's blockwise cross-entropy, each sequence chunk
 checkpointed.  The reference's sharding hints are no-ops on one device
@@ -401,28 +402,43 @@ def _stack_forward(cfg, params, x, positions, kv):
     return x, ({"expert_load": torch.stack(loads)} if loads else {})
 
 
+def _hybrid_segment(layers, shared, cfg, x, positions):
+    """One Zamba2 segment: its Mamba2 layers, then the shared block."""
+    for p in layers:
+        x, _ = ssm_layer_apply(p, x, cfg)
+    x, _ = _dense_block(shared, cfg, x, positions, collect_kv=False)
+    return x
+
+
 def _hybrid_forward(cfg, params, x, positions, kv):
     """Zamba2: segments of ``attn_every`` Mamba2 layers, the *shared*
     attention block after each segment.  With ``kv`` (collecting the
     cache), each segment's (k, v) is written into it, and the states are
     returned: {"conv": (n_seg, attn_every, ...), "state": ...}, the
-    reference's layout."""
+    reference's layout.  Else, with ``cfg.remat``, each whole segment is
+    checkpointed (the reference's ``jax.checkpoint`` around its segment
+    body), so the backward recomputes it from its input."""
     n_seg = cfg.n_layers // cfg.attn_every
     if n_seg * cfg.attn_every != cfg.n_layers:
         raise ValueError("attn_every must divide n_layers")
     collect = kv is not None
     shared = params["shared_attn"]
+    layers = unstack_layers(params)
     convs, states = [], []
     for s in range(n_seg):
-        for j in range(cfg.attn_every):
-            p = layer_params(params, s * cfg.attn_every + j)
-            x, st = ssm_layer_apply(p, x, cfg, collect_state=collect)
-            if collect:
-                convs.append(st["conv"])
-                states.append(st["state"])
-        x, kv_s = _dense_block(shared, cfg, x, positions, collect_kv=collect)
-        if collect:
-            _write_kv(kv, s, kv_s)
+        seg = layers[s * cfg.attn_every:(s + 1) * cfg.attn_every]
+        if not collect:
+            x = (checkpoint(_hybrid_segment, seg, shared, cfg, x, positions,
+                            use_reentrant=False)
+                 if cfg.remat else
+                 _hybrid_segment(seg, shared, cfg, x, positions))
+            continue
+        for p in seg:
+            x, st = ssm_layer_apply(p, x, cfg, collect_state=True)
+            convs.append(st["conv"])
+            states.append(st["state"])
+        x, kv_s = _dense_block(shared, cfg, x, positions, collect_kv=True)
+        _write_kv(kv, s, kv_s)
     if not collect:
         return x, None
     seg = (n_seg, cfg.attn_every)
@@ -435,9 +451,15 @@ def _ssm_forward(cfg, params, x, collect):
     """Mamba2: the stack of Mamba2 layers.  Collecting the cache, each
     layer's conv window and final state are written into stacks allocated
     at the first layer: {"conv": (L, B, k-1, ch), "state": (L, B, nh, hp,
-    st) float32}, the reference's layout."""
+    st) float32}, the reference's layout.  Else, with ``cfg.remat``, each
+    layer is checkpointed (the reference's ``jax.checkpoint`` around the
+    scanned body)."""
     cache = None
     for i, p in enumerate(unstack_layers(params)):
+        if not collect and cfg.remat:
+            x, _ = checkpoint(ssm_layer_apply, p, x, cfg,
+                              use_reentrant=False)
+            continue
         x, st = ssm_layer_apply(p, x, cfg, collect_state=collect)
         if collect:
             if cache is None:

@@ -5,6 +5,15 @@ The port of ``repro.models.ssm``.  The full-sequence scan goes to the
 formulation ``ssd_chunked``), the block's two RMSNorms to the ``rmsnorm``
 kernel; the one-token decode recurrence and the causal conv stay plain
 PyTorch, as the reference leaves them to XLA.
+
+Training differentiates the block as the reference's ``jax.grad`` does,
+with the kernels' backwards where it has kernels: on the card the scan's
+gradient (x, dt, A, B, C) is the ``ssd_scan_bwd`` kernel and the norms'
+the ``rmsnorm_bwd`` kernel (their autograd Functions); everything else —
+``in_proj`` and ``out_proj``, the causal conv and its SiLU, the softplus
+of dt, ``A = -exp(A_log)``, the skip ``D`` and the gate — is plain
+autograd, as the reference leaves it to XLA.  On the CPU all of it is
+autograd through the plain versions.
 """
 
 from __future__ import annotations

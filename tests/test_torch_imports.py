@@ -143,7 +143,7 @@ def test_every_kernel_source_has_an_entry_point_signature():
     sources = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert sources == set(build.SIGNATURES) == {
         "event_loop.cu", "rmsnorm.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "ssd_scan.cu"}
+        "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu"}
 
 
 def test_backend_defaults_to_the_card():

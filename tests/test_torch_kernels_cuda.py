@@ -540,10 +540,65 @@ def test_autograd_goes_through_the_backward_kernels(card):
     assert out.grad_fn is None
     assert (RMS.rmsnorm_bwd.launches, FA.flash_attention_bwd.launches) == (
         n[1] + 1, n[3] + 1)
-    from repro_torch.kernels import ssd_scan as SSD
-    args = _ssd_args(1, 64, 2, 32, 16, "float32", card)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        SSD.ssd_scan(args[0].requires_grad_(), *args[1:], chunk=32)
+    args = [t.requires_grad_() for t in _ssd_args(1, 64, 2, 32, 16,
+                                                  "float32", card)]
+    n = (SSD.ssd_scan.launches, SSD.ssd_scan_bwd.launches)
+    y, _ = SSD.ssd_scan(*args, chunk=32)
+    assert y.grad_fn is not None
+    y.square().sum().backward()
+    assert (SSD.ssd_scan.launches, SSD.ssd_scan_bwd.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert all(bool(t.grad.abs().sum() > 0) for t in args)
+    with torch.no_grad():
+        y, _ = SSD.ssd_scan(*args, chunk=32)
+    assert y.grad_fn is None
+    assert (SSD.ssd_scan.launches, SSD.ssd_scan_bwd.launches) == (
+        n[0] + 2, n[1] + 1)
+
+
+#: (b, S, nh, hp, st, chunk): states 16 / 64 / 96 / 128 (kS = 64 and 128),
+#: one chunk and several, a chunk of 96 rows (a ragged 64-row tile), a
+#: head group cut short (nh = 3, 5) and the longest chunk
+SSD_BWD_CASES = [(1, 64, 2, 32, 16, 32), (2, 256, 4, 64, 64, 64),
+                 (1, 512, 3, 64, 96, 128), (2, 512, 8, 64, 128, 256),
+                 (1, 256, 4, 64, 128, 256), (1, 192, 5, 48, 40, 96),
+                 (1, 1024, 4, 64, 128, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,nh,hp,st,chunk", SSD_BWD_CASES)
+@pytest.mark.parametrize("with_dstate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_kernel_matches_plain_autograd(card, b, S, nh, hp, st,
+                                               chunk, with_dstate, dtype):
+    args = _ssd_args(b, S, nh, hp, st, dtype, card)
+    dy = _randn((b, S, nh, hp), DT[dtype], card, 7, 0.5)
+    dstate = (_randn((b, nh, hp, st), torch.float32, card, 8, 0.5)
+              if with_dstate else None)
+    n0 = SSD.ssd_scan_bwd.launches
+    got = SSD.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
+    assert SSD.ssd_scan_bwd.launches == n0 + 1
+    want = SSD.ssd_scan_bwd_ref(*args, dy, dstate, chunk=chunk)
+    _check_grads(got, want, dtype, "ssd")
+    again = SSD.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_warm_kernels_of_the_ssm_family_builds_no_flash_kernel(card):
+    """``warm_kernels`` of mamba2 (no attention) launches rmsnorm and the
+    SSD scan forward and backward, and no flash-attention kernel; of
+    Zamba2 (hybrid) all of them."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.autotune import warm_kernels
+    for arch, flash in (("mamba2-2.7b", 0), ("zamba2-7b", 1)):
+        kernels.reset_launch_counts()
+        warm_kernels(get_config(arch), card)
+        n = kernels.launch_counts()
+        assert n["rmsnorm"] >= 1 and n["rmsnorm_bwd"] >= 1, n
+        assert n["ssd_scan"] == 1 and n["ssd_scan_bwd"] == 1, n
+        assert n["flash_attention"] == n["flash_attention_bwd"] == flash, n
 
 
 @pytest.mark.cuda

@@ -1,11 +1,13 @@
-"""The dense family's training path in the port against the reference, on
-the CPU: the token pipeline, the loss and its gradients, the train step of
-every execution plan, the in-place AdamW, the fault-tolerant trainer and
-the launcher.
+"""The training path in the port against the reference, on the CPU: the
+token pipeline, the loss and its gradients, the train step of every
+execution plan, the in-place AdamW, the fault-tolerant trainer and the
+launcher; and the SSM and hybrid families' remat.
 
 The model is the reference's test config (``tests/test_system.py``: the
 smoke llama3.2-3b, vocab 128) in float32, with the reference's weights
-carried over by ``repro_torch.convert``.  Tolerances, with their reasons:
+carried over by ``repro_torch.convert``; the SSM and hybrid families
+(mamba2-2.7b, zamba2-7b) at the same cut train through the same plans and
+the launcher.  Tolerances, with their reasons:
 
 * the loss within 1e-5 relative and every gradient leaf within 1e-4 of
   its largest magnitude: the same float32 function, with products and
@@ -140,17 +142,19 @@ def test_dense_loss_and_gradients_match_reference(remat):
         assert _max_rel(g, want) <= GRAD_REL, path
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "whisper-small"])
-def test_ssm_and_encdec_loss_and_gradients_match_reference(arch):
-    """The SSM and enc-dec families' ``loss_fn`` on the CPU (smoke,
-    float32, no remat, the reference's weights; whisper's stub frame
-    embeddings from a numpy seed), and its gradients through autograd of
-    the plain versions: the loss within LOSS_REL, every leaf within
-    GRAD_REL.  The port serves these families and does not train them
-    (on the card the SSD scan has no backward kernel yet, ROADMAP queue 1
-    item 2), but their loss is the function a trainer would take."""
-    cfg = dataclasses.replace(smoke_reduce(get_config(arch)), remat=False)
-    tcfg = dataclasses.replace(t_smoke(t_get_config(arch)), remat=False)
+@pytest.mark.parametrize("arch,remat", [
+    pytest.param(arch, remat, id=arch + ("-remat" if remat else ""))
+    for remat in (False, True)
+    for arch in ("mamba2-2.7b", "whisper-small", "zamba2-7b")])
+def test_ssm_and_encdec_loss_and_gradients_match_reference(arch, remat):
+    """The SSM, hybrid and enc-dec families' ``loss_fn`` on the CPU (smoke,
+    float32, the reference's weights; whisper's stub frame embeddings from
+    a numpy seed), with and without remat, and its gradients through
+    autograd of the plain versions: the loss within LOSS_REL, every leaf
+    within GRAD_REL (``A_log``, ``dt_bias``, ``D``, ``conv_w``,
+    ``gate_norm`` and the shared block's leaves among them)."""
+    cfg = dataclasses.replace(smoke_reduce(get_config(arch)), remat=remat)
+    tcfg = dataclasses.replace(t_smoke(t_get_config(arch)), remat=remat)
     jp = JM.init_params(cfg, jax.random.PRNGKey(2))
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
@@ -169,32 +173,100 @@ def test_ssm_and_encdec_loss_and_gradients_match_reference(arch):
         want = jflat[tuple(jax.tree_util.DictKey(k) for k in path)]
         assert g.shape == want.shape
         assert _max_rel(g, want) <= GRAD_REL, path
+        if arch != "whisper-small":
+            assert float(g.abs().max()) > 0, path
+
+
+def _saved_bytes(cfg, params, batch):
+    """(loss, bytes, gradients) of one ``loss_fn`` forward and backward:
+    the bytes of the distinct storages autograd keeps for the backward
+    (``saved_tensors_hooks``: a checkpoint saves its inputs through them,
+    and what it saves inside is dropped by its own), the parameters' not
+    counted."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    mine = {t.untyped_storage().data_ptr() for t in tree_leaves(leaves)}
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in mine:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = TM.loss_fn(cfg, leaves, batch)
+    loss.backward()
+    return loss.detach(), sum(seen.values()), [t.grad for t in
+                                               tree_leaves(leaves)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_and_hybrid_stacks_rematerialize_under_remat(arch):
+    """With ``cfg.remat`` each Mamba2 layer (ssm) or each segment (hybrid)
+    is checkpointed, as the reference's ``jax.checkpoint`` does: what one
+    forward saves for its backward grows with the depth by one (B, S, D)
+    tensor a layer or segment, the checkpoint's input (what a checkpointed
+    layer saves inside it is not kept), and without remat each layer saves
+    several (B, S, D) tensors of its own.  The loss and every gradient are
+    bit-equal with and without remat."""
+    base = t_smoke(t_get_config(arch))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, base.vocab_size, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    bsd = 2 * 64 * base.d_model * 4
+    got = {}
+    for depth in (2, 4):
+        cfg = dataclasses.replace(base, n_layers=depth)
+        params = TM.init_params(cfg, 0, device="cpu")
+        for remat in (True, False):
+            got[depth, remat] = _saved_bytes(
+                dataclasses.replace(cfg, remat=remat), params, batch)
+        (l1, _, g1), (l0, _, g0) = got[depth, True], got[depth, False]
+        assert torch.equal(l1, l0)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g0))
+    assert got[4, True][1] - got[2, True][1] <= 2 * bsd
+    per_layer = (got[4, False][1] - got[2, False][1]) / 2
+    assert per_layer >= 4 * bsd, (per_layer, bsd)
+    assert got[2, False][1] >= 4 * got[2, True][1]
 
 
 # ---------------------------------------------------------------------------
 # train steps: every execution plan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("idx", range(len(DEFAULT_PLANS)),
-                         ids=[p.name for p in DEFAULT_PLANS])
-def test_plan_train_steps_match_reference(idx):
-    """8 steps of each DEFAULT_PLANS step (the builders the autotuner
-    uses) from the reference's weights: losses within STEP_LOSS_REL; after
-    the first step, parameters within 1e-5 wherever the first gradient is
-    well above AdamW's eps, the rest counted."""
+#: the smoke llama's plans keep their ids; the SSM and hybrid archs' take
+#: the arch as a prefix, and one step each
+PLAN_CASES = [pytest.param(arch, idx, steps,
+                           id=(f"{arch}-" if arch != "llama3.2-3b" else "")
+                           + p.name)
+              for arch, steps in (("llama3.2-3b", 8), ("mamba2-2.7b", 1),
+                                  ("zamba2-7b", 1))
+              for idx, p in enumerate(DEFAULT_PLANS)]
+
+
+@pytest.mark.parametrize("arch,idx,steps", PLAN_CASES)
+def test_plan_train_steps_match_reference(arch, idx, steps):
+    """``steps`` steps of each DEFAULT_PLANS step (the builders the
+    autotuner uses) from the reference's weights: losses within
+    STEP_LOSS_REL; after the first step, parameters within 1e-5 wherever
+    the first gradient is well above AdamW's eps, the rest counted.  The
+    smoke llama runs 8 steps; mamba2 and zamba2 (the SSD scan's backward
+    on the CPU is its plain version) one."""
     plan, jplan = DEFAULT_PLANS[idx], J_PLANS[idx]
     assert plan == dataclasses.replace(plan, **dataclasses.asdict(jplan))
-    _, jp = _jparams()
+    cfg = dataclasses.replace(smoke_reduce(get_config(arch)), vocab_size=128)
+    tcfg = dataclasses.replace(t_smoke(t_get_config(arch)), vocab_size=128)
+    jp = JM.init_params(cfg, jax.random.PRNGKey(0))
     tp = _tparams(jp)
-    jstep = j_plan_builder(CFG, J_OPT)(jplan)
-    tstep = make_plan_builder(TCFG, OPT, device="cpu")(plan)
+    jstep = j_plan_builder(cfg, J_OPT)(jplan)
+    tstep = make_plan_builder(tcfg, OPT, device="cpu")(plan)
     jo, to = j_adamw_init(jp, J_OPT), adamw_init(tp, OPT)
     pipe = JTokenPipeline(J_DATA)
     (_, _), g0 = jax.value_and_grad(
-        lambda p, b: JM.loss_fn(CFG, p, b), has_aux=True)(
+        lambda p, b: JM.loss_fn(cfg, p, b), has_aux=True)(
             jp, _jbatch(pipe.batch_at(0)))
     jl, tl = [], []
-    for step in range(8):
+    for step in range(steps):
         b = pipe.batch_at(step)
         jp, jo, jm = jstep(jp, jo, _jbatch(b))
         tp, to, tm = tstep(tp, to, _tbatch(b))
@@ -214,7 +286,7 @@ def test_plan_train_steps_match_reference(idx):
                 total += big.size
             assert sure >= 0.5 * total, (sure, total)
     np.testing.assert_allclose(tl, jl, rtol=STEP_LOSS_REL)
-    assert int(to.step) == 8
+    assert int(to.step) == steps
 
 
 def test_microbatched_gradients_sum_in_float32(monkeypatch):
@@ -419,7 +491,9 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
 # the launcher
 # ---------------------------------------------------------------------------
 
-def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
+def _launch_on_the_cpu(arch, tmp_path, capsys, monkeypatch):
+    """``launch.train.main`` for ``arch`` (smoke) on the CPU, 7 steps under
+    ExhaustiveSel: every plan explored, then one exploited."""
     # A clock that moves 1 ms a reading gives every step the same time, as
     # test_torch_autotune.py's straggler test injects its own: on the host's
     # real clock a step jittered by a few ms (steps take ~10 ms here) trips
@@ -429,7 +503,7 @@ def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(time, "perf_counter", lambda: next(clock) * 1e-3)
     old = signal.getsignal(signal.SIGTERM)
     try:
-        out = tlaunch.main(["--arch", "llama3.2-3b", "--steps", "7",
+        out = tlaunch.main(["--arch", arch, "--steps", "7",
                             "--seq-len", "32", "--batch", "4",
                             "--ckpt", str(tmp_path), "--device", "cpu"])
     finally:
@@ -443,24 +517,41 @@ def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert all(r["peak_bytes"] is None for r in out["plans"])
     assert out["settled"] in names
     assert "done: steps=7" in capsys.readouterr().out
-    # the dense family's archs (the MoE and hybrid ones are served only)
+    return out
+
+
+def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
+    _launch_on_the_cpu("llama3.2-3b", tmp_path, capsys, monkeypatch)
+    # the dense, SSM and hybrid families' archs (the MoE and enc-dec ones
+    # are served only)
     assert tlaunch.TRAIN_ARCHS == ["qwen3-32b", "granite-8b",
                                    "mistral-nemo-12b", "llama3.2-3b",
-                                   "qwen2-vl-72b"]
+                                   "zamba2-7b", "qwen2-vl-72b",
+                                   "mamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_launch_train_main_trains_the_ssm_and_hybrid_archs(arch, tmp_path,
+                                                           capsys,
+                                                           monkeypatch):
+    """The SSM and hybrid archs train through the launcher on the CPU (the
+    SSD scan's plain backward), under the same checks as the dense one."""
+    out = _launch_on_the_cpu(arch, tmp_path, capsys, monkeypatch)
+    assert "A_log" in out["params"]["layers"]
+    assert arch in tlaunch.TRAIN_ARCHS
 
 
 @pytest.mark.parametrize("arch,why", [
-    ("mamba2-2.7b", "ROADMAP queue 1, item 2"),
-    ("zamba2-7b", "ROADMAP queue 1, item 2"),
     ("whisper-small", "training is not ported"),
     ("olmoe-1b-7b", "training is not ported")])
 def test_launch_train_refuses_the_families_it_does_not_train(arch, why,
                                                              capsys):
-    """``launch.train --arch`` takes every arch's name, trains the dense
-    family, and refuses the others with the reason: the SSM and hybrid
-    families wait for the SSD scan's backward kernel (queue 1, item 2)."""
+    """``launch.train --arch`` takes every arch's name, trains the dense,
+    SSM and hybrid families, and refuses the others with the reason: the
+    MoE and enc-dec families are served and not trained."""
     with pytest.raises(SystemExit) as e:
         tlaunch.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "the port trains the dense family only" in err and why in err
+    assert "the port trains the dense, ssm, hybrid families" in err
+    assert why in err
