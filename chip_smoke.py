@@ -191,7 +191,8 @@ kernels, and prints one JSON line per result.  Phases, in order:
     ``at_mamba_call``);
 20. the SSM and hybrid families' training: (a) ``ssd_scan_bwd`` against
     its plain version (autograd through ``ssd_scan_ref``) at states 16,
-    64, 96 and 128 and a call whose S is its chunk, float32 within
+    64, 96 and 128 and a call whose S is its chunk (and in bf16 alone a
+    chunk of 1024 at state 128 and 7 heads), float32 within
     ``MODEL_TOL["ssd_scan"]`` and bf16 within ``BWD_BF16_REL_L2``, with
     no and with a random gradient of the final state, every gradient
     finite and a rerun bit-equal; (b) the SSD backward at mamba2-2.7b's
@@ -199,7 +200,8 @@ kernels, and prints one JSON line per result.  Phases, in order:
     heads, state 64) and the flash backward at Zamba2's shared block (32 /
     32 heads of 112, causal), each against its plain version and timed
     after an L2 flush beside its bound, its plain version and (flash)
-    SDPA's backward, and at the steps' own calls (4 x 1024); (c) both
+    SDPA's backward, the SSD backward's five bf16 kernels' shares
+    (``parts_ms``), and at the steps' own calls (4 x 1024); (c) both
     archs' ``smoke_reduce`` on the card: one backward in float32 and bf16
     with no leaf without a gradient, and 8 float32 steps from one start
     on the card and the CPU within ``TRAIN_CARD_CPU_REL``; (d)
@@ -212,7 +214,10 @@ kernels, and prints one JSON line per result.  Phases, in order:
     scan once a layer and microbatch, twice under remat; its backward
     once), the settled plan, the loss (finite, and lower on the first
     step's batch after training than at that step), and the final save's
-    wall (the disk checked first, the checkpoint deleted after).
+    wall (the disk checked first, the checkpoint deleted after); then one
+    more mb1_noremat step of mamba2-2.7b by layer on the host clock
+    (forward + loss, backward, AdamW) and the card's busy ms by kernel
+    bucket (the SSD backward's among them) under ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -899,23 +904,47 @@ def traced_busy(prof, units: int, top: int = 5):
              for us, k, n in rows[:top]])
 
 
+#: the least share of the calls' own time (CUDA events, no profiler) that
+#: the card time of a profiler window's kernels must make up for
+#: ``kernel_parts_ms`` to keep the window
+PARTS_MIN_SHARE = 0.9
+
+
 def kernel_parts_ms(fn, args, names, device, reps=3):
     """Each named kernel's mean card time (ms) within one call of ``fn``,
-    from ``torch.profiler`` over ``reps`` calls after one to warm up; a
-    window that reports no device time for them is taken again, twice at
-    most (as in ``device_ms``), and None means not measured."""
+    from ``torch.profiler`` over ``reps`` calls after one to warm up.  A
+    window is kept only if each named kernel shows a whole number of
+    launches a call and all its kernels' card time is at least
+    PARTS_MIN_SHARE of the same calls' time by CUDA events just before it
+    (a window that lost records reads short: ~0.48 of the SSD backward's
+    kernels in one run); else it is logged and taken again, four times at
+    most, and None means not measured."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for attempt in range(5):
         fn(*args)
         torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(*args)
+        stop.record()
+        stop.synchronize()
+        call_ms = start.elapsed_time(stop) / reps
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn(*args)
             torch.cuda.synchronize(device)
-        parts = {n: sum(device_us(e) for e in prof.key_averages()
-                        if n in e.key) / reps / 1e3 for n in names}
-        if any(parts.values()):
-            return parts
+        entries = prof.key_averages()
+        counts = [sum(e.count for e in entries if n in e.key) for n in names]
+        busy_ms = sum(device_us(e) for e in entries) / reps / 1e3
+        if (all(c and c % reps == 0 for c in counts)
+                and busy_ms >= PARTS_MIN_SHARE * call_ms):
+            return {n: sum(device_us(e) for e in entries
+                           if n in e.key) / reps / 1e3 for n in names}
+        log(f"kernel_parts_ms: window {attempt} refused: launches "
+            f"{dict(zip(names, counts))} over {reps} calls, card "
+            f"{busy_ms:.4f} ms a call against {call_ms:.4f} by events")
     return None
 
 
@@ -2474,10 +2503,12 @@ FULL_STEPS = 9
 
 
 def grad_errors(got, want):
-    """(max |got - want| / max |want|, relative L2) over each gradient."""
+    """(max |got - want| / max |want|, relative L2) over each gradient, in
+    float32 (in float64 on ``want``'s device for a float64 ``want``)."""
     out = []
     for g, w in zip(got, want):
-        g, w = g.float(), w.float()
+        work = torch.promote_types(w.dtype, torch.float32)
+        g, w = g.to(w.device, work), w.to(work)
         require(bool(torch.isfinite(g).all()), "non-finite gradient")
         out.append((float((g - w).abs().max() / w.abs().max().clamp_min(
             1e-30)), float((g - w).norm() / w.norm().clamp_min(1e-30))))
@@ -2825,30 +2856,34 @@ def train_runs(device, tmp):
 
 #: a train step's kernels by name, in buckets of device time (the rest is
 #: PyTorch's elementwise, reduction and copy kernels)
-STEP_BUCKETS = (("flash_attention_bwd", ("flash_bwd",)),
+STEP_BUCKETS = (("ssd_scan_bwd", ("ssd_bwd_",)),
+                ("ssd_scan", ("ssd_state_kernel", "ssd_pass_kernel",
+                              "ssd_out_kernel", "ssd_kernel")),
+                ("flash_attention_bwd", ("flash_bwd",)),
                 ("flash_attention", ("flash_wgmma", "flash_kernel")),
                 ("rmsnorm, rmsnorm_bwd", ("rmsnorm",)),
                 ("products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def step_breakdown(cfg, params, opt, device):
-    """One more step of the settled plan (mb1_noremat) on the trained state
-    at full width, by layer on the host clock, each part ending in a
-    synchronize: forward with the CE loss, backward, AdamW in place; then
-    one more under ``torch.profiler``: the card's busy time by kernel
-    bucket and its launches."""
+def step_breakdown(cfg, params, opt, device, batch=TRAIN_B, seq=TRAIN_S,
+                   steps=FULL_STEPS):
+    """One more step of mb1_noremat on the state trained for ``steps``
+    steps of ``batch`` x ``seq`` tokens at full width, by layer on the host
+    clock, each part ending in a synchronize: forward with the CE loss,
+    backward, AdamW in place; then one more under ``torch.profiler``: the
+    card's busy time by kernel bucket and its launches."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import loss_fn
     from repro_torch.optim import AdamWConfig, adamw_update_, tree_map
     cfg = dataclasses.replace(cfg, remat=False)
-    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=FULL_STEPS // 5,
-                          total_steps=FULL_STEPS)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=steps // 5,
+                          total_steps=steps, moment_dtype=cfg.moment_dtype)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_S, global_batch=TRAIN_B))
+                                    seq_len=seq, global_batch=batch))
     batches = [{k: torch.from_numpy(v).to(device)
-                for k, v in pipe.batch_at(FULL_STEPS + i).items()}
+                for k, v in pipe.batch_at(steps + i).items()}
                for i in range(2)]
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -3670,11 +3705,14 @@ def phase_ssm_encdec(device, flush, model_records):
 # phase 20: the SSM and hybrid families' training
 # ---------------------------------------------------------------------------
 
-#: (b, S, nh, hp, st, chunk) of [20a]: states 16, 64, 96 and 128, and a
-#: call whose S is its chunk
+#: (b, S, nh, hp, st, chunk) of [20a]: states 16, 64, 96 and 128, a call
+#: whose S is its chunk, the longest chunk (1024, sixteen 64-row tiles) at
+#: state 128, and 7 heads (no whole number of the bf16 kernels' head pairs
+#: and column groups of 4, nor of the float32 kernel's groups of 4)
 SSD_BWD_SHAPES = ((1, 64, 2, 32, 16, 32), (2, 256, 4, 64, 64, 64),
                   (1, 512, 3, 64, 96, 128), (2, 512, 8, 64, 128, 256),
-                  (1, 256, 4, 64, 128, 256))
+                  (1, 256, 4, 64, 128, 256), (1, 2048, 4, 64, 128, 1024),
+                  (1, 512, 7, 64, 128, 256))
 #: tokens a step of [20d] and [20e]: 4 sequences (mb4_remat needs a batch
 #: that splits into 4), each cut from 2048 to 1024 tokens: at 4 x 2048
 #: mb1_noremat keeps ~0.96 GB a Mamba2 layer (61 GB over 64) beside the
@@ -3691,12 +3729,15 @@ ZAMBA_TRAIN_LAYERS, ZAMBA_STEPS = 18, 5
 
 def ssd_bwd_work(B, S, nh, hp, st, Q):
     """Bytes (x, dy, dt, A, B, C read once, dx, ddt, dA, dB, dC written
-    once; x, dy and dx bf16) and operations of one SSD backward, as
-    ``ssd_scan_bwd.cu`` computes it: per chunk, C B^T and the two products
-    of the heads' summed Pm with B and C over the causal pairs; per head
-    and chunk, dy x^T and (s o L)^T dy over the pairs, and the five
-    state-wide products (the chunk's state, its gradient's part, H^T dy,
-    G B and G^T x)."""
+    once; x, dy and dx bf16) and operations of one SSD backward: the
+    gradient's own products, each counted once: per chunk, C B^T and the
+    two products of the heads' summed Pm with B and C over the causal
+    pairs; per head and chunk, dy x^T and (s o L)^T dy over the pairs, and
+    the five state-wide products (the chunk's state, its gradient's part,
+    H^T dy, G B and G^T x).  The bf16 kernels' hi/lo passes (three
+    products where both operands are float32, two where one is bf16) are
+    not counted: the bound is the gradient's work, whatever the kernels'
+    operand plan."""
     tri = Q * (Q + 1) // 2
     n_chunk = S // Q
     ops = B * n_chunk * (3 * tri * st * 2
@@ -3716,32 +3757,51 @@ def ssd_bwd_args(b, S, nh, hp, st, dtype, device, seed, with_dstate=False):
 
 def ssd_bwd_within(errs, dtype) -> bool:
     """float32: each gradient within the forward's float32 tolerance of
-    its largest magnitude; bf16: relative L2 within BWD_BF16_REL_L2."""
+    its largest magnitude (of the exact gradient, see ``ssd_bwd_small``);
+    bf16: relative L2 within BWD_BF16_REL_L2."""
     if dtype == torch.float32:
         return all(e[0] <= MODEL_TOL["ssd_scan"] for e in errs)
     return all(e[1] <= BWD_BF16_REL_L2 for e in errs)
 
 
 def ssd_bwd_small(device):
-    """[20a]: ``ssd_scan_bwd`` against its plain version at
-    SSD_BWD_SHAPES, float32 and bf16, with no and with a random gradient
-    of the final state: every gradient finite and within its tolerance,
-    and a rerun bit-equal."""
+    """[20a]: ``ssd_scan_bwd`` at SSD_BWD_SHAPES, float32 and bf16, with no
+    and with a random gradient of the final state: every gradient finite
+    and within its tolerance, and a rerun bit-equal.  bf16 is held against
+    the plain version on the card.  float32 is held against the plain
+    version run in float64 on the CPU (the exact gradient): the float32
+    plain version rounds cum (the in-chunk sum of dt A, ~-2,600 at its
+    end here) to float32's spacing of 2.4e-4 before exp(cum_i - cum_j), and
+    its dA is up to ~5e-4 of its largest magnitude from the exact one at
+    these inputs, more than the tolerance; both distances are logged."""
     from repro_torch.kernels import ssd_scan as SSD
     rows = []
+    cpu = torch.device("cpu")
     for i, (b, S, nh, hp, st, Q) in enumerate(SSD_BWD_SHAPES):
         for dt in (torch.float32, torch.bfloat16):
             for with_dstate in (False, True):
                 args, dy, ds = ssd_bwd_args(b, S, nh, hp, st, dt, device,
                                             200 + 10 * i, with_dstate)
                 got = SSD.ssd_scan_bwd(*args, dy, ds, chunk=Q)
-                errs = grad_errors(got, SSD.ssd_scan_bwd_ref(
-                    *args, dy, ds, chunk=Q))
+                plain = SSD.ssd_scan_bwd_ref(*args, dy, ds, chunk=Q)
+                row = {"shape": [b, S, nh, hp, st, Q], "dtype": str(dt),
+                       "dstate": with_dstate}
+                if dt == torch.float32:
+                    exact = SSD.ssd_scan_bwd_ref(
+                        *(t.to(cpu, torch.float64) for t in args),
+                        dy.to(cpu, torch.float64),
+                        None if ds is None else ds.to(cpu, torch.float64),
+                        chunk=Q)
+                    errs = grad_errors(got, exact)
+                    row["vs_float32_plain_max_rel"] = [
+                        e[0] for e in grad_errors(got, plain)]
+                    row["float32_plain_vs_exact_max_rel"] = [
+                        e[0] for e in grad_errors(plain, exact)]
+                else:
+                    errs = grad_errors(got, plain)
                 again = SSD.ssd_scan_bwd(*args, dy, ds, chunk=Q)
                 same = all(torch.equal(a, c) for a, c in zip(got, again))
-                rows.append({"shape": [b, S, nh, hp, st, Q],
-                             "dtype": str(dt), "dstate": with_dstate,
-                             "max_rel": [e[0] for e in errs],
+                rows.append({**row, "max_rel": [e[0] for e in errs],
                              "rel_l2": [e[1] for e in errs],
                              "ok": ssd_bwd_within(errs, dt),
                              "rerun_bit_equal": same})
@@ -3788,8 +3848,9 @@ def ssd_bwd_record(shape, seed, device, flush, train_S):
         "library_ms": None,
         "parts_ms": kernel_parts_ms(
             lambda: SSD.ssd_scan_bwd(*args, dy, chunk=Q), (),
-            ("ssd_bwd_chunk_kernel", "ssd_bwd_pass_kernel",
-             "ssd_bwd_grad_kernel"), device),
+            ("ssd_bwd_state_kernel", "ssd_bwd_pass_kernel",
+             "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel",
+             "ssd_bwd_finish_kernel"), device),
         "shape": {"b": b, "S": S, "nh": nh, "hp": hp, "st": st,
                   "chunk": Q},
         "bytes": nbytes, "ops": ops}, BF16_OPS_PER_S)
@@ -3910,8 +3971,9 @@ def ssm_full_run(arch, device):
     same wiring.  Per plan its steps' seconds, tokens/s, peak allocated
     memory and launches a step (held exactly against
     ``expected_step_launches``), the settled plan, the loss (finite, and
-    lower after training on the first step's batch than that step's) and
-    the final save's wall (the checkpoint deleted after)."""
+    lower after training on the first step's batch than that step's), the
+    final save's wall (the checkpoint deleted after) and, for mamba2,
+    ``step_breakdown`` of one more mb1_noremat step."""
     import gc
     import shutil
     from repro_torch import kernels
@@ -3971,6 +4033,11 @@ def ssm_full_run(arch, device):
         first_after = float(loss_fn(dataclasses.replace(cfg, remat=False),
                                     out["params"], first)[0])
     del first
+    # mamba2's breakdown of one more mb1_noremat step (after the loss
+    # above: it trains the state two steps further)
+    breakdown = (step_breakdown(cfg, out["params"], out["opt"], device,
+                                SSM_TRAIN_B, SSM_TRAIN_S, steps)
+                 if cfg.family == "ssm" else None)
     summary = {
         "arch": arch, "layers": layers, "d_model": cfg.d_model,
         "dtype": cfg.param_dtype, "params": n_par,
@@ -3982,7 +4049,8 @@ def ssm_full_run(arch, device):
         "first_batch_loss_after": first_after, "plans": rows,
         "history": [h[0] for h in out["history"]],
         "settled": out["settled"], "final_save_s": out["final_save_s"],
-        "checkpoint_gb": ckpt_bytes / 1e9, "launches": launches}
+        "checkpoint_gb": ckpt_bytes / 1e9, "launches": launches,
+        "step_breakdown": breakdown}
     del out
     gc.collect()
     t1 = time.perf_counter()
@@ -4055,6 +4123,9 @@ def phase_ssm_training(device, flush, model_records, bwd_records):
             f"final save {full['final_save_s']:.1f} s "
             f"({full['checkpoint_gb']:.1f} GB); "
             f"{time.perf_counter() - t0:.1f} s")
+        if full["step_breakdown"]:
+            log(f"[{tag}] one more mb1_noremat step, by layer: "
+                f"{json.dumps(full['step_breakdown'])}")
     by_path = {f"train {a} [20]": r["launches"] for a, r in runs.items()}
     rec["launches_by_path"] = {k: v["ssd_scan_bwd"]
                                for k, v in by_path.items()}

@@ -65,9 +65,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "ssd_scan_launch": (_P,) * 8 + (_L,) + (_I,) * 7 + (_P,),
     },
     # x, dt, A, B, C, dy, dstate (or null), dx, ddt, dA, dB, dC, ws, ws
-    # floats, b, S, nh, hp, st, chunk, x dtype, stream
+    # floats, b, S, nh, hp, st, chunk, x dtype, stream; the workspace's
+    # size: b, S, nh, hp, st, chunk, x dtype, out
     "ssd_scan_bwd.cu": {
         "ssd_scan_bwd_launch": (_P,) * 13 + (_L,) + (_I,) * 7 + (_P,),
+        "ssd_scan_bwd_workspace_floats": (_I,) * 7 + (ctypes.POINTER(_L),),
     },
 }
 

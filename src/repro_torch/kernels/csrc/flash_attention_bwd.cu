@@ -504,6 +504,8 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
 namespace bf16 {
 
 using bf = __nv_bfloat16;
+using tc::split_frags;
+using tc::zero;
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kBQ = 128;       // dq kernel: queries a block, 64 a warpgroup
 constexpr int kBKV = 64;       // dq kernel: keys a tile
@@ -527,31 +529,10 @@ __device__ __forceinline__ void mma_rs(float (&o)[HD / 8][4],
   else wg::mma_rs_n128(o, a, b);
 }
 
-// The A fragments (bf16 hi and lo parts) of the next product over the
-// columns of a float32 accumulator: k-step kk takes column tiles 2kk and
-// 2kk + 1 (tensor_core.cuh).
-template <int NT>
-__device__ __forceinline__ void split_frags(const float (&c)[NT][4],
-                                            uint32_t (&f)[NT / 2][2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    tc::split(c[2 * kk][0], c[2 * kk][1], f[kk][0][0], f[kk][1][0]);
-    tc::split(c[2 * kk][2], c[2 * kk][3], f[kk][0][1], f[kk][1][1]);
-    tc::split(c[2 * kk + 1][0], c[2 * kk + 1][1], f[kk][0][2], f[kk][1][2]);
-    tc::split(c[2 * kk + 1][2], c[2 * kk + 1][3], f[kk][0][3], f[kk][1][3]);
-  }
-}
-
 // byte offset of k-step ks (16 columns) of a K-major tile of R rows
 template <int R>
 __device__ __forceinline__ uint32_t kstep(int ks) {
   return (ks >> 2) * R * 128 + (ks & 3) * 32;
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 }
 
 // Store rows [row0 + g, row0 + g + 8] of a 64 x HD accumulator, times

@@ -2,8 +2,8 @@
 // for sm_90a: transposed ldmatrix, cp.async with zero fill, shared-memory
 // stores, the swizzled byte offset of a 64-column bf16 tile (and of a tile
 // of up to 128 columns kept as 64-column blocks), the staging of such a
-// tile from a row-major tensor, and the bf16 hi/lo split of float32
-// values.
+// tile from a row-major tensor, the bf16 hi/lo split of float32 values,
+// and of an accumulator into the next product's A fragments.
 //
 // Register fragments (lane = 4 * g + t), per warp of a warpgroup, as a
 // wgmma A operand from registers (16 rows x 16 columns) and as wgmma's
@@ -102,6 +102,27 @@ __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+}
+
+// The A fragments (bf16 hi and lo parts) of the next product over the
+// columns of a float32 accumulator: k-step kk takes column tiles 2 kk and
+// 2 kk + 1.
+template <int NT>
+__device__ __forceinline__ void split_frags(const float (&c)[NT][4],
+                                            uint32_t (&f)[NT / 2][2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    split(c[2 * kk][0], c[2 * kk][1], f[kk][0][0], f[kk][1][0]);
+    split(c[2 * kk][2], c[2 * kk][3], f[kk][0][1], f[kk][1][1]);
+    split(c[2 * kk + 1][0], c[2 * kk + 1][1], f[kk][0][2], f[kk][1][2]);
+    split(c[2 * kk + 1][2], c[2 * kk + 1][3], f[kk][0][3], f[kk][1][3]);
+  }
 }
 
 // Byte offset of (r, c) in a tile of R rows and up to 128 bf16 columns

@@ -23,7 +23,7 @@ The gradient is the port's own kernel (``csrc/ssd_scan_bwd.cu``; the
 reference differentiates ``ssd_chunked`` with XLA): ``ssd_scan_bwd`` gives
 (dx, ddt, dA, dB, dC) from the inputs, the output's gradient and the final
 state's, and counts ``ssd_scan_bwd.launches`` (one a call: three kernels in
-order).  On the card, with autograd recording and an input that requires
+order for a float32 x, five on the tensor cores for a bfloat16 x).  On the card, with autograd recording and an input that requires
 grad, ``ssd_scan`` runs as a ``torch.autograd.Function`` whose backward is
 that kernel; under ``no_grad`` it launches the forward alone, as serving
 does.  ``ssd_scan_bwd_ref`` is its plain version, autograd through
@@ -31,6 +31,8 @@ does.  ``ssd_scan_bwd_ref`` is its plain version, autograd through
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -44,8 +46,6 @@ _BWD_SOURCE = "ssd_scan_bwd.cu"
 MAX_HEADDIM = 64
 MAX_STATE = 128
 MAX_CHUNK = 1024
-#: heads a block of the backward's gradient kernel (``kHG``)
-BWD_HEADS = 4
 
 
 def state_columns(st: int) -> int:
@@ -70,19 +70,19 @@ def _workspace_floats(b, S, nh, hp, st, chunk) -> int:
             + b * nc * nh * 64 * ks + 2 * b * S * ks + 2 * up(b * S * nh))
 
 
-def _bwd_workspace_floats(b, S, nh, hp, st, chunk) -> int:
-    """float32 values of the backward kernels' scratch (``Workspace`` in
-    ``csrc/ssd_scan_bwd.cu``, which checks the size): each chunk's state
-    and its gradient, the chunks' totals and dA partials, dB and dC
-    partials by group of ``BWD_HEADS`` heads, and the ticket counters; each
-    part rounded up to 64 values."""
-    def up(n):
-        return -(-n // 64) * 64
-
-    nc = S // chunk
-    groups = -(-nh // BWD_HEADS)
-    return (2 * up(b * nc * nh * hp * st) + 2 * up(b * nc * nh)
-            + 2 * up(b * S * groups * st) + up(b * nc + 1))
+def _bwd_workspace_floats(b, S, nh, hp, st, chunk, dtype) -> int:
+    """float32 values of the backward kernels' scratch for x's ``dtype``:
+    the end of that dtype's ``Workspace`` in ``csrc/ssd_scan_bwd.cu``, as
+    its ``ssd_scan_bwd_workspace_floats`` gives it (the library is built
+    at first use)."""
+    from .build import load
+    n = ctypes.c_longlong()
+    rc = load(_BWD_SOURCE).ssd_scan_bwd_workspace_floats(
+        b, S, nh, hp, st, chunk, DTYPE_CODES[dtype], ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd_workspace_floats failed with "
+                           f"CUDA error {rc}")
+    return n.value
 
 
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
@@ -225,7 +225,7 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 256):
     ddt, dA, dB, dC = (torch.empty_like(t) for t in (dt, A, B, C))
     if not x.numel():
         return dx, ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
-    n_ws = _bwd_workspace_floats(b, S, nh, hp, st, chunk)
+    n_ws = _bwd_workspace_floats(b, S, nh, hp, st, chunk, x.dtype)
     ws = torch.empty(n_ws, dtype=torch.float32, device=device)
     launch(_BWD_SOURCE, "ssd_scan_bwd_launch",
            [t.data_ptr() for t in (x, dt, A, B, C, dy)]

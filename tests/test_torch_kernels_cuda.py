@@ -558,11 +558,11 @@ def test_autograd_goes_through_the_backward_kernels(card):
 
 #: (b, S, nh, hp, st, chunk): states 16 / 64 / 96 / 128 (kS = 64 and 128),
 #: one chunk and several, a chunk of 96 rows (a ragged 64-row tile), a
-#: head group cut short (nh = 3, 5) and the longest chunk
+#: head group cut short (nh = 3, 5, 7) and the longest chunk
 SSD_BWD_CASES = [(1, 64, 2, 32, 16, 32), (2, 256, 4, 64, 64, 64),
                  (1, 512, 3, 64, 96, 128), (2, 512, 8, 64, 128, 256),
                  (1, 256, 4, 64, 128, 256), (1, 192, 5, 48, 40, 96),
-                 (1, 1024, 4, 64, 128, 1024)]
+                 (1, 1024, 4, 64, 128, 1024), (1, 512, 7, 64, 128, 256)]
 
 
 @pytest.mark.cuda
@@ -578,8 +578,104 @@ def test_ssd_bwd_kernel_matches_plain_autograd(card, b, S, nh, hp, st,
     n0 = SSD.ssd_scan_bwd.launches
     got = SSD.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
     assert SSD.ssd_scan_bwd.launches == n0 + 1
-    want = SSD.ssd_scan_bwd_ref(*args, dy, dstate, chunk=chunk)
+    if dtype == "float32":
+        # float32 against the exact gradient (the plain version in
+        # float64): the float32 kernel sums cum in float64, and the
+        # float32 plain version's rounding of cum can pass the tolerance
+        want = [w.float() for w in SSD.ssd_scan_bwd_ref(
+            *(t.double() for t in args), dy.double(),
+            None if dstate is None else dstate.double(), chunk=chunk)]
+    else:
+        want = SSD.ssd_scan_bwd_ref(*args, dy, dstate, chunk=chunk)
     _check_grads(got, want, dtype, "ssd")
+    again = SSD.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _up64(n):
+    return -(-n // 64) * 64
+
+
+def _bf16_workspace(b, S, nh, hp, st, chunk, nt, npair, ngr):
+    """The bf16 backward's scratch in float32 values for row groups ``ngr``:
+    B and C as planes of kS = 64 or 128 state columns, each chunk's state
+    and its gradient's part, the totals, cum and dt by head, H and G as
+    planes of 64 rows, C B^T by tile pair, dC partials by row group, dB
+    partials by row group and tile pair, dcum by row tile, its part through
+    G, dT's parts by column tile, <G, H>, dA's partials and the ticket,
+    each part rounded up to 64 values."""
+    nc, ks = S // chunk, (64 if st <= 64 else 128)
+    bs, bcn = b * S, b * nc * nh
+    return (2 * _up64(bs * ks) + 2 * _up64(bcn * hp * st) + _up64(bcn)
+            + 2 * _up64(bs * nh) + 2 * _up64(bcn * 64 * ks)
+            + _up64(b * nc * npair * 64 * 64) + ngr * _up64(bs * st)
+            + _up64(ngr * b * nc * npair * 64 * st) + _up64(bcn * nt * chunk)
+            + _up64(bs * nh) + _up64(bcn * nt) + 2 * _up64(bcn) + 64)
+
+
+@pytest.mark.cuda
+def test_bwd_workspace_matches_its_parts(card):
+    """The backward's scratch, as ``csrc/ssd_scan_bwd.cu``'s ``Workspace``
+    lays it out for each dtype of x and its ``ssd_scan_bwd_workspace_floats``
+    reports it, each part rounded up to 64 values.  float32: two states per
+    (batch, chunk, head), the chunks' totals and dA partials, dB and dC
+    partials by group of 4 heads (``kHG``), and the tickets.  bfloat16
+    (mamba2-2.7b's 4 x 2048 call: 4 row tiles a chunk, 10 tile pairs, 3
+    row groups): as ``_bf16_workspace`` sums it."""
+    b, S, nh, hp, st, chunk = 4, 2048, 80, 64, 128, 256
+    nc, groups = S // chunk, -(-nh // 4)
+    assert SSD._bwd_workspace_floats(b, S, nh, hp, st, chunk,
+                                     torch.float32) == (
+        2 * _up64(b * nc * nh * hp * st) + 2 * _up64(b * nc * nh)
+        + 2 * _up64(b * S * groups * st) + _up64(b * nc + 1))
+    assert SSD._bwd_workspace_floats(b, S, nh, hp, st, chunk,
+                                     torch.bfloat16) == _bf16_workspace(
+        b, S, nh, hp, st, chunk, 4, 10, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,nh,chunk,want", [
+    (4, 2048, 80, 256, (4, 10, 3)),    # mamba2-2.7b: 27 heads a group
+    (4, 2048, 112, 256, (4, 10, 4)),   # Zamba2: 28 heads a group
+    (4, 1024, 80, 256, (4, 10, 3)),    # mamba2's 4 x 1024 training call
+    (1, 256, 8, 64, (1, 1, 4)),        # 4 tiles: 4 groups of 2 heads
+    (1, 1024, 7, 1024, (16, 136, 4)),  # one chunk of 16 tiles, 7 heads
+    (2, 64, 1, 32, (1, 1, 1))])        # a single head
+def test_bwd_layout_fills_the_card_within_the_head_limit(card, b, S, nh,
+                                                         chunk, want):
+    """The bf16 backward's row groups (``Layout`` in the kernel's source,
+    read through the workspace's size, which has a dB partial a group):
+    at most 32 heads each (``kMaxRowHeads``), as few as that allows, and
+    more (of 2 heads at least) where the rows kernel would launch fewer
+    than 132 blocks (``kFill``)."""
+    nt, npair, ngr = want
+    assert SSD._bwd_workspace_floats(b, S, nh, 64, 128, chunk,
+                                     torch.bfloat16) == _bf16_workspace(
+        b, S, nh, 64, 128, chunk, nt, npair, ngr)
+
+
+#: (b, S, nh, hp, st, chunk): the bf16 tensor-core kernels' edges: state
+#: columns kS = 64 and 128 each with the longest chunk (1024, sixteen
+#: 64-row tiles), hp < 64, and head counts that are no whole number of
+#: their head pairs, column groups of 4 and row groups (5, 7, 9 and 33
+#: heads; 33 takes two row groups at the 32-head limit)
+SSD_BWD_BF16_CASES = [(1, 1024, 5, 64, 64, 1024), (1, 2048, 7, 48, 128, 1024),
+                      (1, 512, 9, 32, 96, 256), (2, 256, 33, 64, 128, 128),
+                      (1, 384, 3, 16, 40, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,nh,hp,st,chunk", SSD_BWD_BF16_CASES)
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_ssd_bwd_bf16_kernels_at_their_edges(card, b, S, nh, hp, st, chunk,
+                                             with_dstate):
+    args = _ssd_args(b, S, nh, hp, st, "bfloat16", card)
+    dy = _randn((b, S, nh, hp), torch.bfloat16, card, 9, 0.5)
+    dstate = (_randn((b, nh, hp, st), torch.float32, card, 10, 0.5)
+              if with_dstate else None)
+    got = SSD.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
+    want = SSD.ssd_scan_bwd_ref(*args, dy, dstate, chunk=chunk)
+    _check_grads(got, want, "bfloat16", "ssd")
     again = SSD.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 

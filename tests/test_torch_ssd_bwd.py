@@ -144,20 +144,3 @@ def test_backward_wrapper_on_the_cpu_is_the_plain_version():
                                 torch.from_numpy(dstate), chunk=32)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert SSD.ssd_scan_bwd in SSD.WRAPPERS
-
-
-def test_bwd_workspace_matches_its_parts():
-    """The backward's scratch, as ``csrc/ssd_scan_bwd.cu``'s ``Workspace``
-    lays it out: two state planes per (batch, chunk, head), the chunks'
-    totals and dA partials, dB and dC partials by head group, and the
-    tickets, each part rounded up to 64 values."""
-    def up(n):
-        return -(-n // 64) * 64
-
-    b, S, nh, hp, st, chunk = 4, 2048, 80, 64, 128, 256
-    nc, groups = S // chunk, -(-nh // SSD.BWD_HEADS)
-    assert SSD._bwd_workspace_floats(b, S, nh, hp, st, chunk) == (
-        2 * up(b * nc * nh * hp * st) + 2 * up(b * nc * nh)
-        + 2 * up(b * S * groups * st) + up(b * nc + 1))
-    src = (SSD.__file__.rsplit("/", 1)[0] + "/csrc/ssd_scan_bwd.cu")
-    assert f"constexpr int kHG = {SSD.BWD_HEADS};" in open(src).read()
