@@ -217,7 +217,27 @@ kernels, and prints one JSON line per result.  Phases, in order:
     wall (the disk checked first, the checkpoint deleted after); then one
     more mb1_noremat step of mamba2-2.7b by layer on the host clock
     (forward + loss, backward, AdamW) and the card's busy ms by kernel
-    bucket (the SSD backward's among them) under ``torch.profiler``.
+    bucket (the SSD backward's among them) under ``torch.profiler``;
+21. the MoE family's training: (a) olmoe-1b-7b's ``smoke_reduce`` on the
+    card: one backward in float32 and bf16 with no leaf without a
+    gradient, and 8 float32 steps from one start on the card and the CPU
+    within ``TRAIN_CARD_CPU_REL``; (b) one MoE layer at full width in
+    bf16 (4 x 1024 tokens, D 2,048, 64 experts, top-8, F 1,024, tokens
+    that share a component so that the capacity drops some): forward and
+    backward twice and once checkpointed, outputs and gradients
+    bit-equal, ``dropped_frac``, and autograd's own backward of the
+    dispatch's gather beside the fixed-order one; the rmsnorm backward
+    at olmoe's QK-norm (65,536 rows of 128) and layer norms (4,096 rows
+    of 2,048) and the flash backward at its call (16 / 16 heads of 128,
+    causal), each against its plain version, rerun bit-equal and timed
+    beside its bound, its plain version and the library's backward; (c)
+    olmoe-1b-7b at full width cut to ``MOE_TRAIN_LAYERS`` of its 16
+    layers (83 GB of state at full depth) through the launcher's wiring,
+    4 x 1024 tokens a step, 5 steps under ExhaustiveSel over the five
+    plans: per plan its step seconds, tokens/s, peak and launches a step
+    (held exactly), the loss gate, the final save's wall, and
+    ``expert_load`` and ``dropped_frac`` of every layer on the first
+    batch after training.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -2603,7 +2623,7 @@ def backward_records(device, flush):
             "tolerance at the small shapes")
 
     recs = []
-    D, n = 3072, TRAIN_B * TRAIN_S
+    D = 3072
     x, dy = (randn((TRAIN_B, TRAIN_S, D), bf16, device, 40 + i)
              for i in range(2))
     w = randn((D,), bf16, device, 42)
@@ -2611,27 +2631,12 @@ def backward_records(device, flush):
     require(rms_fwd["tol_ratio"] <= 1.0 and rms_fwd["rerun_bit_equal"],
             f"rmsnorm at the training shape {rms_fwd['tol_ratio']}, rerun "
             f"bit-equal {rms_fwd['rerun_bit_equal']}")
-    got, want = RMS.rmsnorm_bwd(x, w, dy), RMS.rmsnorm_bwd_ref(x, w, dy)
-    errs = grad_errors(got, want)
-    require(bwd_within(errs, bf16), f"rmsnorm_bwd at the training shape "
-            f"{errs}")
-    recs.append(with_bound({
-        "name": "rmsnorm_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-        "replaces": REPLACES["rmsnorm_bwd"],
-        "max_abs_err": max(float((a.float() - b.float()).abs().max())
-                           for a, b in zip(got, want)),
-        "rel_l2": [e[1] for e in errs],
-        "tolerance": {"bf16_rel_l2": BWD_BF16_REL_L2},
-        "ms": time_call(RMS.rmsnorm_bwd, (x, w, dy), 20, device, flush),
-        "plain_ms": time_call(RMS.rmsnorm_bwd_ref, (x, w, dy), 5, device,
-                              flush),
-        "library_ms": time_grad(rms_graph, (x, w, dy), 20, device, flush),
-        "shape": {"rows": n, "D": D},
-        # x, dy read, dx written; w read, dw written
-        "bytes": 3 * n * D * 2 + 2 * D * 2,
-        "ops": 10 * n * D}, F32_OPS_PER_S))
-    del x, dy, w, got, want
+    rec = rmsnorm_bwd_record(x, w, dy, device, flush)
+    require(rec["within"] and rec["rerun_bit_equal"], f"rmsnorm_bwd at the "
+            f"training shape {rec['rel_l2']}, rerun bit-equal "
+            f"{rec['rerun_bit_equal']}")
+    recs.append(rec)
+    del x, dy, w
 
     B, S, H, K, hd = TRAIN_B, TRAIN_S, 24, 8, 128
     q, do = (randn((B, S, H, hd), bf16, device, 50 + i) for i in range(2))
@@ -2710,6 +2715,39 @@ def backward_records(device, flush):
         f"{json.dumps(rms_fwd)}")
     torch.cuda.empty_cache()
     return recs, {"flash_attention": fwd, "rmsnorm": rms_fwd}
+
+
+def rmsnorm_bwd_record(x, w, dy, device, flush):
+    """[17a] / [21b]: the rmsnorm backward at one training call (bf16)
+    against its plain version, a rerun's bits, and its time after an L2
+    flush beside its bound, the plain version and ``F.rms_norm``'s
+    backward."""
+    from repro_torch.kernels import rmsnorm as RMS
+    got, want = RMS.rmsnorm_bwd(x, w, dy), RMS.rmsnorm_bwd_ref(x, w, dy)
+    errs = grad_errors(got, want)
+    again = RMS.rmsnorm_bwd(x, w, dy)
+    D = x.shape[-1]
+    n = x.numel() // D
+    rec = with_bound({
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": REPLACES["rmsnorm_bwd"],
+        "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want)),
+        "rel_l2": [e[1] for e in errs],
+        "tolerance": {"bf16_rel_l2": BWD_BF16_REL_L2},
+        "within": bwd_within(errs, x.dtype),
+        "rerun_bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+        "ms": time_call(RMS.rmsnorm_bwd, (x, w, dy), 20, device, flush),
+        "plain_ms": time_call(RMS.rmsnorm_bwd_ref, (x, w, dy), 5, device,
+                              flush),
+        "library_ms": time_grad(rms_graph, (x, w, dy), 20, device, flush),
+        "shape": {"rows": n, "D": D},
+        # x, dy read, dx written; w read, dw written
+        "bytes": 3 * n * D * 2 + 2 * D * 2,
+        "ops": 10 * n * D}, F32_OPS_PER_S)
+    del got, want, again
+    return rec
 
 
 def turns_ms(calls, reps, device, flush):
@@ -3866,11 +3904,12 @@ def ssd_bwd_record(shape, seed, device, flush, train_S):
     return rec
 
 
-def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S):
-    """[20b]: the flash backward at Zamba2's shared block (causal, bf16)
-    against its plain version, timed after an L2 flush beside the bound,
-    the plain version and SDPA's backward, and at the training step's own
-    call."""
+def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S=None):
+    """[20b] / [21b]: the flash backward at one call (causal, bf16; Zamba2's
+    shared block, olmoe's training call) against its plain version, a
+    rerun's bits, timed after an L2 flush beside the bound, the plain
+    version and SDPA's backward, and, given ``train_S``, at the training
+    step's own call."""
     from repro_torch.kernels import flash_attention as FA
     bf16 = torch.bfloat16
     q, do = (randn((B, S, H, hd), bf16, device, seed + i) for i in range(2))
@@ -3900,6 +3939,9 @@ def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S):
         "bytes": (4 * B * S * H * hd + 4 * B * S * K * hd) * 2,
         "ops": 10 * B * H * hd * pairs}, BF16_OPS_PER_S)
     del q, k, v, o, do, lse
+    if train_S is None:
+        torch.cuda.empty_cache()
+        return rec
     q, do = (randn((B, train_S, H, hd), bf16, device, seed + i)
              for i in range(2))
     k, v = (randn((B, train_S, K, hd), bf16, device, seed + 2 + i)
@@ -3916,17 +3958,21 @@ def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S):
 def expected_step_launches(cfg, microbatches, remat):
     """The kernel launches of one train step: per microbatch, each Mamba2
     layer's SSD scan (twice under remat: the checkpoint recomputes it) and
-    backward, its two rmsnorms, each application of the hybrid's shared
-    block's flash attention and two rmsnorms (recomputed under remat), and
-    the final norm."""
+    backward, its two rmsnorms, each attention block's flash attention
+    and its two rmsnorms, four with QK-norm (a MoE layer; the hybrid's
+    shared block after each segment), each recomputed under remat, and
+    the final norm (once)."""
     L = cfg.n_layers
-    n_seg = L // cfg.attn_every if cfg.family == "hybrid" else 0
-    norms = 2 * L + (2 + 2 * cfg.qk_norm) * n_seg
+    attn = {"moe": L, "hybrid": L // max(cfg.attn_every, 1)}.get(
+        cfg.family, 0)
+    ssd = 0 if cfg.family == "moe" else L
+    norms = 2 * ssd + (2 + 2 * cfg.qk_norm) * attn
     fwd = 2 if remat else 1
-    out = {"ssd_scan": fwd * L, "ssd_scan_bwd": L,
-           "rmsnorm": fwd * norms + 1, "rmsnorm_bwd": norms + 1}
-    if n_seg:
-        out.update(flash_attention=fwd * n_seg, flash_attention_bwd=n_seg)
+    out = {"rmsnorm": fwd * norms + 1, "rmsnorm_bwd": norms + 1}
+    if ssd:
+        out.update(ssd_scan=fwd * ssd, ssd_scan_bwd=ssd)
+    if attn:
+        out.update(flash_attention=fwd * attn, flash_attention_bwd=attn)
     return {k: v * microbatches for k, v in out.items()}
 
 
@@ -3963,17 +4009,18 @@ def tuned_training(cfg, steps, ckpt, device):
     return out
 
 
-def ssm_full_run(arch, device):
-    """[20d] / [20e]: ``arch`` at full width in bf16 through the training
-    entry points, SSM_TRAIN_B x SSM_TRAIN_S tokens a step under
+def family_full_run(arch, device):
+    """[20d] / [20e] / [21c]: ``arch`` at full width in bf16 through the
+    training entry points, SSM_TRAIN_B x SSM_TRAIN_S tokens a step under
     ExhaustiveSel over DEFAULT_PLANS: mamba2-2.7b at full depth through
-    ``launch.train.main``; zamba2-7b cut to ZAMBA_TRAIN_LAYERS through the
-    same wiring.  Per plan its steps' seconds, tokens/s, peak allocated
-    memory and launches a step (held exactly against
-    ``expected_step_launches``), the settled plan, the loss (finite, and
-    lower after training on the first step's batch than that step's), the
-    final save's wall (the checkpoint deleted after) and, for mamba2,
-    ``step_breakdown`` of one more mb1_noremat step."""
+    ``launch.train.main``; zamba2-7b cut to ZAMBA_TRAIN_LAYERS and
+    olmoe-1b-7b cut to MOE_TRAIN_LAYERS through the same wiring.  Per plan
+    its steps' seconds, tokens/s, peak allocated memory and launches a
+    step (held exactly against ``expected_step_launches``), the settled
+    plan, the loss (finite, and lower after training on the first step's
+    batch than that step's; olmoe's ``expert_load`` and ``dropped_frac``
+    there), the final save's wall (the checkpoint deleted after) and, for
+    mamba2, ``step_breakdown`` of one more mb1_noremat step."""
     import gc
     import shutil
     from repro_torch import kernels
@@ -3983,10 +4030,12 @@ def ssm_full_run(arch, device):
     from repro_torch.launch import train
     from repro_torch.models import loss_fn
     cfg = get_config(arch)
-    if cfg.family == "hybrid":
-        cfg = dataclasses.replace(cfg, n_layers=ZAMBA_TRAIN_LAYERS)
-    steps = SSM_FULL_STEPS if cfg.family == "ssm" else ZAMBA_STEPS
-    tag = "20d" if cfg.family == "ssm" else "20e"
+    cut, steps, tag = {"ssm": (None, SSM_FULL_STEPS, "20d"),
+                       "hybrid": (ZAMBA_TRAIN_LAYERS, ZAMBA_STEPS, "20e"),
+                       "moe": (MOE_TRAIN_LAYERS, MOE_STEPS, "21c")}[
+                           cfg.family]
+    if cut is not None:
+        cfg = dataclasses.replace(cfg, n_layers=cut)
     ckpt = checkpoint_dir(cfg, arch, f"[{tag}]")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3997,7 +4046,7 @@ def ssm_full_run(arch, device):
     t0 = time.perf_counter()
     sigterm = signal.getsignal(signal.SIGTERM)
     try:
-        if cfg.family == "ssm":
+        if cut is None:
             out = train.main(["--arch", arch, "--full", "--seq-len",
                               str(SSM_TRAIN_S), "--batch", str(SSM_TRAIN_B),
                               "--steps", str(steps), "--ckpt", str(ckpt),
@@ -4013,7 +4062,7 @@ def ssm_full_run(arch, device):
     losses = out["losses"]
     n_par = sum(t.numel() for g in out["params"].values()
                 for t in (g.values() if isinstance(g, dict) else [g]))
-    layers = out["params"]["layers"]["A_log"].shape[0]
+    layers = next(iter(out["params"]["layers"].values())).shape[0]
     plans = {p.name: p for p in DEFAULT_PLANS}
     rows = []
     for r in out["plans"]:
@@ -4029,10 +4078,16 @@ def ssm_full_run(arch, device):
     first = {k: torch.from_numpy(v).to(device) for k, v in TokenPipeline(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN_S,
                    global_batch=SSM_TRAIN_B)).batch_at(0).items()}
-    with torch.no_grad():
+    with torch.no_grad(), moe_stats() as dispatch:
         first_after = float(loss_fn(dataclasses.replace(cfg, remat=False),
                                     out["params"], first)[0])
     del first
+    moe = None
+    if dispatch:
+        load = torch.stack([a["expert_load"] for a in dispatch])
+        moe = {"expert_load": load.cpu().tolist(),
+               "dropped_frac": [float(a["dropped_frac"]) for a in dispatch],
+               "routed_per_layer": int(load[0].sum())}
     # mamba2's breakdown of one more mb1_noremat step (after the loss
     # above: it trains the state two steps further)
     breakdown = (step_breakdown(cfg, out["params"], out["opt"], device,
@@ -4050,7 +4105,7 @@ def ssm_full_run(arch, device):
         "history": [h[0] for h in out["history"]],
         "settled": out["settled"], "final_save_s": out["final_save_s"],
         "checkpoint_gb": ckpt_bytes / 1e9, "launches": launches,
-        "step_breakdown": breakdown}
+        "step_breakdown": breakdown, "first_batch_dispatch": moe}
     del out
     gc.collect()
     t1 = time.perf_counter()
@@ -4067,11 +4122,18 @@ def ssm_full_run(arch, device):
     bad = [(r["plan"], r["launches_per_step"], r["expected_launches"])
            for r in rows if not r["launches_exact"]]
     require(not bad, f"[{tag}] launches a step {bad}")
-    names = ["rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"]
-    if cfg.family == "hybrid":
+    names = ["rmsnorm", "rmsnorm_bwd"]
+    if cfg.family != "moe":
+        names += ["ssd_scan", "ssd_scan_bwd"]
+    if cfg.family != "ssm":
         names += ["flash_attention", "flash_attention_bwd"]
     for name in names:
         require(launches[name] > 0, f"[{tag}] {name} was never launched")
+    if moe is not None:
+        tokens = SSM_TRAIN_B * SSM_TRAIN_S * cfg.experts_per_token
+        require(len(dispatch) == cfg.n_layers and all(
+            int(r.sum()) == tokens for r in load), f"[{tag}] expert_load "
+            f"{moe['expert_load']}")
     return summary
 
 
@@ -4109,38 +4171,207 @@ def phase_ssm_training(device, flush, model_records, bwd_records):
             log(f"[20c] {arch} smoke, card vs CPU, float32: "
                 f"{json.dumps(card_vs_cpu(device, tmp, arch, '[20c]'))}")
     log(f"[20c] {time.perf_counter() - t_phase:.1f} s")
-    runs = {}
-    for tag, arch in (("20d", "mamba2-2.7b"), ("20e", "zamba2-7b")):
-        t0 = time.perf_counter()
-        runs[arch] = full = ssm_full_run(arch, device)
-        log(f"[{tag}] {json.dumps(full)}")
-        for r in full["plans"]:
-            log(f"[{tag}] {r['plan']}: steps {r['step_s']} s, tokens/s "
-                f"{[round(t) for t in r['tokens_per_s']]}, peak "
-                f"{r['peak_gb']:.2f} GB, launches a step "
-                f"{json.dumps(r['launches_per_step'])}")
-        log(f"[{tag}] settled on {full['settled']}; loss {full['losses']}; "
-            f"final save {full['final_save_s']:.1f} s "
-            f"({full['checkpoint_gb']:.1f} GB); "
-            f"{time.perf_counter() - t0:.1f} s")
-        if full["step_breakdown"]:
-            log(f"[{tag}] one more mb1_noremat step, by layer: "
-                f"{json.dumps(full['step_breakdown'])}")
+    runs = {arch: logged_full_run(tag, arch, device)
+            for tag, arch in (("20d", "mamba2-2.7b"), ("20e", "zamba2-7b"))}
     by_path = {f"train {a} [20]": r["launches"] for a, r in runs.items()}
     rec["launches_by_path"] = {k: v["ssd_scan_bwd"]
                                for k, v in by_path.items()}
     rec["launches"] = sum(rec["launches_by_path"].values())
-    for r in model_records + bwd_records:
-        if r["name"] in ("rmsnorm", "flash_attention", "ssd_scan",
-                         "rmsnorm_bwd", "flash_attention_bwd"):
-            r.setdefault("launches_by_path", {})
-            for k, v in by_path.items():
-                r["launches_by_path"][k] = v[r["name"]]
-            r["launches"] = sum(r["launches_by_path"].values())
+    add_launches(model_records + bwd_records, by_path,
+                 ("rmsnorm", "flash_attention", "ssd_scan", "rmsnorm_bwd",
+                  "flash_attention_bwd"))
+    for r in bwd_records:
         if r["name"] == "flash_attention_bwd":
             r["at_zamba_call"] = flash
     log(f"[20] {time.perf_counter() - t_phase:.1f} s")
     return rec
+
+
+def logged_full_run(tag, arch, device):
+    """``family_full_run`` of ``arch``, its summary and each plan logged."""
+    t0 = time.perf_counter()
+    full = family_full_run(arch, device)
+    log(f"[{tag}] {json.dumps(full)}")
+    for r in full["plans"]:
+        log(f"[{tag}] {r['plan']}: steps {r['step_s']} s, tokens/s "
+            f"{[round(t) for t in r['tokens_per_s']]}, peak "
+            f"{r['peak_gb']:.2f} GB, launches a step "
+            f"{json.dumps(r['launches_per_step'])}")
+    log(f"[{tag}] settled on {full['settled']}; loss {full['losses']}; "
+        f"final save {full['final_save_s']:.1f} s "
+        f"({full['checkpoint_gb']:.1f} GB); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if full["step_breakdown"]:
+        log(f"[{tag}] one more mb1_noremat step, by layer: "
+            f"{json.dumps(full['step_breakdown'])}")
+    return full
+
+
+def add_launches(records, by_path, names):
+    """Each path's launches of each kernel in ``names`` added to that
+    kernel's record (``launches_by_path``, ``launches`` their sum)."""
+    for r in records:
+        if r["name"] in names:
+            r.setdefault("launches_by_path", {})
+            for k, v in by_path.items():
+                r["launches_by_path"][k] = v[r["name"]]
+            r["launches"] = sum(r["launches_by_path"].values())
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the MoE family's training
+# ---------------------------------------------------------------------------
+
+#: olmoe-1b-7b trains cut to 6 of its 16 layers: at full depth its 6.92e9
+#: parameters take ~83 GB in bf16 weights and gradients and float32
+#: moments before any activation; 6 layers (2.72e9) hold ~33 GB at mb1 and
+#: 44-49 GB at mb2 / mb4, the state of mamba2-2.7b (PERF.md section 4)
+MOE_TRAIN_LAYERS, MOE_STEPS = 6, 5
+
+
+@contextlib.contextmanager
+def dispatch_gathers():
+    """The arguments after x (t_sorted, keep, by_token, k) of every
+    dispatch gather ``moe_block`` makes while the context is open."""
+    from repro_torch.models import layers as L
+    seen, orig = [], L._DispatchGather.apply
+
+    def recorded(x, *args):
+        seen.append(args)
+        return orig(x, *args)
+    L._DispatchGather.apply = recorded
+    try:
+        yield seen
+    finally:
+        del L._DispatchGather.apply
+
+
+def moe_layer_grads(args, k, remat):
+    """One ``moe_block`` forward and backward (a fixed output gradient),
+    the block checkpointed under ``remat``: its output, aux and the
+    gradients of x, the router and the three expert weights."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models.layers import moe_block
+    leaves = [a.detach().requires_grad_() for a in args]
+    if remat:
+        out, aux = checkpoint(lambda *a: moe_block(*a, k=k), *leaves,
+                              use_reentrant=False)
+    else:
+        out, aux = moe_block(*leaves, k=k)
+    dy = randn(out.shape, out.dtype, out.device, 9, 0.1)
+    grads = torch.autograd.grad(out, leaves, dy)
+    return out.detach(), aux, grads
+
+
+def moe_layer_check(device):
+    """[21b]: one olmoe MoE layer at full width in bf16 over a training
+    step's 4 x 1024 tokens (D 2,048, 64 experts, top-8, F 1,024): forward
+    and backward twice and once checkpointed, the outputs and the five
+    gradients bit-equal across the three; ``dropped_frac``, above 0 (the
+    tokens share a component, as a residual stream's do, so the router
+    favours some experts: ~0.24 of the assignments overflow); and, for
+    the record, whether autograd's own backward of the dispatch's gather
+    (an indexed accumulate, which ``_DispatchGather`` replaces) reruns
+    bit-equal here and how far it is from the fixed-order sum."""
+    T, D, E, F, k = SSM_TRAIN_B * SSM_TRAIN_S, 2048, 64, 1024, 8
+    bf16 = torch.bfloat16
+    shared = 0.5 * randn((1, D), torch.float32, device, 406)
+    args = [(randn((T, D), torch.float32, device, 400) + shared).to(bf16),
+            randn((D, E), bf16, device, 401, D ** -0.5),
+            randn((E, D, F), bf16, device, 402, D ** -0.5),
+            randn((E, D, F), bf16, device, 403, D ** -0.5),
+            randn((E, F, D), bf16, device, 404, F ** -0.5)]
+    t0 = time.perf_counter()
+    with dispatch_gathers() as gathers:
+        runs = [moe_layer_grads(args, k, remat) for remat in
+                (False, False, True)]
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    (out, aux, grads), rerun, remat = runs
+    same = {name: all(torch.equal(a, b) for a, b in
+                      zip((out,) + grads, (o,) + g))
+            for name, (o, _, g) in (("rerun", rerun), ("remat", remat))}
+    t_sorted, keep, by_token, _ = gathers[0]
+    rows = t_sorted[keep]
+    g = randn((rows.shape[0], D), bf16, device, 405)
+    plain = []
+    for _ in range(2):
+        x = args[0].detach().requires_grad_()
+        plain.append(torch.autograd.grad(x[rows], x, g)[0])
+    x = args[0].detach().requires_grad_()
+    from repro_torch.models.layers import _DispatchGather
+    fixed = torch.autograd.grad(_DispatchGather.apply(
+        x, t_sorted, keep, by_token, k), x, g)[0]
+    out_rec = {
+        "tokens": T, "d_model": D, "experts": E, "top_k": k, "d_ff": F,
+        "capacity": max(1, int(1.25 * k * T / E)),
+        "dropped_frac": float(aux["dropped_frac"]),
+        "bit_equal": same, "wall_s_three_runs": wall,
+        "grads_finite": all(bool(torch.isfinite(t.float()).all())
+                            for t in grads),
+        "autograd_gather_backward": {
+            "rerun_bit_equal": torch.equal(plain[0], plain[1]),
+            "max_abs_vs_fixed_order": float(
+                (plain[0].float() - fixed.float()).abs().max()),
+            "fixed_order_max_abs": float(fixed.float().abs().max())}}
+    del args, runs, out, aux, grads, rerun, remat, gathers, plain, fixed
+    torch.cuda.empty_cache()
+    require(all(same.values()) and out_rec["grads_finite"]
+            and out_rec["dropped_frac"] > 0,
+            f"[21b] the MoE layer's backward {out_rec}")
+    return out_rec
+
+
+def phase_moe_training(device, flush, model_records, bwd_records):
+    """Phase [21]: (a) olmoe's smoke cut on the card, (b) one MoE layer's
+    backward at full width and the rmsnorm and flash backwards at olmoe's
+    training calls, (c) olmoe-1b-7b trained at full width cut to
+    MOE_TRAIN_LAYERS of its 16 layers.  The training path's launches are
+    added to the kernels' records."""
+    import gc
+    import tempfile
+    arch = "olmoe-1b-7b"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log(f"[21a] {arch} smoke, gradients on the card: "
+            f"{json.dumps(leaves_get_gradients(device, arch, '[21a]'))}")
+        log(f"[21a] {arch} smoke, card vs CPU, float32: "
+            f"{json.dumps(card_vs_cpu(device, tmp, arch, '[21a]'))}")
+    log(f"[21a] {time.perf_counter() - t_phase:.1f} s")
+    log(f"[21b] one MoE layer at full width, bf16: "
+        f"{json.dumps(moe_layer_check(device))}")
+    B, S, bf16 = SSM_TRAIN_B, SSM_TRAIN_S, torch.bfloat16
+    rms = {}
+    for name, shape in (("qk_norm", (B, S, 16, 128)),
+                        ("layer_norm", (B, S, 2048))):
+        x, dy = (randn(shape, bf16, device, 410 + i) for i in range(2))
+        w = randn(shape[-1:], bf16, device, 412)
+        rms[name] = rmsnorm_bwd_record(x, w, dy, device, flush)
+        del x, dy, w
+    flash = flash_bwd_record(B, S, 16, 16, 128, 420, device, flush)
+    for tag, r in (("rmsnorm_bwd at the QK-norm", rms["qk_norm"]),
+                   ("rmsnorm_bwd at the layer norms", rms["layer_norm"]),
+                   ("flash_attention_bwd", flash)):
+        log(f"[21b] {tag}, olmoe's training call: {json.dumps(r)}")
+        require(r["within"] and r["rerun_bit_equal"], f"[21b] {tag}: "
+                f"rel L2 {r['rel_l2']}, rerun {r['rerun_bit_equal']}")
+    torch.cuda.empty_cache()
+    log(f"[21b] {time.perf_counter() - t_phase:.1f} s")
+    full = logged_full_run("21c", arch, device)
+    log(f"[21c] {arch}, first batch after training: "
+        f"dropped_frac {full['first_batch_dispatch']['dropped_frac']}")
+    add_launches(model_records + bwd_records,
+                 {f"train {arch} [21]": full["launches"]},
+                 ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                  "flash_attention_bwd"))
+    for r in bwd_records:
+        if r["name"] == "rmsnorm_bwd":
+            r["at_olmoe_training_calls"] = rms
+        if r["name"] == "flash_attention_bwd":
+            r["at_olmoe_training_call"] = flash
+    log(f"[21] {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4455,7 +4686,11 @@ def run() -> int:
     log("[20] the SSM and hybrid families' training at full width")
     bwd_records.append(phase_ssm_training(device, flush, model_records,
                                           bwd_records))
-    log(f"[20] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[20] {time.perf_counter() - t_start:.1f} s so far")
+    log(f"[21] the MoE family's training: olmoe-1b-7b at full width, "
+        f"{MOE_TRAIN_LAYERS} of 16 layers")
+    phase_moe_training(device, flush, model_records, bwd_records)
+    log(f"[21] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

@@ -11,7 +11,8 @@ checkpoints are atomic and async; injected failures exercise the restart
 path.  The archs are those whose family the port trains: dense
 (llama3.2-3b, granite-8b, mistral-nemo-12b, qwen3-32b, qwen2-vl-72b's
 backbone), ssm (mamba2-2.7b) and hybrid (zamba2-7b), the last two through
-the SSD scan's backward kernel; the MoE and enc-dec archs are refused
+the SSD scan's backward kernel, and moe (olmoe-1b-7b, grok-1-314b), whose
+dispatch's backward sums in a fixed order; the enc-dec arch is refused
 with the reason (``NOT_TRAINED``).
 
 Besides the reference's summary line, it prints one JSON line per plan it
@@ -40,12 +41,11 @@ from ..optim.adamw import AdamWConfig
 from ..runtime import Trainer, TrainerConfig
 
 #: the families the port trains, and their archs
-TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "moe")
 TRAIN_ARCHS = [a for a in ARCH_NAMES
                if get_config(a).family in TRAIN_FAMILIES]
 #: why the port trains no other family: the launcher's refusal
 NOT_TRAINED = {
-    "moe": "the port serves it; its training is not ported",
     "encdec": "the port serves it; its training is not ported",
 }
 #: default checkpoint directory: the checkout's build directory

@@ -13,7 +13,9 @@ keeps each row's log-sum-exp, from which its backward takes the softmax
 (bf16 products on the tensor cores).  Single-token decode attention,
 RoPE, LayerNorm (the reference has no Pallas kernel for it), the SwiGLU
 and GELU products and the MoE's routing and batched expert products stay
-plain PyTorch (and plain autograd), as the reference leaves them to XLA.
+plain PyTorch (and plain autograd, but for the dispatch's gather, whose
+backward sums a token's copies in a fixed order), as the reference leaves
+them to XLA.
 Layouts are the reference's: q (B, S, H, hd), k and v (B, T, K, hd).
 """
 
@@ -162,6 +164,43 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _token_sums(pairs, by_token, T: int, k: int):
+    """Each token's k rows of ``pairs`` (T * k, D), the (token, choice)
+    pairs in the dispatch's sorted order, summed one by one in that order
+    (``by_token``: a stable argsort of the pairs' tokens): a fixed order,
+    with no atomics, so reruns and recomputes are bit-equal."""
+    per_token = pairs[by_token].reshape(T, k, -1)
+    out = torch.zeros_like(per_token[:, 0])
+    for j in range(k):
+        out = out + per_token[:, j]
+    return out
+
+
+class _DispatchGather(torch.autograd.Function):
+    """``x[t_sorted[keep]]``, the dispatch's gather of each kept pair's
+    token, which takes a token up to k times.  Its backward sums a token's
+    kept copies by ``_token_sums``, as the combine sums its k outputs, in
+    ``x``'s dtype, where autograd of the gather would add them with an
+    indexed accumulate (``index_put_(accumulate=True)``): on the CPU that
+    adds float32 with atomics from several threads above 32,768 elements,
+    so reruns differ; on the card it happens to add in this order, one
+    rounding an addition, which PyTorch does not promise."""
+
+    @staticmethod
+    def forward(ctx, x, t_sorted, keep, by_token, k):
+        ctx.save_for_backward(keep, by_token)
+        ctx.k = k
+        return x[t_sorted[keep]]
+
+    @staticmethod
+    def backward(ctx, grad):
+        keep, by_token = ctx.saved_tensors
+        pairs = grad.new_zeros((keep.shape[0], grad.shape[-1]))
+        pairs[keep] = grad
+        dx = _token_sums(pairs, by_token, keep.shape[0] // ctx.k, ctx.k)
+        return dx, None, None, None, None
+
+
 def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
               capacity_factor: float = 1.25, groups: int = 1):
     """Top-k MoE with sort-based dispatch into a static-capacity buffer.
@@ -176,7 +215,9 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
 
     The k expert outputs of a token are summed in ``x.dtype`` in that
     sorted order, as the reference's scatter-add sums them, with no
-    atomics: reruns are bit-equal.  groups > 1 dispatches each of
+    atomics, and so are the gradients of a token's dispatched copies
+    (``_DispatchGather``): reruns of the forward and the backward are
+    bit-equal.  groups > 1 dispatches each of
     ``groups`` equal slices of the tokens on its own (per-group
     capacity); the loads add up, the other statistics are the groups'
     means."""
@@ -214,8 +255,10 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
     keep = rank < C
     slot = e_sorted * C + rank
 
+    # each token's pairs, in sorted order, brought together k a token
+    by_token = torch.argsort(t_sorted, stable=True)
     buf = torch.zeros((E * C, D), dtype=x.dtype, device=dev)
-    buf[slot[keep]] = x[t_sorted[keep]]
+    buf[slot[keep]] = _DispatchGather.apply(x, t_sorted, keep, by_token, k)
     buf = buf.reshape(E, C, D)
     h = matmul(buf, w_gate)
     u = matmul(buf, w_up)
@@ -223,11 +266,7 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
 
     gathered = y[slot.clamp(max=E * C - 1)].masked_fill(~keep[:, None], 0)
     contrib = (gathered * topw.reshape(-1)[order][:, None]).to(x.dtype)
-    # each token's k contributions, in sorted order, summed one by one
-    per_token = contrib[torch.argsort(t_sorted, stable=True)].reshape(T, k, D)
-    out = torch.zeros((T, D), dtype=x.dtype, device=dev)
-    for j in range(k):
-        out = out + per_token[:, j]
+    out = _token_sums(contrib, by_token, T, k)
 
     load = torch.bincount(flat_e, minlength=E).to(torch.int32)
     aux = {

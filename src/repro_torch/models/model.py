@@ -9,8 +9,8 @@ Mamba2 layers with one *shared* attention + SwiGLU block applied after
 every ``attn_every`` of them) and ``encdec`` (the Whisper backbone: a
 LayerNorm / GELU encoder over stub frame embeddings and a decoder with
 causal self-attention and cross-attention to the encoder's output,
-sinusoidal positions in both); all are served, and the dense, SSM and
-hybrid families are trained here.  Parameters are plain dicts of tensors;
+sinusoidal positions in both); all are served, and all but the enc-dec
+family are trained here.  Parameters are plain dicts of tensors;
 the layers are stacked with a leading L, as the reference stacks them,
 and a Python loop over L takes the place of ``lax.scan``: a forward takes
 each stack apart once with ``unbind(0)`` (views, and one stacked gradient
@@ -287,11 +287,13 @@ def _dense_block(p, cfg, x, positions, collect_kv=False, cache=None,
     return (x, kv) if (collect_kv or cache is not None) else (x, None)
 
 
-def _moe_block_apply(p, cfg, x, positions, cache=None, cache_len=None):
+def _moe_block_apply(p, cfg, x, positions, cache=None, cache_len=None,
+                     groups=1):
     """The MoE block: attention as the dense block's, then the top-k
     mixture of SwiGLU experts over the B * S tokens, dispatched in
-    ``moe_groups()`` groups in prefill and in one in decode, as the
-    reference does.  Returns (x, (k, v), the dispatch's aux)."""
+    ``groups`` groups (the stack's forward passes ``moe_groups()``; decode
+    one), as the reference does.  Returns (x, (k, v), the dispatch's
+    aux)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     o, kv = _attn_apply(p, cfg, h, positions, cache=cache,
                         cache_len=cache_len)
@@ -301,7 +303,7 @@ def _moe_block_apply(p, cfg, x, positions, cache=None, cache_len=None):
     y, aux = moe_block(h2.reshape(B * S, D), p["router"], p["we_gate"],
                        p["we_up"], p["we_down"], k=cfg.experts_per_token,
                        capacity_factor=cfg.capacity_factor,
-                       groups=(moe_groups() if cache is None else 1))
+                       groups=groups)
     return x + y.reshape(B, S, D), kv, aux
 
 
@@ -372,11 +374,11 @@ def _write_kv(kv, i, kv_i):
         stack[i, :, :t.shape[1]] = t
 
 
-def _block(p, cfg, x, positions, collect):
-    """One dense or MoE block: (x, its (k, v) if ``collect``, the MoE's
-    expert_load)."""
+def _block(p, cfg, x, positions, collect, groups):
+    """One dense or MoE block, the MoE's dispatch in ``groups`` groups:
+    (x, its (k, v) if ``collect``, the MoE's expert_load)."""
     if cfg.family == "moe":
-        x, kv, aux = _moe_block_apply(p, cfg, x, positions)
+        x, kv, aux = _moe_block_apply(p, cfg, x, positions, groups=groups)
         return x, (kv if collect else None), aux["expert_load"]
     x, kv = _dense_block(p, cfg, x, positions, collect_kv=collect)
     return x, kv, None
@@ -386,14 +388,18 @@ def _stack_forward(cfg, params, x, positions, kv):
     """The dense or MoE stack, each layer's (k, v) written into ``kv``
     when given; else, with ``cfg.remat``, each block is checkpointed, so
     the backward recomputes it from its input (the reference's
-    ``jax.checkpoint`` around the scanned body).  Returns (x, aux)."""
-    loads = []
+    ``jax.checkpoint`` around the scanned body).  The MoE's token groups
+    are read from the context here, once, and passed in: a recompute in
+    the backward, which may run after the context has closed, routes as
+    the forward did.  Returns (x, aux)."""
+    loads, groups = [], moe_groups()
     for i, p in enumerate(unstack_layers(params)):
         if kv is None and cfg.remat:
             x, _, load = checkpoint(_block, p, cfg, x, positions, False,
-                                    use_reentrant=False)
+                                    groups, use_reentrant=False)
         else:
-            x, kv_i, load = _block(p, cfg, x, positions, kv is not None)
+            x, kv_i, load = _block(p, cfg, x, positions, kv is not None,
+                                   groups)
             if kv is not None:
                 _write_kv(kv, i, kv_i)
                 del kv_i

@@ -464,12 +464,13 @@ def _check_grads(got, want, dtype, kernel):
             assert rel <= BWD_REL_L2_BF16, rel
 
 
-#: the last three: D odd (element-wise loads), the training shape (8,192
-#: rows of 3,072) and rows wider than the kernel's registers hold
+#: the last four: D odd (element-wise loads), the training shape (8,192
+#: rows of 3,072), rows wider than the kernel's registers hold, and
+#: olmoe's QK-norm in training (65,536 rows of 128)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 128), (3, 17, 64), (300, 3072),
                                    (5, 7168), (37, 1001), (4, 2048, 3072),
-                                   (3, 20000)])
+                                   (3, 20000), (4, 1024, 16, 128)])
 @pytest.mark.parametrize("xd,wd", [("float32", "float32"),
                                    ("bfloat16", "bfloat16"),
                                    ("float32", "bfloat16")])
@@ -487,11 +488,13 @@ def test_rmsnorm_bwd_kernel_matches_plain_autograd(card, shape, xd, wd):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-#: GQA and MHA, causal or not, ragged tiles, hd 32 / 64 / 112 / 128, and
-#: the training shape cut to one batch row
+#: GQA and MHA, causal or not, ragged tiles, hd 32 / 64 / 112 / 128, the
+#: dense training shape cut to one batch row, and olmoe's training call
+#: (16 query and 16 kv heads, no grouping)
 FLASH_BWD = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
              (1, 257, 129, 6, 3, 64), (2, 100, 72, 4, 2, 112),
-             (1, 300, 300, 6, 2, 128), (1, 2048, 2048, 24, 8, 128)]
+             (1, 300, 300, 6, 2, 128), (1, 2048, 2048, 24, 8, 128),
+             (4, 1024, 1024, 16, 16, 128)]
 
 
 @pytest.mark.cuda
@@ -695,6 +698,66 @@ def test_warm_kernels_of_the_ssm_family_builds_no_flash_kernel(card):
         assert n["rmsnorm"] >= 1 and n["rmsnorm_bwd"] >= 1, n
         assert n["ssd_scan"] == 1 and n["ssd_scan_bwd"] == 1, n
         assert n["flash_attention"] == n["flash_attention_bwd"] == flash, n
+
+
+@pytest.mark.cuda
+def test_warm_kernels_of_the_moe_family_builds_no_ssd_kernel(card):
+    """``warm_kernels`` of olmoe launches rmsnorm and flash attention,
+    forward and backward, and no SSD kernel."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.autotune import warm_kernels
+    kernels.reset_launch_counts()
+    warm_kernels(get_config("olmoe-1b-7b"), card)
+    n = kernels.launch_counts()
+    assert n["rmsnorm"] >= 1 and n["rmsnorm_bwd"] >= 1, n
+    assert n["flash_attention"] == n["flash_attention_bwd"] == 1, n
+    assert n["ssd_scan"] == n["ssd_scan_bwd"] == 0, n
+
+
+def _moe_layer_grads(args, k, remat):
+    """``moe_block``'s output, ``dropped_frac`` and gradients for its five
+    inputs under a fixed output gradient, the block checkpointed under
+    ``remat``."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models.layers import moe_block
+    leaves = [a.detach().requires_grad_() for a in args]
+    if remat:
+        out, aux = checkpoint(lambda *a: moe_block(*a, k=k), *leaves,
+                              use_reentrant=False)
+    else:
+        out, aux = moe_block(*leaves, k=k)
+    dy = _randn(out.shape, out.dtype, out.device, 9, 0.1)
+    return (out.detach(), float(aux["dropped_frac"]),
+            torch.autograd.grad(out, leaves, dy))
+
+
+@pytest.mark.cuda
+def test_moe_block_backward_at_full_width_reruns_bit_equal(card):
+    """One olmoe MoE layer at training size in bf16 (4,096 tokens, D 2,048,
+    64 experts, top-8, F 1,024; the tokens share a component, so the
+    router favours some experts and tokens are dropped): its output and
+    the gradients of x, the router and the expert weights are bit-equal
+    across two runs, and bit-equal under a checkpoint (the backward
+    recomputes the routing and the capacity mask)."""
+    T, D, E, F, k = 4096, 2048, 64, 1024, 8
+    bf16 = torch.bfloat16
+    x = _randn((T, D), torch.float32, card, 1) + \
+        _randn((1, D), torch.float32, card, 6, 0.5)
+    args = [x.to(bf16),
+            _randn((D, E), bf16, card, 2, D ** -0.5),
+            _randn((E, D, F), bf16, card, 3, D ** -0.5),
+            _randn((E, D, F), bf16, card, 4, D ** -0.5),
+            _randn((E, F, D), bf16, card, 5, F ** -0.5)]
+    runs = [_moe_layer_grads(args, k, remat) for remat in
+            (False, False, True)]
+    out0, dropped, grads0 = runs[0]
+    assert dropped > 0.05
+    for out, d, grads in runs[1:]:
+        assert torch.equal(out, out0) and d == dropped
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
+    assert all(bool(torch.isfinite(g.float()).all()) and
+               float(g.float().abs().max()) > 0 for g in grads0)
 
 
 @pytest.mark.cuda

@@ -11,8 +11,10 @@ and prefill-then-decode against the reference's forward agree within
 ``test_torch_families.py``); the port's prefill-then-decode also meets
 the reference's own contract against the port's forward (2e-3).
 Parameter counts, active parameters and the applicability rule are
-equal.  The reference's train-step smoke is not ported here: the port
-trains the dense family (``test_torch_train.py``).
+equal.  The reference's train-step smoke takes two steps of
+``make_train_step`` from the same weights in both packages, every arch,
+and their losses agree within ``REL`` (the launcher trains all but the
+enc-dec family; the step builder takes every family).
 """
 
 import dataclasses
@@ -29,7 +31,9 @@ from repro.configs import ARCH_NAMES, SHAPES, applicable  # noqa: E402
 from repro.configs import get_config, smoke_reduce  # noqa: E402
 from repro.models import (decode_step, forward, init_decode_cache,  # noqa: E402,E501
                           init_params, loss_fn)
+from repro.launch.steps import make_train_step  # noqa: E402
 from repro.models.model import logits_fn  # noqa: E402
+from repro.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import models as T  # noqa: E402
 from repro_torch.configs import ARCH_NAMES as T_ARCHS  # noqa: E402
@@ -107,6 +111,40 @@ def test_forward_and_loss(arch):
         # all routed tokens accounted for
         assert int(load.sum()) == cfg.n_layers * 2 * 32 * \
             cfg.experts_per_token
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_train_step(arch):
+    """The reference's train-step smoke: two steps of ``make_train_step``
+    on one batch from the reference's weights, in both packages; each
+    step's loss finite and within REL of the reference's, the second not
+    diverging, the moments' step 2, and the parameters moved."""
+    from repro_torch.launch.steps import make_train_step as t_train_step
+    from repro_torch.optim import AdamWConfig as TAdamWConfig
+    from repro_torch.optim import adamw_init as t_adamw_init
+    from repro_torch.optim import tree_items, tree_map
+    cfg, tcfg, params, tparams = smoke_model(arch)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    opt_cfg, t_opt_cfg = AdamWConfig(**kw), TAdamWConfig(**kw)
+    jb, tb = batch(cfg)
+    step = jax.jit(make_train_step(cfg, opt_cfg))
+    p1, o1, m1 = step(params, adamw_init(params, opt_cfg), jb)
+    _, o2, m2 = step(p1, o1, jb)
+    # the port updates in place: step a copy of the shared weights
+    start = tree_map(lambda t: t.clone(), tparams)
+    t_step = t_train_step(tcfg, t_opt_cfg)
+    tp, to, tm1 = t_step(start, t_adamw_init(start, t_opt_cfg), tb)
+    t1 = float(tm1["loss"])
+    moved = sum(float((a - b).abs().sum()) for (_, a), (_, b) in
+                zip(tree_items(tp), tree_items(tparams)))
+    _, to, tm2 = t_step(tp, to, tb)
+    losses = [t1, float(tm2["loss"])]
+    assert np.all(np.isfinite(losses))
+    for got, want in zip(losses, (m1["loss"], m2["loss"])):
+        assert abs(got - float(want)) <= REL * abs(float(want))
+    assert losses[1] < losses[0] + 1.0                   # not diverging
+    assert int(to.step) == int(o2.step) == 2
+    assert moved > 0.0
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
