@@ -56,9 +56,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
     a rerun bit-equal; every rmsnorm row (these, the prefill's and [17a]'s
     training call) is timed in turns with ``rms_norm``;
 12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
-    T=125, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
-    lanes, 8,250 decisions; the cell's T = 500 cut to its first 125 steps
-    to keep the script inside its limit beside [18]-[20]) on the kernels, the
+    T=110, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
+    lanes, 7,260 decisions; the cell's T = 500 cut to its first 110 steps
+    to keep the script inside its limit beside [18]-[22]) on the kernels, the
     sweep, the lockstep replay and the SimPolicy pricing each on a backend
     of its own: the walls, the
     replay's ``PathTimes`` split, the host's decide and learn remainder, the
@@ -71,14 +71,14 @@ kernels, and prints one JSON line per result.  Phases, in order:
     and SimPolicy's decision equal to the exhaustive Oracle's on the
     noise-free ``tc``/``epyc`` loop;
 13. perturbed and heterogeneous machines: (a) the ``mandelbrot`` portfolio
-    at T = 10 on ``epyc`` and ``epyc_het`` under each kind of perturbation
+    at T = 5 on ``epyc`` and ``epyc_het`` under each kind of perturbation
     (a PE slowdown, four failed PEs, a noise burst, a ``cov`` workload
     drift) on the kernels, on the plain event core on the card and on the
     CPU, loop times, ``lib`` and chunk counts bit-equal, with the fused
     calls' largest B and K and the lanes forced whole; (b) the Fig. 5 cell
-    ``mandelbrot``/``epyc`` cut to T = 125 with 20 % of the PEs 8x slower
-    from step 100: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
-    both chunk modes (26 lanes, 9,750 decisions), its walls,
+    ``mandelbrot``/``epyc`` cut to T = 110 with 20 % of the PEs 8x slower
+    from step 85: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
+    both chunk modes (26 lanes, 8,580 decisions), its walls,
     ``PathTimes``, pricing and launches, and every lane's total beside its
     clean twin's over the same steps of [12]; steps 8-15 of that grid perturbed from step 0 under
     ``torch.profiler``; both event-loop kernels timed at the perturbed
@@ -237,7 +237,25 @@ kernels, and prints one JSON line per result.  Phases, in order:
     plans: per plan its step seconds, tokens/s, peak and launches a step
     (held exactly), the loss gate, the final save's wall, and
     ``expert_load`` and ``dropped_frac`` of every layer on the first
-    batch after training.
+    batch after training;
+22. the enc-dec family's training: (a) whisper-small's ``smoke_reduce``
+    on the card (its batches carry stub frames): one backward in float32
+    and bf16 with no leaf, nor layer of its encoder and decoder stacks,
+    without a gradient, and 8 float32 steps from one start on the card
+    and the CPU within ``TRAIN_CARD_CPU_REL``; (b) the flash backward at
+    whisper's three training calls (16 clips, 12 / 12 heads of 64, bf16):
+    the encoder's 1,500 frames non-causal, the decoder's 448 queries over
+    them non-causal, its 448 causal, each against its plain version
+    (whose peak memory is logged), rerun bit-equal and timed beside its
+    bound, its plain version, SDPA's backward and the forward with its
+    lse; (c) ``launch.train.main`` for whisper-small at full width and
+    depth (12 + 12 layers, d_model 768, bf16), 16 clips of 1,500 frames
+    and 448 decoder tokens a step, 5 steps under ExhaustiveSel over the
+    five plans: per plan its step seconds, tokens/s and frames/s, peak
+    and launches a step (held exactly: 36 flash attentions and 36
+    backwards a microbatch, none doubled under remat, no rmsnorm), the
+    loss gate on the first batch with its frames, the final save's wall,
+    and the host's time to draw and copy a step's frames.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
@@ -1208,13 +1226,14 @@ def rmsnorm_record(x, w, device, flush, plain_reps=10):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the Fig. 5 replay runs the cell's first 125 of its 500 steps (300 when
+#: the Fig. 5 replay runs the cell's first 110 of its 500 steps (300 when
 #: phase [18] took the script past 1,050 s, 275 when [19] did, 125 when
-#: [20] did; [13b]'s clean twins need its first PERTURB_T steps); the
+#: [20] did, 110 when [22] did; [13b]'s clean twins need its first
+#: PERTURB_T steps); the
 #: plain event core's check runs at T = 5: its per-chunk torch loop
 #: makes each pricing miss a fraction of a second (T = 50, then 30, 20,
 #: 10, each cut as the script's wall neared its limit)
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 125, 5, 4
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 110, 5, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1442,15 +1461,17 @@ def simpolicy_oracle(backend):
 # ---------------------------------------------------------------------------
 
 PERTURB_APP, PERTURB_SYSTEMS, PERTURB_SWEEP_T = "mandelbrot", ("epyc",
-                                                              "epyc_het"), 10
-PERTURB_ONSET, PERTURB_CPU_ONSET = 100, 2
+                                                              "epyc_het"), 5
+PERTURB_ONSET, PERTURB_CPU_ONSET = 85, 2
 #: [13b]'s depth: the T = 500 cell cut to keep the script inside its time
-#: limit beside phases [17]-[20] (300 until [19] came, 275 until [20]
+#: limit beside phases [17]-[22] (300 until [19] came, 275 until [20]
 #: did, its onset at step 250); since [20] the cut keeps the cell's 25
-#: steps after the onset and cuts those before it to 100 (onset at 100,
-#: T = 125), and each lane's total is held beside its clean twin's over
-#: the same 125 steps.  [13a]'s lane sets run T = 10 (20 until [20])
-PERTURB_T = 125
+#: steps after the onset and cuts those before it (to 100, onset at 100,
+#: T = 125, until [22]; to 85 since, T = 110), and each lane's total is
+#: held beside its clean twin's over the same 110 steps.  [13a]'s lane
+#: sets run T = 5 (20 until [20], 10 until [22]): each kind of
+#: perturbation is in force from step 0
+PERTURB_T = 110
 REACTIVE_LANES = [("ReactiveSim", "LT"), ("AwareSim", "LT")]
 SIMULATE_ALGS = (1, 2, 3, 4, 6)
 
@@ -2562,13 +2583,13 @@ def time_grad(fn, args, reps, device, flush) -> float:
                      reps, device, flush)
 
 
-def sdpa_graph(q, k, v, do):
+def sdpa_graph(q, k, v, do, causal=True):
     """SDPA (the library's flash attention) over q, k, v in its (B, H, S,
     hd) layout, GQA expanded by the library, with its graph kept."""
     F = torch.nn.functional
     qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                          enable_gqa=True)
     return out, (qs, ks, vs), do.transpose(1, 2).contiguous()
 
@@ -2781,24 +2802,31 @@ def smoke_llama(dtype="float32", arch="llama3.2-3b", **kw):
 
 
 def leaves_get_gradients(device, arch="llama3.2-3b", tag="[17b]"):
-    """[17b] / [20c]: one backward of ``arch``'s smoke cut (default the
-    smoke llama) on the card, float32 and bf16: every leaf, and every
-    layer of a stacked leaf, has a gradient that is finite and not all
+    """[17b] / [20c] / [21a] / [22a]: one backward of ``arch``'s smoke cut
+    (default the smoke llama) on the card, float32 and bf16: every leaf,
+    and every layer of a stacked leaf (the enc-dec family's encoder and
+    decoder stacks among them), has a gradient that is finite and not all
     zero (every embedding row too where the head is tied: the logits then
-    reach all of them)."""
+    reach all of them).  The enc-dec family's batch carries stub frames
+    from a numpy seed of their own."""
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import init_params, loss_fn
     from repro_torch.optim import tree_items
     out = {}
     for dt in ("float32", "bfloat16"):
         cfg = smoke_llama(dt, arch)
-        rows = ("layers", "embed") if cfg.tie_embeddings else ("layers",)
+        rows = ("layers", "enc_layers", "dec_layers") + (
+            ("embed",) if cfg.tie_embeddings else ())
         params = init_params(cfg, 0, device=device)
         toks = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (4, 129)).astype(np.int32)).to(device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "encdec":
+            batch["embeds"] = torch.from_numpy(np.random.default_rng(
+                2).standard_normal((4, cfg.encoder_seq, cfg.d_model)
+                                   ).astype(np.float32)).to(device)
         (loss, _), grads = value_and_grad(
-            lambda p, b: loss_fn(cfg, p, b), params,
-            {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+            lambda p, b: loss_fn(cfg, p, b), params, batch)
         require(bool(torch.isfinite(loss)), f"{tag} {dt} loss {loss}")
         empty = []
         for path, g in tree_items(grads):
@@ -2825,10 +2853,11 @@ def same_trees(a, b, atol=0.0):
 
 
 def card_vs_cpu(device, tmp, arch="llama3.2-3b", tag="[17c]"):
-    """[17c] / [20c]: ``arch``'s smoke cut (default the smoke llama) in
-    float32, 8 steps from one start (the CPU's init saved as each run's
-    step-0 checkpoint) on the card and on the CPU, the losses within
-    TRAIN_CARD_CPU_REL."""
+    """[17c] / [20c] / [21a] / [22a]: ``arch``'s smoke cut (default the
+    smoke llama) in float32, 8 steps from one start (the CPU's init saved
+    as each run's step-0 checkpoint) on the card and on the CPU, the
+    losses within TRAIN_CARD_CPU_REL (the enc-dec family's batches carry
+    the trainer's frames, the same on both)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig
     from repro_torch.launch.steps import make_train_step
@@ -2903,13 +2932,46 @@ STEP_BUCKETS = (("ssd_scan_bwd", ("ssd_bwd_",)),
                 ("products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
+def train_batch(cfg, pipe, step, device):
+    """Step ``step``'s batch of ``pipe`` on ``device``, as the trainer
+    draws it: the enc-dec family's with the step's frames."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in pipe.train_batch_at(step, cfg).items()}
+
+
+def remat_turns(cfg, params, opt, device, batch, seq, steps):
+    """Steps of ``cfg`` with and without remat on the trained state, in
+    turns (remat, none, none, remat), each timed on the host clock to its
+    synchronize: the seconds of each."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=steps // 5,
+                          total_steps=steps, moment_dtype=cfg.moment_dtype)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=seq, global_batch=batch))
+    fns = {r: make_train_step(dataclasses.replace(cfg, remat=r), opt_cfg)
+           for r in (True, False)}
+    out = {"remat_s": [], "noremat_s": []}
+    for i, r in enumerate((True, False, False, True)):
+        b = train_batch(cfg, pipe, steps + 2 + i, device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fns[r](params, opt, b)
+        torch.cuda.synchronize(device)
+        out["remat_s" if r else "noremat_s"].append(
+            time.perf_counter() - t0)
+    return out
+
+
 def step_breakdown(cfg, params, opt, device, batch=TRAIN_B, seq=TRAIN_S,
                    steps=FULL_STEPS):
     """One more step of mb1_noremat on the state trained for ``steps``
     steps of ``batch`` x ``seq`` tokens at full width, by layer on the host
     clock, each part ending in a synchronize: forward with the CE loss,
     backward, AdamW in place; then one more under ``torch.profiler``: the
-    card's busy time by kernel bucket and its launches."""
+    card's busy time by kernel bucket and its launches.  The enc-dec
+    family's batches carry their steps' frames."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch.steps import make_train_step
@@ -2920,9 +2982,7 @@ def step_breakdown(cfg, params, opt, device, batch=TRAIN_B, seq=TRAIN_S,
                           total_steps=steps, moment_dtype=cfg.moment_dtype)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=seq, global_batch=batch))
-    batches = [{k: torch.from_numpy(v).to(device)
-                for k, v in pipe.batch_at(steps + i).items()}
-               for i in range(2)]
+    batches = [train_batch(cfg, pipe, steps + i, device) for i in range(2)]
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -3904,40 +3964,63 @@ def ssd_bwd_record(shape, seed, device, flush, train_S):
     return rec
 
 
-def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S=None):
-    """[20b] / [21b]: the flash backward at one call (causal, bf16; Zamba2's
-    shared block, olmoe's training call) against its plain version, a
-    rerun's bits, timed after an L2 flush beside the bound, the plain
-    version and SDPA's backward, and, given ``train_S``, at the training
-    step's own call."""
+def attention_pairs(S, T, causal):
+    """The (query, key) pairs a query row of S attends over T keys: all
+    S x T, or under the causal mask (key <= query, no offset) each query
+    q's min(q + 1, T)."""
+    if not causal:
+        return S * T
+    m = min(S, T)
+    return m * (m + 1) // 2 + (S - m) * T
+
+
+def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S=None,
+                     T=None, causal=True):
+    """[20b] / [21b] / [22b]: the flash backward at one call (bf16; q of S
+    queries over T keys, default S, causal unless asked; Zamba2's shared
+    block, olmoe's training call, whisper's three) against its plain
+    version, a rerun's bits, timed after an L2 flush beside the bound, the
+    plain version and SDPA's backward, the forward with its lse timed
+    too; and, given ``train_S``, at the training step's own call (S = T).
+    The plain version's float32 scores are B x H x S x T x 4 bytes, and
+    its autograd keeps a few of them: 1.73 GB each at whisper's encoder
+    call (16 x 12 x 1,500^2)."""
     from repro_torch.kernels import flash_attention as FA
     bf16 = torch.bfloat16
+    T = S if T is None else T
     q, do = (randn((B, S, H, hd), bf16, device, seed + i) for i in range(2))
-    k, v = (randn((B, S, K, hd), bf16, device, seed + 2 + i)
+    k, v = (randn((B, T, K, hd), bf16, device, seed + 2 + i)
             for i in range(2))
-    o, lse = FA.flash_attention_lse(q, k, v, causal=True)
-    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
-    want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    want = FA.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    plain_gb = (torch.cuda.max_memory_allocated(device) - before) / 1e9
     errs = grad_errors(got, want)
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, want))
-    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     del got, want, again
-    pairs = S * (S + 1) // 2
+    torch.cuda.empty_cache()
     rec = with_bound({
         "max_abs_err": err, "rel_l2": [e[1] for e in errs],
         "within": bwd_within(errs, bf16), "rerun_bit_equal": same,
+        "plain_peak_gb": plain_gb,
         "ms": time_call(lambda: FA.flash_attention_bwd(
-            q, k, v, o, do, lse, causal=True), (), 5, device, flush),
+            q, k, v, o, do, lse, causal=causal), (), 5, device, flush),
         "plain_ms": time_call(lambda: FA.flash_attention_bwd_ref(
-            q, k, v, o, do, causal=True), (), 2, device, flush),
-        "library_ms": time_grad(sdpa_graph, (q, k, v, do), 10, device,
-                                flush),
-        "shape": {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
-                  "causal": True},
-        "bytes": (4 * B * S * H * hd + 4 * B * S * K * hd) * 2,
-        "ops": 10 * B * H * hd * pairs}, BF16_OPS_PER_S)
+            q, k, v, o, do, causal=causal), (), 2, device, flush),
+        "library_ms": time_grad(sdpa_graph, (q, k, v, do, causal), 10,
+                                device, flush),
+        "fwd_lse_ms": time_call(lambda: FA.flash_attention_lse(
+            q, k, v, causal=causal), (), 5, device, flush),
+        "shape": {"B": B, "S": S, "T": T, "H": H, "K": K, "hd": hd,
+                  "causal": causal},
+        "bytes": (4 * B * S * H * hd + 4 * B * T * K * hd) * 2,
+        "ops": 10 * B * H * hd * attention_pairs(S, T, causal)},
+        BF16_OPS_PER_S)
     del q, k, v, o, do, lse
     if train_S is None:
         torch.cuda.empty_cache()
@@ -3961,7 +4044,13 @@ def expected_step_launches(cfg, microbatches, remat):
     backward, its two rmsnorms, each attention block's flash attention
     and its two rmsnorms, four with QK-norm (a MoE layer; the hybrid's
     shared block after each segment), each recomputed under remat, and
-    the final norm (once)."""
+    the final norm (once).  The enc-dec family: a flash attention and its
+    backward for each encoder layer and two for each decoder layer (self
+    and cross), none recomputed (no checkpoint in that stack, remat or
+    not), and no rmsnorm (its norms are LayerNorms)."""
+    if cfg.family == "encdec":
+        attn = (cfg.encoder_layers + 2 * cfg.n_layers) * microbatches
+        return {"flash_attention": attn, "flash_attention_bwd": attn}
     L = cfg.n_layers
     attn = {"moe": L, "hybrid": L // max(cfg.attn_every, 1)}.get(
         cfg.family, 0)
@@ -4010,17 +4099,24 @@ def tuned_training(cfg, steps, ckpt, device):
 
 
 def family_full_run(arch, device):
-    """[20d] / [20e] / [21c]: ``arch`` at full width in bf16 through the
-    training entry points, SSM_TRAIN_B x SSM_TRAIN_S tokens a step under
-    ExhaustiveSel over DEFAULT_PLANS: mamba2-2.7b at full depth through
-    ``launch.train.main``; zamba2-7b cut to ZAMBA_TRAIN_LAYERS and
-    olmoe-1b-7b cut to MOE_TRAIN_LAYERS through the same wiring.  Per plan
-    its steps' seconds, tokens/s, peak allocated memory and launches a
-    step (held exactly against ``expected_step_launches``), the settled
-    plan, the loss (finite, and lower after training on the first step's
-    batch than that step's; olmoe's ``expert_load`` and ``dropped_frac``
-    there), the final save's wall (the checkpoint deleted after) and, for
-    mamba2, ``step_breakdown`` of one more mb1_noremat step."""
+    """[20d] / [20e] / [21c] / [22c]: ``arch`` at full width in bf16
+    through the training entry points under ExhaustiveSel over
+    DEFAULT_PLANS: mamba2-2.7b at full depth through ``launch.train.main``
+    and zamba2-7b cut to ZAMBA_TRAIN_LAYERS and olmoe-1b-7b cut to
+    MOE_TRAIN_LAYERS through the same wiring, SSM_TRAIN_B x SSM_TRAIN_S
+    tokens a step; whisper-small at full depth through
+    ``launch.train.main``, WHISPER_TRAIN_B clips of its encoder's frames
+    and WHISPER_CONTEXT decoder tokens a step.  Per plan its steps'
+    seconds, tokens/s (whisper's frames/s beside them), peak allocated
+    memory and launches a step (held exactly against
+    ``expected_step_launches``), the settled plan, the loss (finite, and
+    lower after training on the first step's batch, frames and all, than
+    that step's; olmoe's ``expert_load`` and ``dropped_frac`` there), the
+    final save's wall (the checkpoint deleted after) and, for mamba2
+    and whisper, ``step_breakdown`` of one more mb1_noremat step; for
+    whisper, what drawing a step's frames and copying them to the card
+    take on the host, and steps with and without remat in turns
+    (``remat_turns``)."""
     import gc
     import shutil
     from repro_torch import kernels
@@ -4032,8 +4128,11 @@ def family_full_run(arch, device):
     cfg = get_config(arch)
     cut, steps, tag = {"ssm": (None, SSM_FULL_STEPS, "20d"),
                        "hybrid": (ZAMBA_TRAIN_LAYERS, ZAMBA_STEPS, "20e"),
-                       "moe": (MOE_TRAIN_LAYERS, MOE_STEPS, "21c")}[
-                           cfg.family]
+                       "moe": (MOE_TRAIN_LAYERS, MOE_STEPS, "21c"),
+                       "encdec": (None, WHISPER_STEPS, "22c")}[cfg.family]
+    encdec = cfg.family == "encdec"
+    B, S = ((WHISPER_TRAIN_B, WHISPER_CONTEXT) if encdec
+            else (SSM_TRAIN_B, SSM_TRAIN_S))
     if cut is not None:
         cfg = dataclasses.replace(cfg, n_layers=cut)
     ckpt = checkpoint_dir(cfg, arch, f"[{tag}]")
@@ -4048,7 +4147,7 @@ def family_full_run(arch, device):
     try:
         if cut is None:
             out = train.main(["--arch", arch, "--full", "--seq-len",
-                              str(SSM_TRAIN_S), "--batch", str(SSM_TRAIN_B),
+                              str(S), "--batch", str(B),
                               "--steps", str(steps), "--ckpt", str(ckpt),
                               "--device", str(device)])
         else:
@@ -4062,7 +4161,10 @@ def family_full_run(arch, device):
     losses = out["losses"]
     n_par = sum(t.numel() for g in out["params"].values()
                 for t in (g.values() if isinstance(g, dict) else [g]))
-    layers = next(iter(out["params"]["layers"].values())).shape[0]
+    stacks = ("enc_layers", "dec_layers") if encdec else ("layers",)
+    layers = [next(iter(out["params"][g].values())).shape[0]
+              for g in stacks]
+    frames = B * cfg.encoder_seq if encdec else None
     plans = {p.name: p for p in DEFAULT_PLANS}
     rows = []
     for r in out["plans"]:
@@ -4072,12 +4174,27 @@ def family_full_run(arch, device):
                      "build_s": out["compile_s"].get(r["plan"]),
                      "expected_launches": want,
                      "launches_exact": r["launches_per_step"] == want})
+        if encdec:
+            rows[-1]["frames_per_s"] = [frames / t for t in r["step_s"]]
     # the loss falls where the batch is the same: the trained state's
     # loss on the first step's batch against that step's (a step's loss
-    # moves with its batch by as much as a few steps move it)
-    first = {k: torch.from_numpy(v).to(device) for k, v in TokenPipeline(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN_S,
-                   global_batch=SSM_TRAIN_B)).batch_at(0).items()}
+    # moves with its batch by as much as a few steps move it); the
+    # enc-dec family's batch is drawn as the trainer draws it, with the
+    # step's frames, and the frames' host cost is timed here
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B))
+    host = None
+    if encdec:
+        t1 = time.perf_counter()
+        drawn = pipe.frames_at(0, cfg.encoder_seq, cfg.d_model)
+        t2 = time.perf_counter()
+        emb = torch.from_numpy(drawn).to(device)
+        torch.cuda.synchronize(device)
+        host = {"frames_draw_s": t2 - t1,
+                "frames_copy_s": time.perf_counter() - t2,
+                "frames_mb": drawn.nbytes / 1e6}
+        del emb, drawn
+    first = train_batch(cfg, pipe, 0, device)
     with torch.no_grad(), moe_stats() as dispatch:
         first_after = float(loss_fn(dataclasses.replace(cfg, remat=False),
                                     out["params"], first)[0])
@@ -4088,31 +4205,38 @@ def family_full_run(arch, device):
         moe = {"expert_load": load.cpu().tolist(),
                "dropped_frac": [float(a["dropped_frac"]) for a in dispatch],
                "routed_per_layer": int(load[0].sum())}
-    # mamba2's breakdown of one more mb1_noremat step (after the loss
-    # above: it trains the state two steps further)
+    # mamba2's and whisper's breakdown of one more mb1_noremat step
+    # (after the loss above: it trains the state two steps further), and
+    # whisper's steps with and without remat in turns (four more)
     breakdown = (step_breakdown(cfg, out["params"], out["opt"], device,
-                                SSM_TRAIN_B, SSM_TRAIN_S, steps)
-                 if cfg.family == "ssm" else None)
+                                B, S, steps)
+                 if cfg.family in ("ssm", "encdec") else None)
+    turns = (remat_turns(cfg, out["params"], out["opt"], device, B, S,
+                         steps) if encdec else None)
     summary = {
-        "arch": arch, "layers": layers, "d_model": cfg.d_model,
+        "arch": arch, "layers": layers if encdec else layers[0],
+        "d_model": cfg.d_model,
         "dtype": cfg.param_dtype, "params": n_par,
         # ModelConfig.n_params, the reference's count (it leaves out each
         # Mamba2 layer's dt_bias and gate_norm)
         "n_params": cfg.n_params(),
-        "tokens_per_step": SSM_TRAIN_B * SSM_TRAIN_S,
+        "tokens_per_step": B * S, "frames_per_step": frames,
+        "host_frames": host,
         "steps": out["final_step"], "wall_s": wall, "losses": losses,
         "first_batch_loss_after": first_after, "plans": rows,
         "history": [h[0] for h in out["history"]],
         "settled": out["settled"], "final_save_s": out["final_save_s"],
         "checkpoint_gb": ckpt_bytes / 1e9, "launches": launches,
-        "step_breakdown": breakdown, "first_batch_dispatch": moe}
+        "step_breakdown": breakdown, "remat_turns": turns,
+        "first_batch_dispatch": moe}
     del out
     gc.collect()
     t1 = time.perf_counter()
     shutil.rmtree(ckpt)
     summary["checkpoint_rm_s"] = time.perf_counter() - t1
     torch.cuda.empty_cache()
-    require(layers == cfg.n_layers, f"[{tag}] {layers} layers")
+    require(layers == ([cfg.encoder_layers, cfg.n_layers] if encdec
+                       else [cfg.n_layers]), f"[{tag}] {layers} layers")
     require(summary["steps"] == steps and len(losses) == steps
             and bool(np.all(np.isfinite(losses)))
             and first_after < losses[0], f"[{tag}] loss trace {losses}, "
@@ -4122,8 +4246,8 @@ def family_full_run(arch, device):
     bad = [(r["plan"], r["launches_per_step"], r["expected_launches"])
            for r in rows if not r["launches_exact"]]
     require(not bad, f"[{tag}] launches a step {bad}")
-    names = ["rmsnorm", "rmsnorm_bwd"]
-    if cfg.family != "moe":
+    names = [] if encdec else ["rmsnorm", "rmsnorm_bwd"]
+    if cfg.family in ("ssm", "hybrid"):
         names += ["ssd_scan", "ssd_scan_bwd"]
     if cfg.family != "ssm":
         names += ["flash_attention", "flash_attention_bwd"]
@@ -4193,8 +4317,10 @@ def logged_full_run(tag, arch, device):
     full = family_full_run(arch, device)
     log(f"[{tag}] {json.dumps(full)}")
     for r in full["plans"]:
+        frames = (f", frames/s {[round(t) for t in r['frames_per_s']]}"
+                  if "frames_per_s" in r else "")
         log(f"[{tag}] {r['plan']}: steps {r['step_s']} s, tokens/s "
-            f"{[round(t) for t in r['tokens_per_s']]}, peak "
+            f"{[round(t) for t in r['tokens_per_s']]}{frames}, peak "
             f"{r['peak_gb']:.2f} GB, launches a step "
             f"{json.dumps(r['launches_per_step'])}")
     log(f"[{tag}] settled on {full['settled']}; loss {full['losses']}; "
@@ -4204,6 +4330,9 @@ def logged_full_run(tag, arch, device):
     if full["step_breakdown"]:
         log(f"[{tag}] one more mb1_noremat step, by layer: "
             f"{json.dumps(full['step_breakdown'])}")
+    if full["remat_turns"]:
+        log(f"[{tag}] steps with and without remat, in turns: "
+            f"{json.dumps(full['remat_turns'])}")
     return full
 
 
@@ -4222,11 +4351,12 @@ def add_launches(records, by_path, names):
 # phase 21: the MoE family's training
 # ---------------------------------------------------------------------------
 
-#: olmoe-1b-7b trains cut to 6 of its 16 layers: at full depth its 6.92e9
+#: olmoe-1b-7b trains cut to 4 of its 16 layers: at full depth its 6.92e9
 #: parameters take ~83 GB in bf16 weights and gradients and float32
-#: moments before any activation; 6 layers (2.72e9) hold ~33 GB at mb1 and
-#: 44-49 GB at mb2 / mb4, the state of mamba2-2.7b (PERF.md section 4)
-MOE_TRAIN_LAYERS, MOE_STEPS = 6, 5
+#: moments before any activation; 6 layers (2.72e9) held 39-49 GB, until
+#: [22] took the script past 1,080 s on a slow host and the cut went to 4
+#: (PERF.md section 4)
+MOE_TRAIN_LAYERS, MOE_STEPS = 4, 5
 
 
 @contextlib.contextmanager
@@ -4372,6 +4502,69 @@ def phase_moe_training(device, flush, model_records, bwd_records):
         if r["name"] == "flash_attention_bwd":
             r["at_olmoe_training_call"] = flash
     log(f"[21] {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the enc-dec family's training
+# ---------------------------------------------------------------------------
+
+#: [22c] whisper-small at full width and depth: 16 clips of its encoder's
+#: 1,500 stub frames and WHISPER_CONTEXT (448) decoder tokens a step, 5
+#: steps (one a plan); its 278.2e6 parameters (ModelConfig.n_params
+#: counts 334.5e6: three MLP matrices a layer, whisper has two) hold 2.8
+#: GB of bf16 weights and float32 moments, activations ~20 GB at mb1
+#: (PERF.md section 4): nothing is cut
+WHISPER_TRAIN_B, WHISPER_STEPS = 16, 5
+#: [22b] whisper-small's three training calls of the flash backward (B,
+#: S, T, causal; 12 / 12 heads of 64): the encoder's self-attention, the
+#: decoder's cross attention over the frames, its causal self-attention
+WHISPER_ATTN_CALLS = (("encoder", 1500, 1500, False),
+                      ("cross", WHISPER_CONTEXT, 1500, False),
+                      ("decoder", WHISPER_CONTEXT, WHISPER_CONTEXT, True))
+
+
+def phase_encdec_training(device, flush, model_records, bwd_records):
+    """Phase [22]: (a) whisper-small's smoke cut on the card, (b) the flash
+    backward at its three training calls, (c) whisper-small trained at
+    full width and depth through ``launch.train.main``.  The training
+    path's launches are added to the flash kernels' records."""
+    import gc
+    import tempfile
+    arch = "whisper-small"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log(f"[22a] {arch} smoke, gradients on the card: "
+            f"{json.dumps(leaves_get_gradients(device, arch, '[22a]'))}")
+        log(f"[22a] {arch} smoke, card vs CPU, float32: "
+            f"{json.dumps(card_vs_cpu(device, tmp, arch, '[22a]'))}")
+    log(f"[22a] {time.perf_counter() - t_phase:.1f} s")
+    calls = {}
+    for i, (name, S, T, causal) in enumerate(WHISPER_ATTN_CALLS):
+        r = flash_bwd_record(WHISPER_TRAIN_B, S, 12, 12, 64, 430 + 10 * i,
+                             device, flush, T=T, causal=causal)
+        log(f"[22b] flash_attention_bwd at whisper's {name} call: "
+            f"{json.dumps(r)}")
+        require(r["within"] and r["rerun_bit_equal"], f"[22b] {name}: "
+                f"rel L2 {r['rel_l2']}, rerun {r['rerun_bit_equal']}")
+        calls[name] = r
+    torch.cuda.empty_cache()
+    log(f"[22b] {time.perf_counter() - t_phase:.1f} s")
+    full = logged_full_run("22c", arch, device)
+    log(f"[22c] {arch}, the host's frames a step: "
+        f"{json.dumps(full['host_frames'])}")
+    add_launches(model_records + bwd_records,
+                 {f"train {arch} [22]": full["launches"]},
+                 ("flash_attention", "flash_attention_bwd"))
+    for r in model_records + bwd_records:
+        if r["name"] == "flash_attention":
+            r["at_whisper_training_calls"] = {
+                k: {"ms_with_lse": c["fwd_lse_ms"], "shape": c["shape"]}
+                for k, c in calls.items()}
+        if r["name"] == "flash_attention_bwd":
+            r["at_whisper_training_calls"] = calls
+    log(f"[22] {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4690,7 +4883,11 @@ def run() -> int:
     log(f"[21] the MoE family's training: olmoe-1b-7b at full width, "
         f"{MOE_TRAIN_LAYERS} of 16 layers")
     phase_moe_training(device, flush, model_records, bwd_records)
-    log(f"[21] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[21] {time.perf_counter() - t_start:.1f} s so far")
+    log("[22] the enc-dec family's training: whisper-small at full width "
+        "and depth")
+    phase_encdec_training(device, flush, model_records, bwd_records)
+    log(f"[22] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

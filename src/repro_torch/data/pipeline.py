@@ -1,12 +1,14 @@
 """Deterministic synthetic data: the training token stream with O(1)
-resume, and serving requests (Pareto-tailed prompt and generation lengths
-with Poisson arrivals, each field from its own named substream).
+resume, the enc-dec family's stub frame embeddings, and serving requests
+(Pareto-tailed prompt and generation lengths with Poisson arrivals, each
+field from its own named substream).
 
 The port's own numpy copy of ``repro.data.pipeline``; it yields the
 reference's batches bit for bit and its requests field for field.  Every
 training batch is a pure function of ``(seed, step)``: after a checkpoint
 restore at step k, ``batch_at(k)`` yields the same data with no stream
-replay.
+replay.  The frames (``frames_at``) are the port's own: the reference's
+pipeline has none, so its trainer cannot train the enc-dec family.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+#: the tag of the frame stream's generator (``TokenPipeline.frames_at``)
+FRAMES_TAG = zlib.crc32(b"embeds")
 
 
 @dataclass(frozen=True)
@@ -52,6 +57,28 @@ class TokenPipeline:
             z = np.floor((cfg.vocab_size - 1) * r ** self._exps[c])
             toks[i] = z.astype(np.int32) % cfg.vocab_size
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def frames_at(self, step: int, encoder_seq: int,
+                  d_model: int) -> np.ndarray:
+        """The enc-dec family's stub frame embeddings of ``step``: standard
+        normal float32 of shape (global_batch, encoder_seq, d_model), what
+        the stubbed audio front end hands the encoder.  They come from a
+        generator of their own, keyed by ``(seed, step, FRAMES_TAG)``, so
+        ``batch_at``'s tokens are untouched and a restart at step k draws
+        the same frames again."""
+        rng = np.random.default_rng((self.cfg.seed, step, FRAMES_TAG))
+        return rng.standard_normal(
+            (self.cfg.global_batch, encoder_seq, d_model), dtype=np.float32)
+
+    def train_batch_at(self, step: int, model_cfg) -> Dict[str, np.ndarray]:
+        """The batch a model of ``model_cfg`` trains on at ``step``:
+        ``batch_at``'s tokens and labels and, for the enc-dec family, the
+        step's frames (``embeds``, at its encoder length and width)."""
+        batch = self.batch_at(step)
+        if model_cfg.family == "encdec":
+            batch["embeds"] = self.frames_at(step, model_cfg.encoder_seq,
+                                             model_cfg.d_model)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

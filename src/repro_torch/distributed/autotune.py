@@ -241,10 +241,13 @@ class StepAutoTuner:
 def warm_kernels(cfg: ModelConfig, device: torch.device) -> None:
     """Build the model kernels of a training step (nvcc, at first use) and
     run each once, forward and backward, at a tiny size in the model's
-    dtype, with one product on cuBLAS: rmsnorm in every family, the SSD
-    scan in the SSM and hybrid families (at the config's state width, so
-    that the kernels of its tile width are built), flash attention in the
-    families that have attention; a no-op on the CPU."""
+    dtype, with one product on cuBLAS: rmsnorm in every family but the
+    enc-dec one (whisper's norms are LayerNorms, plain PyTorch, as the
+    reference's are XLA's), the SSD scan in the SSM and hybrid families
+    (at the config's state width, so that the kernels of its tile width
+    are built), flash attention in the families that have attention (the
+    enc-dec family's encoder, decoder and cross attention); a no-op on
+    the CPU."""
     if device.type != "cuda":
         return
     from ..kernels.flash_attention import flash_attention
@@ -258,8 +261,9 @@ def warm_kernels(cfg: ModelConfig, device: torch.device) -> None:
 
     x, w = leaf((2, 8, 16)), leaf((16,))
     with torch.enable_grad():
-        out = rmsnorm(x, w).sum()
-        out = out + (x.reshape(16, 16) @ w.expand(16, 16)).float().sum()
+        out = (x.reshape(16, 16) @ w.expand(16, 16)).float().sum()
+        if cfg.family != "encdec":
+            out = out + rmsnorm(x, w).sum()
         if cfg.family in ("ssm", "hybrid"):
             f32 = torch.float32
             bc = leaf((1, 64, cfg.ssm_state), f32)

@@ -1,14 +1,17 @@
 """Step builders of the trainer and the serving engine:
 ``make_train_step`` (forward, backward and AdamW, with optional
 microbatched gradient accumulation and gradient compression) and
-``make_serve_step`` / ``make_prefill_step``.
+``make_serve_step`` / ``make_prefill_step``; and the shape stand-ins of
+every (arch x shape) cell (``params_shape``, ``opt_shape``,
+``input_specs``), which allocate nothing.
 
-The port of ``repro.launch.steps`` but its shape stand-ins
-(``input_specs``, ``params_shape``, ``opt_shape``), which wait for the
-dry-run slice (ROADMAP queue 1).  The reference's ``jax.value_and_grad``
+The port of ``repro.launch.steps``.  The reference's ``jax.value_and_grad``
 is autograd over detached copies of the parameters
 (:func:`value_and_grad`); its ``lax.scan`` over microbatches is a Python
 loop; the update is :func:`repro_torch.optim.adamw_update_`, in place.
+Its ``jax.eval_shape`` stand-ins are tensors on the ``meta`` device (the
+parameters and the AdamW state) and :class:`TensorSpec` records of shape
+and dtype (the model inputs and the decode cache).
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
-from ..models.decode import decode_step, prefill
-from ..models.model import loss_fn
-from ..optim.adamw import AdamWConfig, AdamWState, adamw_update_, tree_map
+from ..configs.base import ModelConfig, ShapeConfig
+from ..models.decode import (TensorSpec, decode_cache_specs, decode_step,
+                             prefill)
+from ..models.model import _dtype, init_params, loss_fn
+from ..optim.adamw import (AdamWConfig, AdamWState, adamw_init,
+                           adamw_update_, tree_map)
 
 
 def value_and_grad(fn: Callable, params: Dict, *args) -> Tuple:
@@ -104,5 +109,44 @@ def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
     return prefill_step
 
 
+# ---------------------------------------------------------------------------
+# shape stand-ins
+# ---------------------------------------------------------------------------
+
+def params_shape(cfg: ModelConfig) -> Dict:
+    """The parameter tree of ``cfg``: its keys, shapes and dtypes, as
+    tensors on the ``meta`` device (no memory)."""
+    return init_params(cfg, 0, device="meta")
+
+
+def opt_shape(cfg: ModelConfig, opt_cfg: AdamWConfig) -> AdamWState:
+    """The AdamW state of ``cfg``'s parameters (the step, m and v) on the
+    ``meta`` device."""
+    return adamw_init(params_shape(cfg), opt_cfg)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """The model inputs of one cell as :class:`TensorSpec` records: the
+    train kind's int32 ``tokens`` and ``labels`` (B, S), the prefill
+    kind's ``tokens``, each with the enc-dec family's ``embeds`` (B,
+    encoder_seq, d_model) in the parameters' dtype; the decode kind's
+    ``token`` (B,) and its cache of S positions
+    (``models.decode_cache_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": TensorSpec((B,), torch.int32),
+                "cache": decode_cache_specs(cfg, B, S)}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    out = {"tokens": TensorSpec((B, S), torch.int32)}
+    if shape.kind == "train":
+        out["labels"] = TensorSpec((B, S), torch.int32)
+    if cfg.family == "encdec":
+        out["embeds"] = TensorSpec((B, cfg.encoder_seq, cfg.d_model),
+                                   _dtype(cfg))
+    return out
+
+
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
-           "value_and_grad"]
+           "value_and_grad", "params_shape", "opt_shape", "input_specs",
+           "TensorSpec"]

@@ -8,12 +8,16 @@ the card).  ``--smoke`` (the default) trains the reduced same-family
 config; ``--full`` the whole architecture.  The step-plan autotuner (the
 paper's selection technique, L2) picks the execution plan online;
 checkpoints are atomic and async; injected failures exercise the restart
-path.  The archs are those whose family the port trains: dense
-(llama3.2-3b, granite-8b, mistral-nemo-12b, qwen3-32b, qwen2-vl-72b's
-backbone), ssm (mamba2-2.7b) and hybrid (zamba2-7b), the last two through
-the SSD scan's backward kernel, and moe (olmoe-1b-7b, grok-1-314b), whose
-dispatch's backward sums in a fixed order; the enc-dec arch is refused
-with the reason (``NOT_TRAINED``).
+path.  Every arch trains: dense (llama3.2-3b, granite-8b,
+mistral-nemo-12b, qwen3-32b, qwen2-vl-72b's backbone), ssm (mamba2-2.7b)
+and hybrid (zamba2-7b), the last two through the SSD scan's backward
+kernel, moe (olmoe-1b-7b, grok-1-314b), whose dispatch's backward sums in
+a fixed order, and encdec (whisper-small), whose batches carry each
+step's stub frame embeddings from the pipeline's own seeded stream
+(``TokenPipeline.frames_at``: the reference's launcher takes the arch but
+its batches have no frames, so it cannot train it); ``--seq-len`` is
+then the decoder's tokens, and the encoder reads the config's
+``encoder_seq`` frames.
 
 Besides the reference's summary line, it prints one JSON line per plan it
 ran: the steps, their wall seconds and tokens a second, the peak of
@@ -40,14 +44,10 @@ from ..distributed import DEFAULT_PLANS, StepAutoTuner, make_plan_builder
 from ..optim.adamw import AdamWConfig
 from ..runtime import Trainer, TrainerConfig
 
-#: the families the port trains, and their archs
-TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+#: the families the port trains, and their archs: all of them
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "moe", "encdec")
 TRAIN_ARCHS = [a for a in ARCH_NAMES
                if get_config(a).family in TRAIN_FAMILIES]
-#: why the port trains no other family: the launcher's refusal
-NOT_TRAINED = {
-    "encdec": "the port serves it; its training is not ported",
-}
 #: default checkpoint directory: the checkout's build directory
 DEFAULT_CKPT = str(Path(__file__).resolve().parents[3] / "build"
                    / "train_ckpt")
@@ -111,11 +111,6 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    family = get_config(args.arch).family
-    if args.arch not in TRAIN_ARCHS:
-        ap.error(f"the port trains the {', '.join(TRAIN_FAMILIES)} "
-                 f"families: {args.arch} is {family}, and "
-                 f"{NOT_TRAINED[family]}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -9,14 +9,15 @@ Mamba2 layers with one *shared* attention + SwiGLU block applied after
 every ``attn_every`` of them) and ``encdec`` (the Whisper backbone: a
 LayerNorm / GELU encoder over stub frame embeddings and a decoder with
 causal self-attention and cross-attention to the encoder's output,
-sinusoidal positions in both); all are served, and all but the enc-dec
-family are trained here.  Parameters are plain dicts of tensors;
+sinusoidal positions in both); all are served and trained here.
+Parameters are plain dicts of tensors;
 the layers are stacked with a leading L, as the reference stacks them,
 and a Python loop over L takes the place of ``lax.scan``: a forward takes
 each stack apart once with ``unbind(0)`` (views, and one stacked gradient
 in the backward).  With ``cfg.remat`` each dense, MoE or Mamba2 block, and
 each Zamba2 segment (its Mamba2 layers and the shared block), runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), and the
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``; the
+enc-dec family has none in either package, so it reads no remat), and the
 loss is the reference's blockwise cross-entropy, each sequence chunk
 checkpointed.  The reference's sharding hints are no-ops on one device
 and are left out (``repro_torch.distributed.ctx``).
@@ -547,7 +548,12 @@ def _decoder_layer(cfg, p, x, xkv, cache=None, cache_len=None):
 def _encdec_forward(cfg, params, tokens, *, embeds, collect_cache,
                     max_len=None):
     """Whisper backbone.  embeds: (B, encoder_seq, D) stub frame
-    embeddings.  Collecting the cache, each decoder layer's (k, v) is
+    embeddings.  No layer is checkpointed whatever ``cfg.remat`` says, as
+    in the reference's ``_encdec_forward``: under remat a step of this
+    family computes what it computes without.  Each decoder layer projects
+    the encoder's output to its own cross (xk, xv), so the encoder's
+    gradient is the sum of every decoder layer's cross attention's.
+    Collecting the cache, each decoder layer's (k, v) is
     written into stacks of ``max_len`` positions and its cross (xk, xv)
     into stacks of the encoder's length, all allocated once: returns
     (hidden, ((k, v), xk, xv) or None, {"enc_out": ...})."""

@@ -4,8 +4,9 @@ The port of ``repro.runtime.trainer``:
 
 * checkpoint/restart — atomic checkpoints in the reference's format
   (``repro_torch.checkpoint``), async save off the critical path,
-  deterministic O(1) data resume (``repro_torch.data``), restored onto the
-  trainer's device;
+  deterministic O(1) data resume (``repro_torch.data``; the enc-dec
+  family's batches also carry the step's stub frame embeddings,
+  ``TokenPipeline.train_batch_at``), restored onto the trainer's device;
 * failure handling — ``failure_rate`` injects :class:`SimulatedFailure` at
   step boundaries; the trainer restores the latest checkpoint and replays;
 * preemption — SIGTERM triggers a final synchronous save before exit;
@@ -118,7 +119,8 @@ class Trainer:
         while step < n_steps:
             try:
                 batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in self.pipeline.batch_at(step).items()}
+                         for k, v in self.pipeline.train_batch_at(
+                             step, self.cfg).items()}
                 if (self.tcfg.failure_rate > 0.0 and
                         self._fail_rng.random() < self.tcfg.failure_rate):
                     raise SimulatedFailure(f"injected node failure @ {step}")

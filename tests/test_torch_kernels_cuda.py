@@ -489,12 +489,15 @@ def test_rmsnorm_bwd_kernel_matches_plain_autograd(card, shape, xd, wd):
 
 
 #: GQA and MHA, causal or not, ragged tiles, hd 32 / 64 / 112 / 128, the
-#: dense training shape cut to one batch row, and olmoe's training call
-#: (16 query and 16 kv heads, no grouping)
+#: dense training shape cut to one batch row, olmoe's training call (16
+#: query and 16 kv heads, no grouping), and whisper-small's training calls
+#: cut to 2 of its 12 heads of 64: the encoder's 1,500 frames (the last
+#: 64-key tile holds 28 keys) and the decoder's 448 queries over them
 FLASH_BWD = [(1, 128, 128, 4, 4, 64), (2, 96, 160, 8, 2, 32),
              (1, 257, 129, 6, 3, 64), (2, 100, 72, 4, 2, 112),
              (1, 300, 300, 6, 2, 128), (1, 2048, 2048, 24, 8, 128),
-             (4, 1024, 1024, 16, 16, 128)]
+             (4, 1024, 1024, 16, 16, 128), (2, 1500, 1500, 2, 2, 64),
+             (2, 448, 1500, 2, 2, 64)]
 
 
 @pytest.mark.cuda
@@ -713,6 +716,22 @@ def test_warm_kernels_of_the_moe_family_builds_no_ssd_kernel(card):
     assert n["rmsnorm"] >= 1 and n["rmsnorm_bwd"] >= 1, n
     assert n["flash_attention"] == n["flash_attention_bwd"] == 1, n
     assert n["ssd_scan"] == n["ssd_scan_bwd"] == 0, n
+
+
+@pytest.mark.cuda
+def test_warm_kernels_of_the_encdec_family_builds_no_ssd_kernel(card):
+    """``warm_kernels`` of whisper-small launches flash attention, forward
+    and backward, and no SSD kernel and no rmsnorm (its norms are
+    LayerNorms)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.autotune import warm_kernels
+    kernels.reset_launch_counts()
+    warm_kernels(get_config("whisper-small"), card)
+    n = kernels.launch_counts()
+    assert n["flash_attention"] == n["flash_attention_bwd"] == 1, n
+    assert n["ssd_scan"] == n["ssd_scan_bwd"] == 0, n
+    assert n["rmsnorm"] == n["rmsnorm_bwd"] == 0, n
 
 
 def _moe_layer_grads(args, k, remat):

@@ -522,13 +522,12 @@ def _launch_on_the_cpu(arch, tmp_path, capsys, monkeypatch):
 
 def test_launch_train_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     _launch_on_the_cpu("llama3.2-3b", tmp_path, capsys, monkeypatch)
-    # the dense, SSM, hybrid and MoE families' archs (the enc-dec one is
-    # served only)
+    # every family's archs: dense, SSM, hybrid, MoE and enc-dec
     assert tlaunch.TRAIN_ARCHS == ["qwen3-32b", "granite-8b",
                                    "mistral-nemo-12b", "llama3.2-3b",
                                    "zamba2-7b", "qwen2-vl-72b",
                                    "mamba2-2.7b", "olmoe-1b-7b",
-                                   "grok-1-314b"]
+                                   "grok-1-314b", "whisper-small"]
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
@@ -540,18 +539,3 @@ def test_launch_train_main_trains_the_ssm_and_hybrid_archs(arch, tmp_path,
     out = _launch_on_the_cpu(arch, tmp_path, capsys, monkeypatch)
     assert "A_log" in out["params"]["layers"]
     assert arch in tlaunch.TRAIN_ARCHS
-
-
-@pytest.mark.parametrize("arch,why", [
-    ("whisper-small", "training is not ported")])
-def test_launch_train_refuses_the_families_it_does_not_train(arch, why,
-                                                             capsys):
-    """``launch.train --arch`` takes every arch's name, trains the dense,
-    SSM, hybrid and MoE families, and refuses the other with the reason:
-    the enc-dec family is served and not trained."""
-    with pytest.raises(SystemExit) as e:
-        tlaunch.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "the port trains the dense, ssm, hybrid, moe families" in err
-    assert why in err
