@@ -248,16 +248,30 @@ kernels, and prints one JSON line per result.  Phases, in order:
     them non-causal, its 448 causal, each against its plain version
     (whose peak memory is logged), rerun bit-equal and timed beside its
     bound, its plain version, SDPA's backward and the forward with its
-    lse; (c) ``launch.train.main`` for whisper-small at full width and
-    depth (12 + 12 layers, d_model 768, bf16), 16 clips of 1,500 frames
-    and 448 decoder tokens a step, 5 steps under ExhaustiveSel over the
-    five plans: per plan its step seconds, tokens/s and frames/s, peak
-    and launches a step (held exactly: 36 flash attentions and 36
-    backwards a microbatch, none doubled under remat, no rmsnorm), the
-    loss gate on the first batch with its frames, the final save's wall,
-    and the host's time to draw and copy a step's frames.
+    lse, that forward also in turns with SDPA's forward beside its plain
+    version and its bound; (c) ``launch.train.main`` for whisper-small
+    at full width and depth (12 + 12 layers, d_model 768, bf16), 16
+    clips of 1,500 frames and 448 decoder tokens a step, 5 steps under
+    ExhaustiveSel over the five plans: per plan its step seconds,
+    tokens/s and frames/s, peak and launches a step (held exactly: 36
+    flash attentions and 36 backwards a microbatch, none doubled under
+    remat, no rmsnorm), the loss gate on the first batch with its frames,
+    the final save's wall, and the host's time to draw and copy a step's
+    frames;
+23. the dry run held against the card: each step measured above (the
+    mb1_noremat, mb1_remat and mb2_remat steps of [17e], [20d], [20e],
+    [21c] and [22c], the prefills of [8], [18] and [19]) counted on the
+    meta device by ``repro_torch.launch.dryrun.run_cell`` at its arch, depth cut, batch,
+    plan and cache length, no model run on the card: each hand-written
+    kernel's launches equal to the card's, the measured wall at least
+    0.95 of the counted op-sum bound, the counted peak at most 1.02 of
+    the card's; logged: the compute and op-sum shares, the peaks' gap
+    beside what the card held before the step, the peak's temporaries by
+    the op that made them, and the bytes by category.
 
-The line before the last is the kernels' JSON record; the last line is
+The kernels' bound columns (bytes and operations) are the kernel
+modules' cost functions, the work the dry run counts.  The line before
+the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and with no
 card (or no checkout around this file) the script exits non-zero at once.
 """
@@ -765,6 +779,7 @@ def phase_zamba(device):
 
     prefill(cfg, params, tokens[:, :cfg.ssm_chunk])     # warm-up, not kept
     torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -772,9 +787,11 @@ def phase_zamba(device):
     torch.cuda.synchronize(device)
     prefill_s = time.perf_counter() - t0
     prefill_counts = model_counts()
+    peak = torch.cuda.max_memory_allocated(device)
     log(f"[8] prefill {B} x {S}: {prefill_s:.3f} s, launches "
-        f"{json.dumps(prefill_counts)}, peak "
-        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        f"{json.dumps(prefill_counts)}, peak {peak / 1e9:.2f} GB")
+    note_cell("[8]", cfg, "prefill", B, S, prefill_s, peak, prefill_counts,
+              max_len=S + ZAMBA_DECODE, allocated=before)
     require(prefill_counts == {"rmsnorm": 181, "flash_attention": 9,
                                "ssd_scan": 81},
             f"prefill launches {prefill_counts}, want 181 / 9 / 81")
@@ -1109,11 +1126,11 @@ def model_kernel_records(device, flush, launches):
     D = 7168
     x, w = randn((B, S, D), bf16, device, 7), randn((D,), bf16, device, 8)
     rows = B * S
+    ops, nbytes = RMS.rmsnorm_cost(rows, D, 2, 2)
     record("rmsnorm", (x, w), RMS.rmsnorm, RMS.rmsnorm_ref,
            lambda x, w: F.rms_norm(x, (D,), w, 1e-5),
-           nbytes=2 * rows * D * 2 + D * 2, ops=4 * rows * D,
-           ops_rate=F32_OPS_PER_S, shape={"rows": rows, "D": D}, reps=50,
-           turns=True)
+           nbytes=nbytes, ops=ops, ops_rate=F32_OPS_PER_S,
+           shape={"rows": rows, "D": D}, reps=50, turns=True)
     out[-1]["rerun_bit_equal"] = torch.equal(RMS.rmsnorm(x, w),
                                              RMS.rmsnorm(x, w))
     out[-1]["device_ms"] = device_ms(lambda: RMS.rmsnorm(x, w), device)
@@ -1128,21 +1145,20 @@ def model_kernel_records(device, flush, launches):
 
     H, hd = 32, 112
     q, k, v = (randn((B, S, H, hd), bf16, device, 9 + i) for i in range(3))
-    pairs = S * (S + 1) // 2
+    ops, nbytes = FA.flash_attention_cost(B, S, S, H, H, hd, True, 2)
     record("flash_attention", (q, k, v), FA.flash_attention,
            FA.flash_attention_ref,
            lambda q, k, v: F.scaled_dot_product_attention(
                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                is_causal=True),
-           nbytes=4 * B * S * H * hd * 2, ops=4 * B * H * hd * pairs,
-           ops_rate=BF16_OPS_PER_S,
+           nbytes=nbytes, ops=ops, ops_rate=BF16_OPS_PER_S,
            shape={"B": B, "S": S, "T": S, "H": H, "K": H, "hd": hd,
                   "causal": True}, plain_reps=2)
     del q, k, v
 
     nh, hp, st, Q = 112, 64, 64, 256
     args = ssd_inputs(B, S, nh, hp, st, bf16, device, 12)
-    nbytes, ops = ssd_work(B, S, nh, hp, st, Q)
+    ops, nbytes = SSD.ssd_scan_cost(B, S, nh, hp, st, Q, 2)
     record("ssd_scan", args, lambda *a: SSD.ssd_scan(*a, chunk=Q),
            lambda *a: SSD.ssd_scan_ref(*a, chunk=Q), None,
            nbytes=nbytes, ops=ops, ops_rate=BF16_OPS_PER_S,
@@ -1153,20 +1169,6 @@ def model_kernel_records(device, flush, launches):
         lambda *a: SSD.ssd_scan(*a, chunk=Q), args,
         ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"), device)
     return out
-
-
-def ssd_work(B, S, nh, hp, st, Q):
-    """Bytes (x, dt, A, B, C read once, y and the state written once; x
-    bf16) and operations (C B^T a chunk, the masked M x, C h and the
-    state's product a head) of one SSD scan."""
-    tri = Q * (Q + 1) // 2
-    n_chunk = S // Q
-    ops = (B * n_chunk * tri * st * 2                    # C B^T, per chunk
-           + B * n_chunk * nh * (tri * hp * 2            # masked M x
-                                 + 2 * Q * st * hp * 2))  # C h, state
-    nbytes = (2 * B * S * nh * hp * 2 + B * S * nh * 4 + nh * 4
-              + 2 * B * S * st * 4 + B * nh * hp * st * 4)
-    return nbytes, ops
 
 
 def device_ms(fn, device, reps=20):
@@ -1216,8 +1218,8 @@ def rmsnorm_record(x, w, device, flush, plain_reps=10):
         "library_device_ms": device_ms(lib, device),
         "plain_ms": time_call(RMS.rmsnorm_ref, (x, w), plain_reps, device,
                               flush),
-        # x read, y written, w read
-        "bytes": 2 * rows * D * 2 + D * 2, "ops": 4 * rows * D},
+        **work(RMS.rmsnorm_cost(rows, D, x.element_size(),
+                                w.element_size()))},
         F32_OPS_PER_S)
 
 
@@ -2556,6 +2558,12 @@ def grad_errors(got, want):
     return out
 
 
+def work(cost):
+    """A kernel module's (operations, bytes) cost as a record's ``ops`` and
+    ``bytes``: the work its dry-run count reports, the bound's."""
+    return {"ops": cost[0], "bytes": cost[1]}
+
+
 def with_bound(rec, ops_rate):
     """``rec`` with its bound (the larger of bytes over the card's memory
     rate and operations over ``ops_rate``) and achieved rate."""
@@ -2686,7 +2694,6 @@ def backward_records(device, flush):
     require(bwd_within(errs, bf16), f"flash_attention_bwd at the training "
             f"shape {errs}")
     require(same_bits, "flash_attention_bwd differs between two runs")
-    pairs = S * (S + 1) // 2
     shape = {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
              "causal": True}
     recs.append(with_bound({
@@ -2703,10 +2710,8 @@ def backward_records(device, flush):
         "library_ms": time_grad(sdpa_graph, (q, k, v, do), 10, device,
                                 flush),
         "shape": shape,
-        # q, k, v, o, dO read; dq, dk, dv written
-        "bytes": (4 * B * S * H * hd + 4 * B * S * K * hd) * 2,
-        # the five products of the gradient, 2 * hd each a causal pair
-        "ops": 10 * B * H * hd * pairs}, BF16_OPS_PER_S))
+        **work(FA.flash_attention_bwd_cost(B, S, S, H, K, hd, True, 2))},
+        BF16_OPS_PER_S))
     fwd = with_bound({
         **fwd_err,
         **forward_lse_ms(q, k, v, device, flush),
@@ -2716,8 +2721,8 @@ def backward_records(device, flush):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True), (), 20, device, flush),
-        "shape": shape, "ops": 4 * B * H * hd * pairs,
-        "bytes": (2 * B * S * H * hd + 2 * B * S * K * hd) * 2},
+        "shape": shape,
+        **work(FA.flash_attention_cost(B, S, S, H, K, hd, True, 2))},
         BF16_OPS_PER_S)
     del q, k, v, o, do, lse
     # the serving prefill's call (phase [11]'s shape), with and without lse
@@ -2764,9 +2769,8 @@ def rmsnorm_bwd_record(x, w, dy, device, flush):
                               flush),
         "library_ms": time_grad(rms_graph, (x, w, dy), 20, device, flush),
         "shape": {"rows": n, "D": D},
-        # x, dy read, dx written; w read, dw written
-        "bytes": 3 * n * D * 2 + 2 * D * 2,
-        "ops": 10 * n * D}, F32_OPS_PER_S)
+        **work(RMS.rmsnorm_bwd_cost(n, D, x.element_size(),
+                                    w.element_size()))}, F32_OPS_PER_S)
     del got, want, again
     return rec
 
@@ -3100,8 +3104,8 @@ def full_width_run(device):
     cfg = get_config("llama3.2-3b")
     ckpt = checkpoint_dir(cfg, "train", "[17e]")
     torch.cuda.empty_cache()
-    log(f"[17e] allocated before the run: "
-        f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+    resident = torch.cuda.memory_allocated(device)
+    log(f"[17e] allocated before the run: {resident / 1e9:.2f} GB")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     sigterm = signal.getsignal(signal.SIGTERM)
@@ -3133,6 +3137,8 @@ def full_width_run(device):
         "settled": out["settled"], "final_save_s": out["final_save_s"],
         "checkpoint_gb": ckpt_bytes / 1e9,
         "launches": launches, "step_breakdown": breakdown}
+    note_train_cell("[17e]", cfg, TRAIN_B, TRAIN_S, summary["plans"],
+                    resident)
     del out
     summary["resume"] = full_width_resume(cfg, ckpt, probe, device)
     t1 = time.perf_counter()
@@ -3296,6 +3302,7 @@ def serve_family(cfg, params, device, steps, tokens, embeds=None,
     want, want_step = expected_launches(cfg)
     prefill(cfg, params, tokens[:, :128], embeds=embeds)  # warm-up
     torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3305,6 +3312,9 @@ def serve_family(cfg, params, device, steps, tokens, embeds=None,
     prefill_s = time.perf_counter() - t0
     counts = model_counts()
     peak = torch.cuda.max_memory_allocated(device)
+    note_cell("[19]" if cfg.family in ("ssm", "encdec") else "[18]", cfg,
+              "prefill", B, S, prefill_s, peak, counts, max_len=max_len,
+              allocated=before)
     require(counts == want,
             f"{cfg.name} prefill launches {counts}, want {want}")
     require(tuple(logits.shape) == (B, padded_vocab(cfg))
@@ -3483,7 +3493,6 @@ def flash_record(B, S, T, H, K, hd, causal, seed, device, flush):
             is_causal=causal, enable_gqa=True)
     o = kernel()
     o_ref = FA.flash_attention_ref(q, k, v, causal=causal)
-    pairs = S * (S + 1) // 2 if causal else S * T
     rec = with_bound({
         "max_abs_err": float((o.float() - o_ref.float()).abs().max()),
         "tol_ratio": tol_ratio(o, o_ref, "flash_attention"),
@@ -3494,8 +3503,7 @@ def flash_record(B, S, T, H, K, hd, causal, seed, device, flush):
             device, flush),
         "shape": {"B": B, "S": S, "T": T, "H": H, "K": K, "hd": hd,
                   "causal": causal},
-        "ops": 4 * B * H * hd * pairs,
-        "bytes": (2 * B * S * H * hd + 2 * B * T * K * hd) * 2},
+        **work(FA.flash_attention_cost(B, S, T, H, K, hd, causal, 2))},
         BF16_OPS_PER_S)
     del q, k, v, o, o_ref
     torch.cuda.empty_cache()
@@ -3722,7 +3730,6 @@ def ssm_encdec_kernel_records(device, flush):
     args = ssd_inputs(B, S, nh, hp, st, bf16, device, 100)
     y, h = SSD.ssd_scan(*args, chunk=Q)
     y_ref, h_ref = SSD.ssd_scan_ref(*args, chunk=Q)
-    nbytes, ops = ssd_work(B, S, nh, hp, st, Q)
 
     def kernel():
         return SSD.ssd_scan(*args, chunk=Q)
@@ -3742,7 +3749,7 @@ def ssm_encdec_kernel_records(device, flush):
             ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"),
             device),
         "shape": {"b": B, "S": S, "nh": nh, "hp": hp, "st": st, "chunk": Q},
-        "bytes": nbytes, "ops": ops}, BF16_OPS_PER_S)
+        **work(SSD.ssd_scan_cost(B, S, nh, hp, st, Q, 2))}, BF16_OPS_PER_S)
     del args, y, h, y_ref, h_ref
     torch.cuda.empty_cache()
     flash = flash_record(B, 1500, 1500, 12, 12, 64, False, 110, device,
@@ -3823,26 +3830,6 @@ SSM_FULL_STEPS = 5
 #: its 6.75e9 parameters take 81 GB in bf16 weights and gradients and
 #: float32 moments (27 layers, 3 segments, until the script passed 1,050 s)
 ZAMBA_TRAIN_LAYERS, ZAMBA_STEPS = 18, 5
-
-
-def ssd_bwd_work(B, S, nh, hp, st, Q):
-    """Bytes (x, dy, dt, A, B, C read once, dx, ddt, dA, dB, dC written
-    once; x, dy and dx bf16) and operations of one SSD backward: the
-    gradient's own products, each counted once: per chunk, C B^T and the
-    two products of the heads' summed Pm with B and C over the causal
-    pairs; per head and chunk, dy x^T and (s o L)^T dy over the pairs, and
-    the five state-wide products (the chunk's state, its gradient's part,
-    H^T dy, G B and G^T x).  The bf16 kernels' hi/lo passes (three
-    products where both operands are float32, two where one is bf16) are
-    not counted: the bound is the gradient's work, whatever the kernels'
-    operand plan."""
-    tri = Q * (Q + 1) // 2
-    n_chunk = S // Q
-    ops = B * n_chunk * (3 * tri * st * 2
-                         + nh * (2 * tri * hp * 2 + 5 * Q * hp * st * 2))
-    nbytes = (3 * B * S * nh * hp * 2 + 2 * B * S * nh * 4
-              + 2 * nh * 4 + 4 * B * S * st * 4)
-    return nbytes, ops
 
 
 def ssd_bwd_args(b, S, nh, hp, st, dtype, device, seed, with_dstate=False):
@@ -3930,7 +3917,6 @@ def ssd_bwd_record(shape, seed, device, flush, train_S):
     again = SSD.ssd_scan_bwd(*args, dy, chunk=Q)
     same = all(torch.equal(a, c) for a, c in zip(got, again))
     del got, again
-    nbytes, ops = ssd_bwd_work(b, S, nh, hp, st, Q)
     rec = with_bound({
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -3951,7 +3937,8 @@ def ssd_bwd_record(shape, seed, device, flush, train_S):
              "ssd_bwd_finish_kernel"), device),
         "shape": {"b": b, "S": S, "nh": nh, "hp": hp, "st": st,
                   "chunk": Q},
-        "bytes": nbytes, "ops": ops}, BF16_OPS_PER_S)
+        **work(SSD.ssd_scan_bwd_cost(b, S, nh, hp, st, Q, 2))},
+        BF16_OPS_PER_S)
     del args, dy
     args, dy, _ = ssd_bwd_args(b, train_S, nh, hp, st, torch.bfloat16,
                                device, seed)
@@ -3964,24 +3951,16 @@ def ssd_bwd_record(shape, seed, device, flush, train_S):
     return rec
 
 
-def attention_pairs(S, T, causal):
-    """The (query, key) pairs a query row of S attends over T keys: all
-    S x T, or under the causal mask (key <= query, no offset) each query
-    q's min(q + 1, T)."""
-    if not causal:
-        return S * T
-    m = min(S, T)
-    return m * (m + 1) // 2 + (S - m) * T
-
-
 def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S=None,
-                     T=None, causal=True):
+                     T=None, causal=True, forward=False):
     """[20b] / [21b] / [22b]: the flash backward at one call (bf16; q of S
     queries over T keys, default S, causal unless asked; Zamba2's shared
     block, olmoe's training call, whisper's three) against its plain
     version, a rerun's bits, timed after an L2 flush beside the bound, the
     plain version and SDPA's backward, the forward with its lse timed
-    too; and, given ``train_S``, at the training step's own call (S = T).
+    too; with ``forward``, that forward also in turns with SDPA's forward,
+    beside its plain version's time and its bound (``forward``); and,
+    given ``train_S``, at the training step's own call (S = T).
     The plain version's float32 scores are B x H x S x T x 4 bytes, and
     its autograd keeps a few of them: 1.73 GB each at whisper's encoder
     call (16 x 12 x 1,500^2)."""
@@ -4018,9 +3997,10 @@ def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S=None,
             q, k, v, causal=causal), (), 5, device, flush),
         "shape": {"B": B, "S": S, "T": T, "H": H, "K": K, "hd": hd,
                   "causal": causal},
-        "bytes": (4 * B * S * H * hd + 4 * B * T * K * hd) * 2,
-        "ops": 10 * B * H * hd * attention_pairs(S, T, causal)},
+        **work(FA.flash_attention_bwd_cost(B, S, T, H, K, hd, causal, 2))},
         BF16_OPS_PER_S)
+    if forward:
+        rec["forward"] = flash_fwd_lse_record(q, k, v, causal, device, flush)
     del q, k, v, o, do, lse
     if train_S is None:
         torch.cuda.empty_cache()
@@ -4036,6 +4016,27 @@ def flash_bwd_record(B, S, H, K, hd, seed, device, flush, train_S=None,
     del q, k, v, o, do, lse
     torch.cuda.empty_cache()
     return rec
+
+
+def flash_fwd_lse_record(q, k, v, causal, device, flush):
+    """The forward kernel with its lse (the training call) at one bf16
+    call, timed in turns with SDPA's forward after an L2 flush, beside the
+    plain version's time and the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    return with_bound({
+        **turns_ms({"ms": lambda: FA.flash_attention_lse(q, k, v,
+                                                         causal=causal),
+                    "library_ms": lambda:
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=causal,
+                        enable_gqa=True)}, 10, device, flush),
+        "plain_ms": time_call(lambda: FA.flash_attention_ref(
+            q, k, v, causal=causal), (), 2, device, flush),
+        **work(FA.flash_attention_cost(B, S, T, H, K, hd, causal, 2,
+                                       with_lse=True))}, BF16_OPS_PER_S)
 
 
 def expected_step_launches(cfg, microbatches, remat):
@@ -4138,9 +4139,9 @@ def family_full_run(arch, device):
     ckpt = checkpoint_dir(cfg, arch, f"[{tag}]")
     gc.collect()
     torch.cuda.empty_cache()
-    if device.type == "cuda":
-        log(f"[{tag}] allocated before the run: "
-            f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+    resident = (torch.cuda.memory_allocated(device)
+                if device.type == "cuda" else 0)
+    log(f"[{tag}] allocated before the run: {resident / 1e9:.2f} GB")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     sigterm = signal.getsignal(signal.SIGTERM)
@@ -4176,6 +4177,7 @@ def family_full_run(arch, device):
                      "launches_exact": r["launches_per_step"] == want})
         if encdec:
             rows[-1]["frames_per_s"] = [frames / t for t in r["step_s"]]
+    note_train_cell(f"[{tag}]", cfg, B, S, rows, resident)
     # the loss falls where the batch is the same: the trained state's
     # loss on the first step's batch against that step's (a step's loss
     # moves with its batch by as much as a few steps move it); the
@@ -4543,7 +4545,8 @@ def phase_encdec_training(device, flush, model_records, bwd_records):
     calls = {}
     for i, (name, S, T, causal) in enumerate(WHISPER_ATTN_CALLS):
         r = flash_bwd_record(WHISPER_TRAIN_B, S, 12, 12, 64, 430 + 10 * i,
-                             device, flush, T=T, causal=causal)
+                             device, flush, T=T, causal=causal,
+                             forward=True)
         log(f"[22b] flash_attention_bwd at whisper's {name} call: "
             f"{json.dumps(r)}")
         require(r["within"] and r["rerun_bit_equal"], f"[22b] {name}: "
@@ -4560,11 +4563,132 @@ def phase_encdec_training(device, flush, model_records, bwd_records):
     for r in model_records + bwd_records:
         if r["name"] == "flash_attention":
             r["at_whisper_training_calls"] = {
-                k: {"ms_with_lse": c["fwd_lse_ms"], "shape": c["shape"]}
+                k: {"ms_with_lse": c["fwd_lse_ms"], "shape": c["shape"],
+                    **c["forward"]}
                 for k, c in calls.items()}
         if r["name"] == "flash_attention_bwd":
             r["at_whisper_training_calls"] = calls
     log(f"[22] {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the dry run's count held against the card
+# ---------------------------------------------------------------------------
+
+#: the steps measured on the card, as [8], [17e], [18], [19], [20d],
+#: [20e], [21c] and [22c] ran them, for [23]
+MEASURED = []
+#: [23]'s gates: no measured step below this share of its counted op-sum
+#: bound (the count's per-op bytes are a lower bound only for ops larger
+#: than the 50 MB L2), and no counted peak above this share of the card's
+DRY_RUN_TIME_SHARE = 0.95
+DRY_RUN_PEAK_SHARE = 1.02
+
+
+def note_cell(tag, cfg, kind, B, S, seconds, peak_bytes, launches,
+              max_len=None, allocated=None, resident=None, plan=None):
+    """One measured step for [23]: ``cfg`` (its depth cut, its plan's
+    remat), the kind, the batch, its wall, the card's peak allocated
+    bytes and the model kernels' launches; what the card held that is
+    not the step's: ``resident`` bytes, or ``allocated`` before the step
+    with its arguments; and a train step's plan."""
+    MEASURED.append({"tag": tag, "cfg": cfg, "kind": kind, "B": B, "S": S,
+                     "max_len": max_len, "seconds": seconds,
+                     "peak_bytes": peak_bytes, "launches": launches,
+                     "allocated": allocated, "resident": resident,
+                     "plan": plan})
+
+
+#: the plans of each training run that [23] counts: the mb1_noremat step,
+#: and the remat plans whose peaks a hand count once missed by 6-9 GB
+DRY_RUN_PLANS = (("mb1_noremat", 1, False), ("mb1_remat", 1, True),
+                 ("mb2_remat", 2, True))
+
+
+def note_train_cell(tag, cfg, B, S, plans, resident):
+    """A training run's plans of DRY_RUN_PLANS for [23]: each one's
+    fastest step, its peak and its first step's launches; ``resident``:
+    the card's allocated bytes before the run."""
+    rows = {r["plan"]: r for r in plans}
+    for name, microbatches, remat in DRY_RUN_PLANS:
+        row = rows[name]
+        note_cell(tag, dataclasses.replace(cfg, remat=remat), "train", B, S,
+                  min(row["step_s"]), row["peak_bytes"],
+                  row["launches_per_step"], resident=resident,
+                  plan=(name, microbatches))
+
+
+def phase_dry_run():
+    """Phase [23]: every step of ``MEASURED`` (the prefills, and each
+    training run's plans of DRY_RUN_PLANS) counted on the meta device by
+    ``repro_torch.launch.dryrun.run_cell`` at its arch, depth cut, batch,
+    plan (and, for a prefill, cache length), and held against the card:
+    the hand-written kernels' launches equal the card's, the measured
+    step takes at least DRY_RUN_TIME_SHARE of the counted op-sum bound,
+    and the counted peak is at most DRY_RUN_PEAK_SHARE of the card's;
+    logged without a gate: the bound's compute share of the step (its
+    FLOPs at the H100's peaks over the measured wall), the op-sum share,
+    the gap between the card's peak and the count's beside what the card
+    held before the step, the peak's temporaries by the op that made
+    them, and the bytes by category.  No model runs on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    rows = []
+    for c in MEASURED:
+        cfg = c["cfg"]
+        shape = ShapeConfig(f"{c['kind']} {c['B']} x {c['S']}", c["kind"],
+                            c["S"], c["B"])
+        plan, microbatches = c["plan"] or (None, 1)
+        rec = run_cell(cfg.name, shape.name, microbatches, cfg=cfg,
+                       shape=shape, max_len=c["max_len"])
+        bound, mem = rec["bound_s"], rec["memory"]
+        card = {k: v for k, v in c["launches"].items() if v}
+        meta = {k: v["launches"] for k, v in rec["kernels"].items()}
+        resident = (c["resident"] if c["resident"] is not None
+                    else c["allocated"] - mem["argument_bytes"])
+        rows.append({
+            "tag": c["tag"], "arch": cfg.name, "layers": cfg.n_layers,
+            "kind": c["kind"], "plan": plan, "B": c["B"], "S": c["S"],
+            "measured_s": c["seconds"], "op_sum_s": bound["op_sum_s"],
+            "compute_s": bound["compute_s"], "memory_s": bound["memory_s"],
+            "dominant": bound["dominant"],
+            "op_sum_share": bound["op_sum_s"] / c["seconds"],
+            "compute_share": bound["compute_s"] / c["seconds"],
+            "flops": rec["flops_per_device"],
+            "counted_peak_gb": mem["peak_bytes"] / 1e9,
+            "measured_peak_gb": c["peak_bytes"] / 1e9,
+            "peak_gap_gb": (c["peak_bytes"] - mem["peak_bytes"]) / 1e9,
+            "resident_gb": resident / 1e9,
+            "peak_by_op_gb": {k: v / 1e9 for k, v in
+                              list(mem["peak_by_op"].items())[:6]},
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "launches_card": card, "launches_meta": meta,
+            "launches_equal": card == meta,
+            "op_launches": sum(rec["launches"].values()),
+            "bytes_by_category_gb": {k: v / 1e9 for k, v in
+                                     rec["bytes_by_category"].items() if v},
+            "count_s": rec["count_s"]})
+        log(f"[23] {json.dumps(rows[-1])}")
+    log(f"[23] {len(rows)} steps counted on the meta device in "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(len(rows) == 9 + 5 * len(DRY_RUN_PLANS)
+            and {r["kind"] for r in rows} == {"train", "prefill"},
+            f"[23] {len(rows)} measured steps")
+    bad = [(r["arch"], r["plan"], r["launches_card"], r["launches_meta"])
+           for r in rows if not r["launches_equal"]]
+    require(not bad, f"[23] the count's launches differ from the card's: "
+            f"{bad}")
+    bad = [(r["arch"], r["plan"], r["measured_s"], r["op_sum_s"])
+           for r in rows
+           if r["measured_s"] < DRY_RUN_TIME_SHARE * r["op_sum_s"]]
+    require(not bad, f"[23] steps faster than their counted bound: {bad}")
+    bad = [(r["arch"], r["plan"], r["counted_peak_gb"],
+            r["measured_peak_gb"]) for r in rows
+           if r["counted_peak_gb"] > DRY_RUN_PEAK_SHARE
+           * r["measured_peak_gb"]]
+    require(not bad, f"[23] counted peaks above the card's: {bad}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4887,7 +5011,11 @@ def run() -> int:
     log("[22] the enc-dec family's training: whisper-small at full width "
         "and depth")
     phase_encdec_training(device, flush, model_records, bwd_records)
-    log(f"[22] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[22] {time.perf_counter() - t_start:.1f} s so far")
+    log("[23] the dry run's count of each measured step, on the meta "
+        "device, against the card")
+    phase_dry_run()
+    log(f"[23] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

@@ -1,5 +1,7 @@
 """What every kernel wrapper of the port shares: argument checks, the
-dtype codes of the C entry points, and the launch on the current stream."""
+dtype codes of the C entry points, the launch on the current stream, and
+the device a wrapper runs on (the card, or the meta device of the dry
+run)."""
 
 from __future__ import annotations
 
@@ -43,3 +45,14 @@ def cuda_device(name: str, t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
     return t.device
+
+
+def kernel_device(name: str, t: torch.Tensor) -> torch.device:
+    """The device a model kernel's wrapper runs ``t`` on: its CUDA device,
+    or the ``meta`` device, where the wrapper takes the card's route and,
+    where the card would launch, reports its kernel's work to the open
+    cost count (``repro_torch.launch.cost_analysis.kernel_cost``); raises
+    for any other device type."""
+    if t.device.type == "meta":
+        return t.device
+    return cuda_device(name, t)

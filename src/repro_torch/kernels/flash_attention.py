@@ -25,6 +25,15 @@ against a 0.26 ms bound at llama3.2-3b's training call on an H100 80GB
 HBM3; ``flash_attention_bwd.launches``).  Otherwise (serving, under
 ``no_grad``) the forward launches as it is and stores no lse.  On the CPU
 autograd goes through the plain version.
+
+On the ``meta`` device (the dry run, ``repro_torch.launch.dryrun``) the
+wrappers take the card's route, checks and allocations included, and
+where the card would launch they count the launch and report the
+kernel's work (:func:`flash_attention_cost`,
+:func:`flash_attention_bwd_cost`) to the open cost count instead, with
+no arithmetic.  The work is the kernels' own, not the plain version's:
+masked (query, key) pairs are skipped, as the kernels skip masked tiles,
+and the backward's five products include the recomputed scores.
 """
 
 from __future__ import annotations
@@ -33,13 +42,45 @@ import math
 
 import torch
 
-from .common import DTYPE_CODES, check, cuda_device, launch
+from ..launch.cost_analysis import kernel_cost
+from .common import DTYPE_CODES, check, kernel_device, launch
 
 _SOURCE = "flash_attention.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 #: the largest head dim the kernel holds (its tiles are sized for it)
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
+
+
+def attention_pairs(S: int, T: int, causal: bool) -> int:
+    """The (query, key) pairs S queries attend over T keys: all S x T, or
+    under the causal mask (key <= query, no offset) each query q's
+    min(q + 1, T)."""
+    if not causal:
+        return S * T
+    m = min(S, T)
+    return m * (m + 1) // 2 + (S - m) * T
+
+
+def flash_attention_cost(B, S, T, H, K, hd, causal, itemsize,
+                         with_lse=False):
+    """(operations, bytes) of one forward: the score and value products,
+    2 * hd operations each per attended pair and head; q, k, v read and o
+    written once in ``itemsize``, and the float32 lse when it is
+    stored."""
+    ops = 4 * B * H * hd * attention_pairs(S, T, causal)
+    nbytes = (2 * B * S * H * hd + 2 * B * T * K * hd) * itemsize
+    return ops, nbytes + (4 * B * H * S if with_lse else 0)
+
+
+def flash_attention_bwd_cost(B, S, T, H, K, hd, causal, itemsize):
+    """(operations, bytes) of one backward: its five products (the scores
+    recomputed, dp, dv, dq, dk), 2 * hd operations each per attended pair
+    and head; q, k, v, o, do and the lse read and dq, dk, dv written
+    once."""
+    ops = 10 * B * H * hd * attention_pairs(S, T, causal)
+    nbytes = (4 * B * S * H * hd + 4 * B * T * K * hd) * itemsize
+    return ops, nbytes + 4 * B * H * S
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -96,7 +137,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
 
 def _check(name, q, k, v):
     """The device of q, k, v after the kernels' checks."""
-    device = cuda_device(name, q)
+    device = kernel_device(name, q)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if K == 0 or H % K:
@@ -129,7 +170,11 @@ def _forward(q, k, v, causal, with_lse=False):
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=device)
            if with_lse else None)
-    if out.numel():
+    if out.numel() and device.type == "meta":
+        kernel_cost("flash_attention", *flash_attention_cost(
+            B, S, T, H, K, hd, causal, q.element_size(), with_lse), q.dtype)
+        flash_attention.launches += 1
+    elif out.numel():
         launch(_SOURCE, "flash_attention_launch",
                [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, S, T, H, K, hd,
@@ -170,6 +215,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
     if not (S and T and B):
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty(B * H * S, dtype=torch.float32, device=device)
+    if device.type == "meta":
+        kernel_cost("flash_attention_bwd", *flash_attention_bwd_cost(
+            B, S, T, H, K, hd, causal, q.element_size()), q.dtype)
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
     launch(_BWD_SOURCE, "flash_attention_bwd_launch",
            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),

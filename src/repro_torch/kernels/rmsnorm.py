@@ -16,6 +16,12 @@ requires grad), the forward kernel runs inside an autograd ``Function``
 whose backward is the ``rmsnorm_bwd`` kernel of the same source
 (``rmsnorm_bwd.launches``); otherwise the forward launches as it is.  On
 the CPU autograd goes through the plain version.
+
+On the ``meta`` device (the dry run, ``repro_torch.launch.dryrun``) the
+wrappers take the card's route, checks and allocations included, and
+where the card would launch they count the launch and report the
+kernel's work (:func:`rmsnorm_cost`, :func:`rmsnorm_bwd_cost`) to the open
+cost count instead, with no arithmetic.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import DTYPE_CODES, check, cuda_device, launch
+from ..launch.cost_analysis import kernel_cost
+from .common import DTYPE_CODES, check, kernel_device, launch
 
 _SOURCE = "rmsnorm.cu"
 
@@ -92,6 +99,20 @@ def layout(rows: int, D: int, itemsize: int) -> Layout:
                   _cdiv(chunks, tpr), vec)
 
 
+def rmsnorm_cost(rows: int, D: int, itemsize: int, w_itemsize: int):
+    """(operations, bytes) of one forward over ``rows`` rows of ``D``: x
+    read and y written once in x's ``itemsize``, w read once; four
+    operations an element (square, sum, scale, weight), on the CUDA
+    cores."""
+    return 4 * rows * D, 2 * rows * D * itemsize + D * w_itemsize
+
+
+def rmsnorm_bwd_cost(rows: int, D: int, itemsize: int, w_itemsize: int):
+    """(operations, bytes) of one backward: x and dy read and dx written
+    once, w read and dw written once; ten operations an element."""
+    return 10 * rows * D, 3 * rows * D * itemsize + 2 * D * w_itemsize
+
+
 def rmsnorm_ref(x, w, *, eps: float = 1e-5):
     """Plain version: x (..., D) float32 or bfloat16, w (D,)."""
     xf = x.float()
@@ -111,14 +132,18 @@ def rmsnorm(x, w, *, eps: float = 1e-5, block_rows: int = 256):
 
 
 def _forward(x, w, eps):
-    device = cuda_device("rmsnorm", x)
+    device = kernel_device("rmsnorm", x)
     D = x.shape[-1]
     rows = x.numel() // max(D, 1)
     types = (torch.float32, torch.bfloat16)
     check("x", x, types, x.shape, device)
     check("w", w, types, (D,), device)
     out = torch.empty_like(x)
-    if rows:
+    if rows and device.type == "meta":
+        kernel_cost("rmsnorm", *rmsnorm_cost(
+            rows, D, x.element_size(), w.element_size()), None)
+        rmsnorm.launches += 1
+    elif rows:
         lay = layout(rows, D, x.element_size())
         launch(_SOURCE, "rmsnorm_launch",
                [x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, D,
@@ -152,7 +177,7 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     rows in float32) in w's."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, w, dy, eps=eps)
-    device = cuda_device("rmsnorm_bwd", x)
+    device = kernel_device("rmsnorm_bwd", x)
     D = x.shape[-1]
     rows = x.numel() // max(D, 1)
     if D > MAX_BWD_D:
@@ -167,6 +192,11 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-5):
     dw = torch.empty_like(w)
     parts = min(rows, _BWD_BLOCKS)
     ws = torch.empty((parts, D), dtype=torch.float32, device=device)
+    if device.type == "meta":
+        kernel_cost("rmsnorm_bwd", *rmsnorm_bwd_cost(
+            rows, D, x.element_size(), w.element_size()), None)
+        rmsnorm_bwd.launches += 1
+        return dx, dw
     launch(_SOURCE, "rmsnorm_bwd_launch",
            [x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), ws.data_ptr(), rows, D, parts,

@@ -28,6 +28,13 @@ grad, ``ssd_scan`` runs as a ``torch.autograd.Function`` whose backward is
 that kernel; under ``no_grad`` it launches the forward alone, as serving
 does.  ``ssd_scan_bwd_ref`` is its plain version, autograd through
 :func:`ssd_scan_ref`.
+
+On the ``meta`` device (the dry run, ``repro_torch.launch.dryrun``) the
+wrappers take the card's route, checks and allocations included (but the
+backward's workspace, whose size only the built library gives), and
+where the card would launch they count the launch and report the
+kernels' work (:func:`ssd_scan_cost`, :func:`ssd_scan_bwd_cost`) to the
+open cost count instead, with no arithmetic.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import ctypes
 
 import torch
 
-from .common import DTYPE_CODES, check, cuda_device, launch
+from ..launch.cost_analysis import kernel_cost
+from .common import DTYPE_CODES, check, kernel_device, launch
 
 _SOURCE = "ssd_scan.cu"
 _BWD_SOURCE = "ssd_scan_bwd.cu"
@@ -83,6 +91,40 @@ def _bwd_workspace_floats(b, S, nh, hp, st, chunk, dtype) -> int:
         raise RuntimeError(f"ssd_scan_bwd_workspace_floats failed with "
                            f"CUDA error {rc}")
     return n.value
+
+
+def ssd_scan_cost(b, S, nh, hp, st, chunk, itemsize):
+    """(operations, bytes) of one forward: per chunk C B^T over the causal
+    pairs, per head and chunk the masked M x over them, C h and the
+    chunk's state (2 operations a multiply-add); x read and y written in
+    ``itemsize``, dt, A, B, C read and the final state written in
+    float32, each once."""
+    tri = chunk * (chunk + 1) // 2
+    n_chunk = S // chunk
+    ops = (b * n_chunk * tri * st * 2
+           + b * n_chunk * nh * (tri * hp * 2 + 2 * chunk * st * hp * 2))
+    nbytes = (2 * b * S * nh * hp * itemsize + b * S * nh * 4 + nh * 4
+              + 2 * b * S * st * 4 + b * nh * hp * st * 4)
+    return ops, nbytes
+
+
+def ssd_scan_bwd_cost(b, S, nh, hp, st, chunk, itemsize):
+    """(operations, bytes) of one backward: the gradient's own products,
+    each counted once: per chunk C B^T and the two products of the heads'
+    summed Pm with B and C over the causal pairs; per head and chunk dy
+    x^T and (s o L)^T dy over the pairs, and the five state-wide products
+    (the chunk's state, its gradient's part, H^T dy, G B and G^T x).  The
+    bf16 kernels' hi/lo passes are not counted: the bound is the
+    gradient's work, whatever the kernels' operand plan.  x, dy read and
+    dx written in ``itemsize``; dt, A, B, C read and ddt, dA, dB, dC
+    written in float32."""
+    tri = chunk * (chunk + 1) // 2
+    n_chunk = S // chunk
+    ops = b * n_chunk * (3 * tri * st * 2
+                         + nh * (2 * tri * hp * 2 + 5 * chunk * hp * st * 2))
+    nbytes = (3 * b * S * nh * hp * itemsize + 2 * b * S * nh * 4
+              + 2 * nh * 4 + 4 * b * S * st * 4)
+    return ops, nbytes
 
 
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
@@ -141,7 +183,7 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256):
 def _check_args(name, x, dt, A, B, C, chunk):
     """The device, the chunk cut to S and the widths, as the kernels take
     them; raises past the kernels' limits."""
-    device = cuda_device(name, x)
+    device = kernel_device(name, x)
     b, S, nh, hp = x.shape
     st = B.shape[-1]
     chunk = min(chunk, S)
@@ -186,10 +228,14 @@ def _forward(x, dt, A, B, C, chunk):
         n_ws = (_workspace_floats(b, S, nh, hp, st, chunk)
                 if x.dtype == torch.bfloat16 else 0)
         ws = torch.empty(max(n_ws, 1), dtype=f32, device=device)
-        launch(_SOURCE, "ssd_scan_launch",
-               [t.data_ptr() for t in (x, dt, A, B, C, y, state, ws)]
-               + [n_ws, b, S, nh, hp, st, chunk, DTYPE_CODES[x.dtype]],
-               device)
+        if device.type == "meta":
+            kernel_cost("ssd_scan", *ssd_scan_cost(
+                b, S, nh, hp, st, chunk, x.element_size()), x.dtype)
+        else:
+            launch(_SOURCE, "ssd_scan_launch",
+                   [t.data_ptr() for t in (x, dt, A, B, C, y, state, ws)]
+                   + [n_ws, b, S, nh, hp, st, chunk, DTYPE_CODES[x.dtype]],
+                   device)
         ssd_scan.launches += 1
     return y, state
 
@@ -225,6 +271,11 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 256):
     ddt, dA, dB, dC = (torch.empty_like(t) for t in (dt, A, B, C))
     if not x.numel():
         return dx, ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    if device.type == "meta":
+        kernel_cost("ssd_scan_bwd", *ssd_scan_bwd_cost(
+            b, S, nh, hp, st, chunk, x.element_size()), x.dtype)
+        ssd_scan_bwd.launches += 1
+        return dx, ddt, dA, dB, dC
     n_ws = _bwd_workspace_floats(b, S, nh, hp, st, chunk, x.dtype)
     ws = torch.empty(n_ws, dtype=torch.float32, device=device)
     launch(_BWD_SOURCE, "ssd_scan_bwd_launch",

@@ -195,10 +195,23 @@ class _DispatchGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         keep, by_token = ctx.saved_tensors
-        pairs = grad.new_zeros((keep.shape[0], grad.shape[-1]))
+        pairs = grad.new_zeros((by_token.shape[0], grad.shape[-1]))
         pairs[keep] = grad
-        dx = _token_sums(pairs, by_token, keep.shape[0] // ctx.k, ctx.k)
+        dx = _token_sums(pairs, by_token, by_token.shape[0] // ctx.k, ctx.k)
         return dx, None, None, None, None
+
+
+def _kept(keep, slots: int):
+    """The kept pairs as the dispatch indexes them: the mask ``keep`` on
+    the CPU and the card.  On the ``meta`` device (the dry run) a mask
+    selects a count that depends on the data, so the kept pairs are the
+    upper bound instead, the first min(T * k, E * C) pairs, every slot of
+    the buffer filled: the gather's and scatter's bytes are counted at
+    that bound (the expert products run on the static (E, C, D) buffer
+    either way)."""
+    if keep.device.type != "meta":
+        return keep
+    return torch.arange(min(keep.shape[0], slots), device=keep.device)
 
 
 def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
@@ -220,7 +233,12 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
     bit-equal.  groups > 1 dispatches each of
     ``groups`` equal slices of the tokens on its own (per-group
     capacity); the loads add up, the other statistics are the groups'
-    means."""
+    means.
+
+    On the ``meta`` device (the dry run) the gather and scatter of the kept
+    pairs are counted at their upper bound, every one of min(T * k, E * C)
+    slots filled (:func:`_kept`); ``expert_load`` is a stand-in of its
+    shape."""
     if groups > 1:
         T, D = x.shape
         if T % groups:
@@ -257,8 +275,9 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, k: int,
 
     # each token's pairs, in sorted order, brought together k a token
     by_token = torch.argsort(t_sorted, stable=True)
+    kept = _kept(keep, E * C)
     buf = torch.zeros((E * C, D), dtype=x.dtype, device=dev)
-    buf[slot[keep]] = _DispatchGather.apply(x, t_sorted, keep, by_token, k)
+    buf[slot[kept]] = _DispatchGather.apply(x, t_sorted, kept, by_token, k)
     buf = buf.reshape(E, C, D)
     h = matmul(buf, w_gate)
     u = matmul(buf, w_up)
