@@ -267,7 +267,24 @@ kernels, and prints one JSON line per result.  Phases, in order:
     0.95 of the counted op-sum bound, the counted peak at most 1.02 of
     the card's; logged: the compute and op-sum shares, the peaks' gap
     beside what the card held before the step, the peak's temporaries by
-    the op that made them, and the bytes by category.
+    the op that made them, and the bytes by category;
+24. the model stack's sharding specs on the reference's 16x16 and
+    2x16x16 layouts (``repro_torch.distributed.sharding``), held against
+    the card's allocator and tensors, no kernel computed and nothing
+    timed: (a) device (0, ...)'s share of grok-1-314b's ``train_4k``
+    arguments (parameters, bf16 moments, the batch's shard) allocated with
+    ``torch.empty`` at each leaf's ``shard_shape``, on each layout: the
+    allocator asked for exactly the dry run's per-device argument bytes
+    (``launch.dryrun.mesh_cell``), and ``memory_allocated`` grown by that
+    plus the allocator's rounding (each block up to 512 bytes, and at
+    most 1 MiB unsplit a block above 1 MiB); (b) llama3.2-3b's parameters
+    at full width and depth on the card, every leaf cut into all 256
+    devices' shards of 16x16 with ``shard_slices``: each shard its
+    ``shard_shape``, the distinct shards a grid that tiles the leaf once
+    and concatenates back bit-equal, devices equal on the spec's axes
+    holding the same elements and the others distinct ranges, device (0,
+    0)'s bytes the count's; (c) every applicable cell's per-device
+    argument and output GB on both layouts.
 
 The kernels' bound columns (bytes and operations) are the kernel
 modules' cost functions, the work the dry run counts.  The line before
@@ -4692,6 +4709,214 @@ def phase_dry_run():
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the sharding specs held against the card
+# ---------------------------------------------------------------------------
+
+#: the caching allocator's rounding of a block: every request goes up to a
+#: multiple of ALLOC_GRANULE bytes (c10's kMinBlockSize), and a block
+#: above ALLOC_SPLIT keeps a remainder of at most ALLOC_SPLIT unsplit
+#: (kSmallSize: a large block splits only when more than that is left)
+ALLOC_GRANULE = 512
+ALLOC_SPLIT = 1 << 20
+#: the cell whose per-device arguments [24a] allocates, and the arch
+#: whose parameters [24b] cuts into every device's shards
+SHARD_ALLOC_CELL = ("grok-1-314b", "train_4k")
+SHARD_TILE_ARCH = "llama3.2-3b"
+
+
+def allocate_shards(multi_pod, device, params):
+    """[24a]: device (0, ...)'s share of SHARD_ALLOC_CELL's arguments
+    (``launch.dryrun.mesh_layout``'s: the parameters, the AdamW state in
+    the config's moment dtype, the batch) allocated on the card,
+    ``torch.empty`` at each leaf's ``shard_shape``;
+    the growth of the allocator's counts against the dry run's
+    per-device argument bytes, and the allocator's rounding of the
+    blocks (at least each block up to ALLOC_GRANULE, at most ALLOC_SPLIT
+    more for a block above ALLOC_SPLIT).  ``params``: the arch's parameter
+    stand-ins.  Frees what it allocated."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import shard_shape, spec_leaves
+    from repro_torch.launch.dryrun import mesh_cell, mesh_layout
+    from repro_torch.launch.mesh import production_mesh
+    arch, shape = SHARD_ALLOC_CELL
+    rec = mesh_cell(arch, shape, multi_pod, params=params)
+    mesh = production_mesh(multi_pod=multi_pod)
+    parts = mesh_layout(get_config(arch), SHAPES[shape], mesh, params)[0]
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    stats0 = torch.cuda.memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    held, asked = {}, {}
+    for part, (tree, specs) in parts.items():
+        held[part] = [torch.empty(shard_shape(s, tuple(leaf.shape), mesh),
+                                  dtype=leaf.dtype, device=device)
+                      for _, leaf, s in spec_leaves(tree, specs)]
+        asked[part] = sum(t.numel() * t.element_size() for t in held[part])
+    torch.cuda.synchronize(device)
+    grown = torch.cuda.memory_allocated(device) - before
+    stats1 = torch.cuda.memory_stats(device)
+    requested = (stats1["requested_bytes.all.current"]
+                 - stats0["requested_bytes.all.current"])
+    sizes = [t.numel() * t.element_size() for ts in held.values()
+             for t in ts]
+    granule = sum(-n % ALLOC_GRANULE for n in sizes)
+    unsplit = ALLOC_SPLIT * sum(n > ALLOC_SPLIT for n in sizes)
+    count = rec["memory"]["argument_bytes"]
+    row = {"cell": f"{arch} {shape}", "mesh": rec["mesh"],
+           "blocks": len(sizes), "count_bytes": count,
+           "count_gb": count / 1e9,
+           "count_by_gb": {k: v / 1e9 for k, v in
+                           rec["memory"]["argument_bytes_by"].items()},
+           "asked_bytes": sum(asked.values()),
+           "requested_bytes": requested, "allocated_growth_bytes": grown,
+           "rounding_bytes": grown - count, "granule_rounding_bytes": granule,
+           "unsplit_bound_bytes": unsplit}
+    del held
+    torch.cuda.empty_cache()
+    require(asked == rec["memory"]["argument_bytes_by"],
+            f"[24a] {rec['mesh']}: the leaves' shard bytes {asked} are not "
+            f"the count's {rec['memory']['argument_bytes_by']}")
+    require(requested == count, f"[24a] {rec['mesh']}: the allocator was "
+            f"asked for {requested} bytes, the count is {count}")
+    require(count + granule <= grown <= count + granule + unsplit,
+            f"[24a] {rec['mesh']}: allocated grew by {grown} bytes, the "
+            f"count {count} + rounding {granule} (+ at most {unsplit})")
+    return row
+
+
+def cat_grid(shards, counts, at=()):
+    """The shards of a grid (``shards[index]``, one index a tensor dim,
+    ``counts[d]`` of them along dim ``d``) concatenated back into one
+    tensor, in index order."""
+    if len(at) == len(counts):
+        return shards[at]
+    return torch.cat([cat_grid(shards, counts, at + (i,))
+                      for i in range(counts[len(at)])], dim=len(at))
+
+
+def tile_leaf(name, leaf, spec, mesh):
+    """[24b] for one leaf: every device's shard (a copy, as the device
+    would hold it) has its ``shard_shape``; the distinct shards form a
+    grid of ranges that partition each dim, and concatenated back they
+    are bit-equal to the leaf; devices that differ only on axes the spec
+    does not name hold the same elements, and the others distinct
+    ranges.  Returns (distinct shards, device 0's bytes)."""
+    from repro_torch.distributed.sharding import shard_shape, shard_slices
+    shape = tuple(leaf.shape)
+    want = shard_shape(spec, shape, mesh)
+    named_axes = {a for e in spec if e is not None
+                  for a in ((e,) if isinstance(e, str) else e)}
+    used = [i for i, a in enumerate(mesh.axis_names) if a in named_axes]
+    shards, owner = {}, {}
+    first = None
+    for c in mesh.coords():
+        sl = shard_slices(spec, shape, mesh, c)
+        held = leaf[sl].clone()
+        require(tuple(held.shape) == want, f"[24b] {name} at {c}: shard "
+                f"{tuple(held.shape)}, shard_shape {want}")
+        key = tuple(c[i] for i in used)
+        if sl in shards:
+            require(owner[sl] == key and torch.equal(shards[sl], held),
+                    f"[24b] {name}: devices {owner[sl]} and {key} on the "
+                    f"named axes share a shard")
+        else:
+            require(key not in owner.values(), f"[24b] {name}: devices "
+                    f"equal on the named axes {key} hold different ranges")
+            shards[sl], owner[sl] = held, key
+        if first is None:
+            first = held.numel() * held.element_size()
+    ranges = [sorted({(s[d].start, s[d].stop) for s in shards})
+              for d in range(len(shape))]
+    for d, rs in enumerate(ranges):
+        require(rs[0][0] == 0 and rs[-1][1] == shape[d] and all(
+            a[1] == b[0] for a, b in zip(rs, rs[1:])), f"[24b] {name}: dim "
+            f"{d}'s ranges {rs[:4]}... do not partition {shape[d]}")
+    counts = [len(rs) for rs in ranges]
+    require(len(shards) == int(np.prod(counts)), f"[24b] {name}: "
+            f"{len(shards)} distinct shards, a grid of {counts}")
+    grid = {tuple(ranges[d].index((sl[d].start, sl[d].stop))
+                  for d in range(len(shape))): t for sl, t in shards.items()}
+    whole = cat_grid(grid, counts)
+    require(torch.equal(whole, leaf), f"[24b] {name}: the shards "
+            "concatenated back differ from the leaf")
+    return len(shards), first
+
+
+def tile_parameters(device):
+    """[24b]: SHARD_TILE_ARCH's parameters at full width and depth on the
+    card, every leaf cut into all 256 devices' shards of 16x16
+    (``tile_leaf``); device (0, 0)'s bytes against the dry run's
+    per-device parameter bytes.  Frees the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_specs, spec_leaves
+    from repro_torch.launch.dryrun import mesh_cell
+    from repro_torch.launch.mesh import production_mesh
+    from repro_torch.models import init_params
+    cfg = get_config(SHARD_TILE_ARCH)
+    mesh = production_mesh()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    whole = sum(t.numel() * t.element_size()
+                for _, t, _ in spec_leaves(params, param_specs(
+                    cfg, mesh, params)))
+    leaves, device0 = {}, 0
+    for path, leaf, spec in spec_leaves(params, param_specs(cfg, mesh,
+                                                            params)):
+        n, b = tile_leaf("/".join(path), leaf, spec, mesh)
+        leaves["/".join(path)] = {"spec": repr(spec), "shards": n}
+        device0 += b
+    count = mesh_cell(SHARD_TILE_ARCH, "train_4k", False)["memory"][
+        "argument_bytes_by"]["params"]
+    del params
+    torch.cuda.empty_cache()
+    require(device0 == count, f"[24b] device (0, 0) holds {device0} bytes "
+            f"of the parameters, the count is {count}")
+    return {"arch": SHARD_TILE_ARCH, "mesh": "16x16", "whole_gb": whole / 1e9,
+            "init_s": init_s, "leaves": leaves, "device0_bytes": device0,
+            "count_bytes": count, "bit_equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_sharding(device):
+    """Phase [24]: the model stack's sharding specs held against the
+    card's allocator and the card's own tensors, no kernel computed and
+    nothing timed: (a) ``allocate_shards`` on 16x16 and 2x16x16, (b)
+    ``tile_parameters``, (c) every applicable cell's per-device argument
+    and output GB on both meshes (``launch.dryrun.mesh_cell``)."""
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
+    from repro_torch.launch.dryrun import mesh_cell
+    from repro_torch.launch.steps import params_shape
+    t0 = time.perf_counter()
+    stand_ins = {a: params_shape(get_config(a)) for a in ARCH_NAMES}
+    log(f"[24] parameter stand-ins of {len(stand_ins)} archs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for mp in (False, True):
+        row = allocate_shards(mp, device, stand_ins[SHARD_ALLOC_CELL[0]])
+        log(f"[24a] {json.dumps(row)}")
+    tiles = tile_parameters(device)
+    log(f"[24b] {json.dumps(tiles)}")
+    t1 = time.perf_counter()
+    cells = {}
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            for mp in (False, True):
+                r = mesh_cell(arch, shape, mp, params=stand_ins[arch])
+                if "skipped" in r:
+                    continue
+                cells.setdefault(f"{arch} {shape}", {})[r["mesh"]] = {
+                    "argument_gb": r["memory"]["argument_bytes"] / 1e9,
+                    "output_gb": r["memory"]["output_bytes"] / 1e9,
+                    "fits_80gb": r["arguments_fit_80gb"]}
+    log(f"[24c] {json.dumps(cells)}")
+    require(sum(len(v) for v in cells.values()) == 64,
+            f"[24c] {sum(len(v) for v in cells.values())} counted records")
+    log(f"[24c] {time.perf_counter() - t1:.1f} s; [24] "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5015,7 +5240,11 @@ def run() -> int:
     log("[23] the dry run's count of each measured step, on the meta "
         "device, against the card")
     phase_dry_run()
-    log(f"[23] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[23] {time.perf_counter() - t_start:.1f} s so far")
+    log("[24] the sharding specs of the 16x16 and 2x16x16 layouts against "
+        "the card's allocator and tensors")
+    phase_sharding(device)
+    log(f"[24] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

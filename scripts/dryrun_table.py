@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all \
         --out build/dryrun.json
     python scripts/dryrun_table.py build/dryrun.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \
+        --out build/dryrun_mesh.json
+    python scripts/dryrun_table.py build/dryrun.json build/dryrun_mesh.json
 
 Columns: TFLOP a step, GB moved by category (products, elementwise,
 slice updates, data movement, reductions and the rest, the hand-written
@@ -12,12 +15,19 @@ card's 80 GB.  A skipped cell gets its reason.  Everything in it is a
 count on the host, divided by the H100's data-sheet peaks
 (``repro_torch.launch.cost_analysis``): no number in it was measured on a
 card.
+
+Records of the production layouts (``--mesh single``, ``multi`` or
+``both``) add columns: each layout's per-device argument and output GB
+and whether the arguments fit a device's 80 GB on every layout, counts
+from the sharding specs, given after the one-card records: their
+columns join each counted cell's row.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+from typing import Dict, List, Tuple
 
 CATS = ("dot", "elementwise", "dus", "data_movement", "other", "kernel")
 
@@ -36,17 +46,46 @@ def row(r) -> str:
     return "| " + " | ".join(cols) + " |"
 
 
+def mesh_columns(records) -> Tuple[List[str], Dict]:
+    """The per-device columns of production-layout records: the header,
+    and each counted cell's columns by (arch, shape)."""
+    meshes = list(dict.fromkeys(r["mesh"] for r in records))
+    by: Dict = {}
+    for r in records:
+        if "skipped" not in r:
+            by.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+    cols = {}
+    for cell, recs in by.items():
+        mem = [recs[m]["memory"] for m in meshes]
+        cols[cell] = [f"{x['argument_bytes'] / 1e9:.4g} / "
+                      f"{x['output_bytes'] / 1e9:.4g}" for x in mem] + [
+            "yes" if all(recs[m]["arguments_fit_80gb"] for m in meshes)
+            else "no"]
+    header = [f"{m} argument / output GB" for m in meshes] + [
+        "arguments fit 80 GB per device"]
+    return header, cols
+
+
 def main(argv=None) -> None:
-    path = (argv or sys.argv[1:])[0]
-    with open(path) as f:
-        records = json.load(f)
+    paths = argv or sys.argv[1:]
+    files = []
+    for path in paths:
+        with open(path) as f:
+            files.append(json.load(f))
+    one = [rs for rs in files if rs and rs[0]["mesh"] == "1xH100"]
+    if not one:
+        sys.exit("the one-card records (--mesh one) are needed")
+    mesh = [r for rs in files if rs and rs[0]["mesh"] != "1xH100"
+            for r in rs]
+    header, extra = mesh_columns(mesh) if mesh else ([], {})
     print("| arch | shape | TFLOP | dot GB | elementwise GB | dus GB "
           "| data movement GB | other GB | kernel GB | argument GB "
           "| peak GB | compute s | memory s | op-sum s | dominant "
-          "| fits 80 GB |")
-    print("|" + "---|" * 17)
-    for r in records:
-        print(row(r))
+          "| fits 80 GB |" + "".join(f" {h} |" for h in header))
+    print("|" + "---|" * (17 + len(header)))
+    for r in one[0]:
+        cols = extra.get((r["arch"], r["shape"]), [])
+        print(row(r) + "".join(f" {c} |" for c in cols))
 
 
 if __name__ == "__main__":

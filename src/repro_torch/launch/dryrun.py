@@ -1,10 +1,14 @@
 """Dry run: the work of every (architecture x input shape) step on one
-H100, counted on the ``meta`` device.
+H100, counted on the ``meta`` device; and each cell's state per device on
+the reference's production layouts.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
-        --shape train_4k                          # one cell
+        --shape train_4k                          # one cell, one H100
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
         --out build/dryrun.json                   # every cell
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
+        --out build/dryrun_mesh.json              # per device, 16x16 and
+                                                  # 2x16x16
 
 The counterpart of ``repro.launch.dryrun``.  The reference lowers and
 compiles each cell for 512 placeholder host devices on its TPU pods and
@@ -18,21 +22,29 @@ config's ``moment_dtype``, ``input_specs``): the train step
 and report their own work (``kernels/*.py``, ``*_cost``).  One host, no
 card, a few seconds a cell.
 
-A cell counts the reference's whole global batch on one device: 256 x
-4,096 tokens for ``train_4k``.  ``fits_80gb`` says whether the counted
-peak fits the card; most cells do not.  What the count cannot see: the
-bytes are each eager op's operands and result, so operands that stay in
-the 50 MB L2 move less than counted; allocator rounding, the cuBLAS
-workspace and the SSD backward's workspace are not in the peak; and the
-MoE dispatch's gather and scatter are counted at their upper bound, every
-one of min(T * k, E * C) slots filled (``models.layers.moe_block``).
+With ``--mesh one`` (the default) a cell counts the reference's whole
+global batch on one device: 256 x 4,096 tokens for ``train_4k``.
+``fits_80gb`` says whether the counted peak fits the card; most cells do
+not.  What the count cannot see: the bytes are each eager op's operands
+and result, so operands that stay in the 50 MB L2 move less than
+counted; allocator rounding, the cuBLAS workspace and the SSD backward's
+workspace are not in the peak; and the MoE dispatch's gather and scatter
+are counted at their upper bound, every one of min(T * k, E * C) slots
+filled (``models.layers.moe_block``).
 
-Not ported: the reference's ``--mesh`` (``make_production_mesh``'s TPU
-pods; one card here), ``--no-fsdp`` and ``--attn`` (the port's plan
-builder refuses ``fsdp`` and ``attn_impl``: nothing to shard, one
-attention, the flash kernel), and ``--attn-bf16`` / ``--attn-remat`` (no
-module of the port reads them); nor ``collective_wire``, since no
-collective runs on one card.
+With ``--mesh single``, ``multi`` or ``both`` a cell is the reference's
+16x16 or 2x16x16 layout (``launch.mesh.production_mesh``), and its record
+(:func:`mesh_cell`) is what one device holds there: the arguments and
+outputs, laid out by the reference's specs
+(``distributed.sharding``; ``--no-fsdp`` drops the weights' data-axis
+split).  Nothing runs.  The reference's per-device FLOPs, bytes and
+temporaries come from XLA's partitioned program; the port has no
+partitioner, so those keys are ``null`` (``not_counted``), and no
+collective is counted.
+
+Not ported: ``--attn`` (the port's plan builder refuses ``attn_impl``:
+one attention, the flash kernel), ``--attn-bf16`` / ``--attn-remat`` (no
+module of the port reads them) and ``collective_wire``.
 """
 
 from __future__ import annotations
@@ -49,9 +61,14 @@ import torch
 from ..configs import ARCH_NAMES, SHAPES, applicable, get_config
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed.ctx import activation_sharding
-from ..models.decode import TensorSpec, prefill
+from ..distributed.sharding import (Spec, batch_specs, cache_specs,
+                                    data_axes, device_bytes, fit_spec,
+                                    opt_specs, param_specs, unsharded)
+from ..models.decode import TensorSpec, decode_cache_specs, prefill
+from ..models.model import _dtype, padded_vocab
 from ..optim.adamw import AdamWConfig, adamw_init
 from .cost_analysis import COLL_KINDS, CostCounter
+from .mesh import production_mesh
 from .steps import (input_specs, make_serve_step, make_train_step,
                     params_shape)
 
@@ -62,8 +79,20 @@ TUNED_PLANS = {
     ("olmoe-1b-7b", "prefill_32k"): {"moe_groups": 16},
 }
 MESH = "1xH100"
-#: the H100's memory, for ``fits_80gb``
+#: the H100's memory, for ``fits_80gb`` and ``arguments_fit_80gb``
 CARD_BYTES = 80e9
+#: ``--mesh``: the production layouts of each choice (False: 16x16, True:
+#: 2x16x16); ``one`` is the one-card count
+MESHES = {"single": (False,), "multi": (True,), "both": (False, True)}
+#: what a per-device record leaves out, and why
+NOT_COUNTED = (
+    "flops_per_device, bytes_per_device, memory.temp_bytes and "
+    "memory.peak_bytes: the reference reads them from XLA's partitioned "
+    "program, and the port has no partitioner (it runs on one H100 and "
+    "places no tensor on more than one device); collectives are not "
+    "counted; the train step's metrics (a few scalars, the MoE's "
+    "expert_load) are not in output_bytes, since the reference leaves "
+    "their sharding to XLA")
 
 
 def _meta(tree):
@@ -197,11 +226,120 @@ def run_cell(arch: str, shape_name: str, microbatches: int = 1,
     return res
 
 
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def mesh_layout(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                params: Dict, fsdp: bool = True) -> Tuple:
+    """A cell's arguments and outputs on ``mesh``, each part as
+    (stand-ins, specs), with the shardings the reference compiles with:
+    the arguments ``params``, the train kind's ``optimizer`` state and
+    the ``inputs`` (the batch, or the decode kind's cache and token); the
+    outputs the train kind's parameters and optimizer state as their
+    inputs, else the logits at ``fit_spec(Spec(dp, "model"))`` and the
+    caches at ``cache_specs``.  Returns (arguments, outputs, unsharded):
+    the last is where ``fit_spec`` dropped an axis
+    (``distributed.sharding.unsharded``).  ``params``: the parameter
+    stand-ins (``launch.steps.params_shape``)."""
+    dp = data_axes(mesh)
+    dp = dp if len(dp) > 1 else (dp[0] if dp else None)
+    pspec = param_specs(cfg, mesh, params, fsdp=fsdp)
+    inputs = input_specs(cfg, shape)
+    B, V = shape.global_batch, cfg.vocab_size
+    bspec = batch_specs(cfg, mesh)
+    intended = {"params": param_specs(cfg, mesh, params, fsdp, fit=False)}
+    shapes = {"params": params}
+    args = {"params": (params, pspec)}
+    if shape.kind == "train":
+        opt = adamw_init(params, AdamWConfig(moment_dtype=cfg.moment_dtype))
+        ospec = opt_specs(pspec)
+        args["optimizer"] = (opt, ospec)
+        args["inputs"] = (inputs, {k: bspec[k] for k in inputs})
+        return args, {"params": (params, pspec),
+                      "optimizer": (opt, ospec)}, unsharded(intended,
+                                                            shapes, mesh)
+    if shape.kind == "prefill":
+        cache, lg_entry = decode_cache_specs(cfg, B, shape.seq_len), dp
+        cspec = cache_specs(cfg, mesh, cache)
+        args["inputs"] = (inputs, {k: bspec[k] for k in inputs})
+    else:
+        cache = inputs["cache"]
+        cspec = cache_specs(cfg, mesh, cache)
+        tok = fit_spec(Spec(dp), (B,), mesh)
+        lg_entry = tok[0] if tok else None
+        args["inputs"] = (inputs, {"cache": cspec, "token": tok})
+        intended["token"], shapes["token"] = Spec(dp), inputs["token"]
+    # the logits' spec is fitted to the vocabulary, as the reference's is,
+    # and lays out the logits of the padded one
+    lg = fit_spec(Spec(lg_entry, "model"), (B, V), mesh)
+    logits = TensorSpec((B, padded_vocab(cfg)), _dtype(cfg))
+    intended.update(cache=cache_specs(cfg, mesh, cache, fit=False),
+                    logits=Spec(dp, "model"))
+    shapes.update(cache=cache, logits=TensorSpec((B, V), logits.dtype))
+    return (args, {"logits": (logits, lg), "cache": (cache, cspec)},
+            unsharded(intended, shapes, mesh))
+
+
+def mesh_cell(arch: str, shape_name: str, multi_pod: bool,
+              fsdp: bool = True, params: Optional[Dict] = None) -> Dict:
+    """The per-device record of one cell on the reference's 16x16 (or,
+    ``multi_pod``, 2x16x16) layout (:func:`mesh_layout`), from the shape
+    stand-ins of ``launch.steps`` and the specs of
+    ``distributed.sharding``.  Keys: the reference's ``arch``, ``shape``,
+    ``mesh``, ``devices``, ``n_params``, ``active_params`` and
+    ``memory.argument_bytes`` / ``output_bytes`` (per device);
+    ``argument_bytes_by`` and ``output_bytes_by`` (by part),
+    ``arguments_fit_80gb``, ``fsdp``, ``moe_groups`` (``TUNED_PLANS``),
+    ``tree_params``, ``unsharded`` (where ``fit_spec`` dropped an axis:
+    the leaf, the dim, the axis), and ``null`` for what is not counted
+    (``not_counted`` says why).  ``params``: the parameter stand-ins, if
+    already made.  Nothing runs."""
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    res: Dict = {"arch": arch, "shape": shape_name,
+                 "mesh": mesh_name(multi_pod)}
+    ok, why = applicable(cfg, shape)
+    if not ok:
+        res["skipped"] = why
+        return res
+    mesh = production_mesh(multi_pod=multi_pod)
+    params = params_shape(cfg) if params is None else params
+    args, outs, drops = mesh_layout(cfg, shape, mesh, params, fsdp)
+    arg_by = {k: device_bytes(t, s, mesh) for k, (t, s) in args.items()}
+    out_by = {k: device_bytes(t, s, mesh) for k, (t, s) in outs.items()}
+    argument = sum(arg_by.values())
+    res.update({
+        "devices": mesh.size,
+        "fsdp": fsdp,
+        "moe_groups": TUNED_PLANS.get((arch, shape_name), {}).get(
+            "moe_groups", 1),
+        "flops_per_device": None,
+        "bytes_per_device": None,
+        "memory": {
+            "argument_bytes": argument,
+            "argument_bytes_by": arg_by,
+            "output_bytes": sum(out_by.values()),
+            "output_bytes_by": out_by,
+            "temp_bytes": None,
+            "peak_bytes": None,
+        },
+        "arguments_fit_80gb": argument <= CARD_BYTES,
+        "unsharded": drops,
+        "not_counted": NOT_COUNTED,
+        "n_params": cfg.n_params(),
+        "active_params": cfg.active_params(),
+        "tree_params": sum(t.numel() for t in _leaves(params)),
+    })
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES)
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--mesh", choices=["one", *MESHES], default="one")
+    ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--moe-groups", type=int, default=1)
     ap.add_argument("--out", default=None)
@@ -214,16 +352,24 @@ def main(argv=None) -> None:
             ap.error("--arch and --shape, or --all")
         cells = [(args.arch, args.shape)]
 
-    results = []
+    results, stand_ins = [], {}
     for arch, shape in cells:
-        try:
-            r = run_cell(arch, shape, microbatches=args.microbatches,
-                         moe_groups=args.moe_groups)
-        except Exception as e:  # a failing cell is a bug: surface it
-            r = {"arch": arch, "shape": shape, "mesh": MESH,
-                 "error": f"{type(e).__name__}: {e}"}
-        results.append(r)
-        print(json.dumps(r), flush=True)
+        for mp in MESHES.get(args.mesh, (None,)):
+            try:
+                if mp is None:
+                    r = run_cell(arch, shape, microbatches=args.microbatches,
+                                 moe_groups=args.moe_groups)
+                else:
+                    if arch not in stand_ins:
+                        stand_ins[arch] = params_shape(get_config(arch))
+                    r = mesh_cell(arch, shape, mp, fsdp=not args.no_fsdp,
+                                  params=stand_ins[arch])
+            except Exception as e:  # a failing cell is a bug: surface it
+                r = {"arch": arch, "shape": shape,
+                     "mesh": MESH if mp is None else mesh_name(mp),
+                     "error": f"{type(e).__name__}: {e}"}
+            results.append(r)
+            print(json.dumps(r), flush=True)
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

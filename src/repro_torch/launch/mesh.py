@@ -1,25 +1,70 @@
-"""Host meshes: the devices a campaign's lanes are split over.
+"""Meshes: the devices a campaign's lanes are split over, and the
+production layouts that the model stack's sharding specs describe.
 
 The counterpart of ``repro.launch.mesh``.  A JAX mesh is a named array of
-devices; here a mesh is a plain list.  :func:`make_host_mesh` returns the
-(data, model) grid as a list of ``data`` rows of ``model`` devices each,
-and :func:`campaign_mesh` the ordered list of the data axis's devices (the
-model axis is 1: the event cores never split a lane).  By default the
+devices; here a host mesh is a plain list.  :func:`make_host_mesh` returns
+the (data, model) grid as a list of ``data`` rows of ``model`` devices
+each, and :func:`campaign_mesh` the ordered list of the data axis's devices
+(the model axis is 1: the event cores never split a lane).  By default the
 devices are every card (``torch.cuda.device_count()``); with none it
 raises, as every entry point of the port does.  A caller may pass its own
 ``devices`` list instead, for example ``[torch.device("cpu")] * 8``, which
 stands in for eight host devices on a machine without cards.
+
+:func:`production_mesh` is ``make_production_mesh``'s layout with no
+devices: the (16, 16) ``data, model`` pod or the (2, 16, 16) ``pod, data,
+model`` pair of pods as an :class:`AbstractMesh`, the axes' names and
+sizes only.  The specs of ``repro_torch.distributed.sharding`` need
+nothing more; nothing here places a tensor on a device or creates a
+process group.
 
 Functions, not module constants: importing this module reads no device.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import itertools
+import math
+from types import MappingProxyType
+from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's named axes and their sizes, with no devices (JAX's
+    ``AbstractMesh``): ``shape`` maps each axis name to its size, in the
+    mesh's order; ``size`` is the number of devices."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{self.axis_names} against {self.axis_sizes}")
+
+    @property
+    def shape(self) -> Mapping[str, int]:
+        return MappingProxyType(dict(zip(self.axis_names, self.axis_sizes)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    def coords(self) -> Iterator[Tuple[int, ...]]:
+        """Every device's coordinate, one index an axis, row-major."""
+        return itertools.product(*(range(n) for n in self.axis_sizes))
+
+
+def production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """16x16 = 256 chips per pod; (2, 16, 16) = 512 chips across two pods
+    (``repro.launch.mesh.make_production_mesh``'s layout)."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
 
 
 def local_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
