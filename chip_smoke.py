@@ -56,9 +56,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
     a rerun bit-equal; every rmsnorm row (these, the prefill's and [17a]'s
     training call) is timed in turns with ``rms_norm``;
 12. the selection-policy layer: ``run_campaign([("mandelbrot", "epyc")],
-    T=110, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
-    lanes, 7,260 decisions; the cell's T = 500 cut to its first 110 steps
-    to keep the script inside its limit beside [18]-[22]) on the kernels, the
+    T=60, reps=3, selectors=SIM_SELECTOR_GRID)`` over both chunk modes (22
+    lanes, 3,960 decisions; the cell's T = 500 cut to its first 60 steps
+    to keep the script inside its limit beside [18]-[25]) on the kernels, the
     sweep, the lockstep replay and the SimPolicy pricing each on a backend
     of its own: the walls, the
     replay's ``PathTimes`` split, the host's decide and learn remainder, the
@@ -76,9 +76,9 @@ kernels, and prints one JSON line per result.  Phases, in order:
     drift) on the kernels, on the plain event core on the card and on the
     CPU, loop times, ``lib`` and chunk counts bit-equal, with the fused
     calls' largest B and K and the lanes forced whole; (b) the Fig. 5 cell
-    ``mandelbrot``/``epyc`` cut to T = 110 with 20 % of the PEs 8x slower
-    from step 85: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
-    both chunk modes (26 lanes, 8,580 decisions), its walls,
+    ``mandelbrot``/``epyc`` cut to T = 60 with 20 % of the PEs 8x slower
+    from step 35: ``SIM_SELECTOR_GRID`` plus ReactiveSim and AwareSim over
+    both chunk modes (26 lanes, 4,680 decisions), its walls,
     ``PathTimes``, pricing and launches, and every lane's total beside its
     clean twin's over the same steps of [12]; steps 8-15 of that grid perturbed from step 0 under
     ``torch.profiler``; both event-loop kernels timed at the perturbed
@@ -284,7 +284,19 @@ kernels, and prints one JSON line per result.  Phases, in order:
     and concatenates back bit-equal, devices equal on the spec's axes
     holding the same elements and the others distinct ranges, device (0,
     0)'s bytes the count's; (c) every applicable cell's per-device
-    argument and output GB on both layouts.
+    argument and output GB on both layouts;
+25. the dense stack partitioned over a device mesh (DTensor): (a)
+    llama3.2-3b at full width and depth, two mb1_noremat steps of 4 x
+    2048 tokens from seed 0, plain and with every parameter, moment and
+    batch leaf a DTensor on a one-rank (1, 1) ``data, model`` NCCL mesh
+    (``distributed.sharding``'s specs): losses and final parameters
+    bit-equal, the flash and rmsnorm launches equal by the wrappers'
+    counts and by the profiler, the path's launches added to the kernels'
+    records; (b) rank 0's share of llama3.2-3b's ``train_4k`` on 16x16,
+    real tensors on the card in a fake process group of 256 ranks (its
+    collectives move nothing; values not checked), two steps timed: its
+    peak allocated bytes held against the dry run's count of the same
+    cell (``launch.dryrun.counted_mesh_cell``) as [23] holds its counts.
 
 The kernels' bound columns (bytes and operations) are the kernel
 modules' cost functions, the work the dry run counts.  The line before
@@ -1245,14 +1257,14 @@ def rmsnorm_record(x, w, device, flush, plain_reps=10):
 # ---------------------------------------------------------------------------
 
 REPLAY_CELL = ("mandelbrot", "epyc")
-#: the Fig. 5 replay runs the cell's first 110 of its 500 steps (300 when
+#: the Fig. 5 replay runs the cell's first 60 of its 500 steps (300 when
 #: phase [18] took the script past 1,050 s, 275 when [19] did, 125 when
-#: [20] did, 110 when [22] did; [13b]'s clean twins need its first
-#: PERTURB_T steps); the
+#: [20] did, 110 when [22] did, 60 when [25] took a slow host's run to
+#: 1,213.8 s; [13b]'s clean twins need its first PERTURB_T steps); the
 #: plain event core's check runs at T = 5: its per-chunk torch loop
 #: makes each pricing miss a fraction of a second (T = 50, then 30, 20,
 #: 10, each cut as the script's wall neared its limit)
-REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 110, 5, 4
+REPLAY_T, REPLAY_CHECK_T, REPLAY_CPU_T = 60, 5, 4
 LEARNED_HIDDEN = 32
 
 
@@ -1481,16 +1493,17 @@ def simpolicy_oracle(backend):
 
 PERTURB_APP, PERTURB_SYSTEMS, PERTURB_SWEEP_T = "mandelbrot", ("epyc",
                                                               "epyc_het"), 5
-PERTURB_ONSET, PERTURB_CPU_ONSET = 85, 2
+PERTURB_ONSET, PERTURB_CPU_ONSET = 35, 2
 #: [13b]'s depth: the T = 500 cell cut to keep the script inside its time
 #: limit beside phases [17]-[22] (300 until [19] came, 275 until [20]
 #: did, its onset at step 250); since [20] the cut keeps the cell's 25
 #: steps after the onset and cuts those before it (to 100, onset at 100,
-#: T = 125, until [22]; to 85 since, T = 110), and each lane's total is
-#: held beside its clean twin's over the same 110 steps.  [13a]'s lane
+#: T = 125, until [22]; to 85, T = 110, until [25]; to 35 since, T = 60),
+#: and each lane's total is held beside its clean twin's over the same
+#: steps.  [13a]'s lane
 #: sets run T = 5 (20 until [20], 10 until [22]): each kind of
 #: perturbation is in force from step 0
-PERTURB_T = 110
+PERTURB_T = 60
 REACTIVE_LANES = [("ReactiveSim", "LT"), ("AwareSim", "LT")]
 SIMULATE_ALGS = (1, 2, 3, 4, 6)
 
@@ -2189,7 +2202,7 @@ ASYNC_SWEEP_T, ASYNC_REPLAY_T = 500, 30
 
 
 def sweep_busy():
-    """The T = 500 ``mandelbrot`` sweep once more, async, under
+    """The T = ASYNC_SWEEP_T ``mandelbrot`` sweep once more, async, under
     ``torch.profiler``: the card's busy seconds in it and its launches."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import TorchBatchedBackend
@@ -2200,9 +2213,10 @@ def sweep_busy():
 
 
 def phase_async(device, records):
-    """Phase [15]: the T = 500 ``mandelbrot`` sweep sync and async in turns
-    (sync, async, async, sync), bit-equal, with walls, ``PathTimes`` and
-    the card's idle share; the Fig. 5 grid's lockstep replay at T = 50
+    """Phase [15]: the T = ASYNC_SWEEP_T ``mandelbrot`` sweep sync and async
+    in turns (sync, async, async, sync), bit-equal, with walls,
+    ``PathTimes`` and the card's idle share; the Fig. 5 grid's lockstep
+    replay at T = ASYNC_REPLAY_T
     and the what-if calls async against sync; the split path at
     ``data_parallel=1`` against an explicit one-device list.  Adds the
     phase's launches to ``records``."""
@@ -4917,6 +4931,311 @@ def phase_sharding(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 25: the dense stack partitioned over a device mesh (DTensor)
+# ---------------------------------------------------------------------------
+
+#: [25a]: llama3.2-3b at full width and depth, SHARDED_STEPS mb1_noremat
+#: steps of TRAIN_B x TRAIN_S tokens, plain and on a one-rank (1, 1)
+#: ``data, model`` NCCL mesh; [25b]: rank 0's share of its train_4k cell
+#: on 16x16, in a fake process group of 256 ranks
+SHARDED_ARCH, SHARDED_STEPS = "llama3.2-3b", 2
+SHARDED_CELL = ("llama3.2-3b", "train_4k")
+#: the kernels of the partitioned path, and their device functions' name
+#: prefixes in a profiler window
+SHARDED_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                   "flash_attention_bwd")
+SHARDED_PROFILED = (("flash", ("flash_",)), ("rmsnorm", ("rmsnorm_",)))
+#: profiler windows of one step each (after a warm-up step) that [25a]
+#: takes a run
+SHARDED_WINDOWS = 3
+
+
+def place_leafwise(tree, specs, mesh):
+    """``sharding.distribute`` of a tree of dicts, a leaf at a time, each
+    plain leaf dropped once placed (a shard of a one-rank mesh is a copy:
+    the whole tree twice would not fit beside the step)."""
+    from repro_torch.distributed.sharding import distribute
+    for k in list(specs):
+        if isinstance(specs[k], dict):
+            place_leafwise(tree[k], specs[k], mesh)
+        else:
+            tree[k] = distribute({k: tree.pop(k)}, {k: specs[k]}, mesh)[k]
+    return tree
+
+
+def profiled_kernels(prof):
+    """Launches of the partitioned path's kernels in a profiler window,
+    by SHARDED_PROFILED's groups of device function names; ``None`` for a
+    window that reports no device time (PERF.md section 7)."""
+    out = {name: 0 for name, _ in SHARDED_PROFILED}
+    busy = 0.0
+    for e in prof.key_averages():
+        us = device_us(e)
+        busy += us
+        if us <= 0:
+            continue
+        for name, keys in SHARDED_PROFILED:
+            if any(k in e.key for k in keys):
+                out[name] += e.count
+    return out if busy > 0 else None
+
+
+def sharded_steps(cfg, device, mesh=None):
+    """SHARDED_STEPS steps of ``cfg`` (mb1, its remat) from seed 0 on
+    seeded token batches, plain, or with every parameter, moment and
+    batch leaf a DTensor on ``mesh`` placed by the reference's specs;
+    then SHARDED_WINDOWS profiler windows of a step each, each after a
+    warm-up step.  Returns
+    the losses, the final parameters (gathered), the wrappers' launches
+    over the steps, the profiled kernels (each group's largest count over
+    the windows, and each window's) and the steps' walls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch import kernels
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import (batch_specs, gather,
+                                                  mesh_axes, opt_specs,
+                                                  param_specs)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, tree_map
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10,
+                          moment_dtype=cfg.moment_dtype)
+    params = init_params(cfg, 0, device=device)
+    opt = adamw_init(params, opt_cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                                 generator=gen, device=device,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")}
+               for _ in range(SHARDED_STEPS)]
+    extra = {k: v.clone() for k, v in batches[-1].items()}
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        am = mesh_axes(mesh)
+        pspec = param_specs(cfg, am, params)
+        place_leafwise(opt.m, opt_specs(pspec).m, mesh)
+        place_leafwise(opt.v, opt_specs(pspec).v, mesh)
+        opt = opt._replace(step=place_leafwise(
+            {"step": opt.step}, {"step": opt_specs(pspec).step}, mesh)["step"])
+        place_leafwise(params, pspec, mesh)
+        bspec = batch_specs(cfg, am)
+        batches = [place_leafwise(b, dict(bspec), mesh)
+                   for b in batches + [extra]]
+        extra = batches.pop()
+        ctx = activation_sharding(mesh)
+    step = make_train_step(cfg, opt_cfg)
+    losses, walls = [], []
+    kernels.reset_launch_counts()
+    with ctx:
+        for b in batches:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, b)
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(gather(met["loss"])))
+        launches = {k: v for k, v in kernels.launch_counts().items()
+                    if k in SHARDED_KERNELS}
+        final = tree_map(torch.clone, gather(params))
+        # SHARDED_WINDOWS windows on the last batch under the profiler, each
+        # one step recorded after a warm-up step that runs traced and is
+        # dropped (the profiler's own schedule): late in the script a
+        # window opened on the step itself lost its first kernels (PERF.md
+        # section 7); each group keeps its largest count over the windows
+        windows = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=SHARDED_WINDOWS),
+                     on_trace_ready=lambda p: windows.append(
+                         profiled_kernels(p))) as prof:
+            for _ in range(2 * SHARDED_WINDOWS):
+                step(params, opt, extra)
+                torch.cuda.synchronize(device)
+                prof.step()
+    kept = [w for w in windows if w is not None]
+    profiled = ({k: max(w[k] for w in kept) for k in kept[0]} if kept
+                else None)
+    del opt, batches, params
+    return {"losses": losses, "params": final, "launches": launches,
+            "profiled": profiled, "windows": windows, "step_s": walls}
+
+
+def same_leaves(a, b):
+    """Every leaf of two parameter trees bit-equal: (equal, the largest
+    absolute difference)."""
+    from repro_torch.optim import tree_items
+    worst = 0.0
+    for path, x in tree_items(a):
+        y = b
+        for k in path:
+            y = y[k]
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst == 0.0, worst
+
+
+def mesh_train_equal(device, records):
+    """[25a]: SHARDED_STEPS steps of SHARDED_ARCH at full width and depth
+    (mb1_noremat), plain, then with DTensor leaves on a one-rank (1, 1)
+    ``data, model`` NCCL mesh: the losses and the final parameters
+    bit-equal, the wrappers' and the profiler's kernel launches equal, and
+    the partitioned path's launches added to the kernels' records."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh, device_mesh
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH), remat=False)
+    torch.cuda.empty_cache()
+    plain = sharded_steps(cfg, device)
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=device)
+    try:
+        mesh = device_mesh(AbstractMesh(("data", "model"), (1, 1)))
+        sharded = sharded_steps(cfg, device, mesh)
+    finally:
+        dist.destroy_process_group()
+    equal, worst = same_leaves(sharded.pop("params"), plain.pop("params"))
+    torch.cuda.empty_cache()
+    row = {"arch": SHARDED_ARCH, "layers": cfg.n_layers,
+           "tokens": [TRAIN_B, TRAIN_S], "plain": plain, "mesh": sharded,
+           "losses_equal": plain["losses"] == sharded["losses"],
+           "params_bit_equal": equal, "params_max_abs_diff": worst}
+    log(f"[25a] {json.dumps(row)}")
+    require(row["losses_equal"] and equal,
+            f"[25a] the (1, 1) mesh's steps differ from the plain ones: "
+            f"losses {plain['losses']} / {sharded['losses']}, parameters "
+            f"{worst}")
+    require(plain["launches"] == sharded["launches"]
+            and all(sharded["launches"].values()),
+            f"[25a] launches {plain['launches']} / {sharded['launches']}")
+    require(plain["profiled"] is not None
+            and plain["profiled"] == sharded["profiled"]
+            and all(sharded["profiled"].values()),
+            f"[25a] profiled kernels {plain['profiled']} / "
+            f"{sharded['profiled']}")
+    add_launches(records, {"train sharded (1, 1) [25a]":
+                           sharded["launches"]}, SHARDED_KERNELS)
+    return row
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_maker(cfg, device):
+    """``sharding.from_shards``' ``make`` for rank 0's share on the card:
+    token ids below the vocabulary, small normals in each float leaf's
+    dtype, zeros for the step count; one generator, seed 0."""
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def make(leaf, shape):
+        if leaf.dtype in (torch.int32, torch.int64):
+            if not shape:
+                return torch.zeros((), dtype=leaf.dtype, device=device)
+            return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 dtype=leaf.dtype, device=device)
+        x = torch.randn(shape, generator=gen, device=device) * 0.02
+        return x.abs().to(leaf.dtype)
+
+    return make
+
+
+def share_steps(cfg, shape, device):
+    """Rank 0's share of ``cfg``'s partitioned step at ``shape`` on 16x16
+    on the card: a fake process group of 256 ranks (its collectives move
+    nothing), a mesh of the card's device type, each parameter, moment
+    and batch leaf a DTensor whose local shard is made on the card
+    (``sharding.from_shards``, ``shard_maker``), laid out by the
+    reference's specs; SHARDED_STEPS steps, each timed.  Returns their
+    walls."""
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import (batch_specs, from_shards,
+                                                  opt_specs, param_specs)
+    from repro_torch.launch.mesh import (device_mesh, fake_world,
+                                         production_mesh)
+    from repro_torch.launch.steps import (input_specs, make_train_step,
+                                          params_shape)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    am = production_mesh()
+    make = shard_maker(cfg, device)
+    walls = []
+    with fake_world(am.size):
+        dm = device_mesh(am)
+        params = params_shape(cfg)
+        pspec = param_specs(cfg, am, params)
+        opt_cfg = AdamWConfig(moment_dtype=cfg.moment_dtype)
+        opt = from_shards(adamw_init(params, opt_cfg), opt_specs(pspec), dm,
+                          make)
+        params = from_shards(params, pspec, dm, make)
+        inputs = input_specs(cfg, shape)
+        bspec = batch_specs(cfg, am)
+        batch = from_shards(inputs, {k: bspec[k] for k in inputs}, dm, make)
+        step = make_train_step(cfg, opt_cfg)
+        with activation_sharding(dm):
+            for _ in range(SHARDED_STEPS):
+                t0 = time.perf_counter()
+                params, opt, _ = step(params, opt, batch)
+                torch.cuda.synchronize(device)
+                walls.append(time.perf_counter() - t0)
+        del params, opt, batch
+    return walls
+
+
+def mesh_share(device):
+    """[25b]: rank 0's share of SHARDED_CELL on 16x16 on the card, real
+    tensors in a fake process group of 256 ranks (its collectives move
+    nothing: the values are not checked), two steps (``share_steps``);
+    its peak allocated bytes held against the count of the same cell
+    (``launch.dryrun.counted_mesh_cell``) as [23] holds its counts."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import counted_mesh_cell
+    arch, shape = SHARDED_CELL
+    t0 = time.perf_counter()
+    rec = counted_mesh_cell(arch, shape, False)
+    count_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = share_steps(get_config(arch), SHAPES[shape], device)
+    peak = torch.cuda.max_memory_allocated(device) - resident
+    torch.cuda.empty_cache()
+    mem = rec["memory"]
+    row = {"cell": f"{arch} {shape}", "mesh": rec["mesh"],
+           "step_s": walls, "card": nvidia_smi_line(),
+           "card_peak_gb": peak / 1e9,
+           "counted_peak_gb": mem["peak_bytes"] / 1e9,
+           "counted_argument_gb": mem["argument_bytes"] / 1e9,
+           "counted_temp_gb": mem["temp_bytes"] / 1e9,
+           "peak_gap_gb": (peak - mem["peak_bytes"]) / 1e9,
+           "flops_per_device": rec["flops_per_device"],
+           "collective_wire_gb": {k: v / 1e9 for k, v in
+                                  rec["collective_wire_bytes_per_device"]
+                                  .items() if v},
+           "kernels_counted": {k: v["launches"]
+                               for k, v in rec["kernels"].items()},
+           "count_s": count_s}
+    log(f"[25b] {json.dumps(row)}")
+    require(mem["peak_bytes"] <= DRY_RUN_PEAK_SHARE * peak,
+            f"[25b] counted peak {mem['peak_bytes']} above the card's "
+            f"{peak}")
+    return row
+
+
+def phase_mesh(device, records):
+    """Phase [25]: the dense stack run partitioned on DTensor: (a)
+    ``mesh_train_equal``, (b) ``mesh_share``."""
+    t0 = time.perf_counter()
+    mesh_train_equal(device, records)
+    log(f"[25a] {time.perf_counter() - t0:.1f} s")
+    mesh_share(device)
+    log(f"[25] {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5244,7 +5563,11 @@ def run() -> int:
     log("[24] the sharding specs of the 16x16 and 2x16x16 layouts against "
         "the card's allocator and tensors")
     phase_sharding(device)
-    log(f"[24] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[24] {time.perf_counter() - t_start:.1f} s so far")
+    log("[25] the dense stack partitioned over a device mesh: a (1, 1) "
+        "mesh against the plain steps, rank 0's share of 16x16")
+    phase_mesh(device, model_records + bwd_records)
+    log(f"[25] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"kernels": records + model_records + bwd_records}),
           flush=True)

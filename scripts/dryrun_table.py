@@ -20,7 +20,11 @@ Records of the production layouts (``--mesh single``, ``multi`` or
 ``both``) add columns: each layout's per-device argument and output GB
 and whether the arguments fit a device's 80 GB on every layout, counts
 from the sharding specs, given after the one-card records: their
-columns join each counted cell's row.
+columns join each counted cell's row.  The cells whose partitioned step
+the dry run counts (the dense family's train and prefill) get a second
+table, a row a cell and layout: one device's TFLOP, GB moved,
+temporaries and peak GB, and the collectives' ring wire GB by kind.
+The production records alone print that table only.
 """
 
 from __future__ import annotations
@@ -66,6 +70,30 @@ def mesh_columns(records) -> Tuple[List[str], Dict]:
     return header, cols
 
 
+WIRE = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+
+
+def per_device_table(records) -> List[str]:
+    """The counted production-layout records as markdown lines."""
+    out = ["| arch | shape | mesh | TFLOP / device | GB / device "
+           "| temp GB | peak GB | "
+           + " | ".join(f"{k} wire GB" for k in WIRE)
+           + " | wire GB total |", "|" + "---|" * (8 + len(WIRE))]
+    for r in records:
+        if r.get("flops_per_device") is None:
+            continue
+        m, w = r["memory"], r["collective_wire_bytes_per_device"]
+        cols = ([r["arch"], r["shape"], r["mesh"],
+                 f"{r['flops_per_device'] / 1e12:.4g}",
+                 f"{r['bytes_per_device'] / 1e9:.4g}",
+                 f"{m['temp_bytes'] / 1e9:.4g}",
+                 f"{m['peak_bytes'] / 1e9:.4g}"]
+                + [f"{w[k] / 1e9:.4g}" for k in WIRE]
+                + [f"{r['collective_total'] / 1e9:.4g}"])
+        out.append("| " + " | ".join(cols) + " |")
+    return out
+
+
 def main(argv=None) -> None:
     paths = argv or sys.argv[1:]
     files = []
@@ -73,10 +101,13 @@ def main(argv=None) -> None:
         with open(path) as f:
             files.append(json.load(f))
     one = [rs for rs in files if rs and rs[0]["mesh"] == "1xH100"]
-    if not one:
-        sys.exit("the one-card records (--mesh one) are needed")
     mesh = [r for rs in files if rs and rs[0]["mesh"] != "1xH100"
             for r in rs]
+    if not one:
+        if not mesh:
+            sys.exit("no records")
+        print("\n".join(per_device_table(mesh)))
+        return
     header, extra = mesh_columns(mesh) if mesh else ([], {})
     print("| arch | shape | TFLOP | dot GB | elementwise GB | dus GB "
           "| data movement GB | other GB | kernel GB | argument GB "
@@ -86,6 +117,10 @@ def main(argv=None) -> None:
     for r in one[0]:
         cols = extra.get((r["arch"], r["shape"]), [])
         print(row(r) + "".join(f" {c} |" for c in cols))
+    counted = per_device_table(mesh)
+    if len(counted) > 2:
+        print()
+        print("\n".join(counted))
 
 
 if __name__ == "__main__":

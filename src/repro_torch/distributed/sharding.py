@@ -20,17 +20,21 @@ The port of ``repro.distributed.sharding``.  Its two halves:
 
   A :class:`Spec` stands for JAX's ``PartitionSpec``.  :func:`named`
   turns one into ``torch.distributed.tensor`` placements, which is what
-  ``distribute_tensor`` takes on a multi-card ``DeviceMesh``;
+  ``distribute_tensor`` takes on a ``DeviceMesh``;
   :func:`shard_shape` and :func:`shard_slices` give what JAX's
   ``NamedSharding`` gives: the shape, and the index ranges, that one
-  device holds.  The port runs on one card: these specs describe a
-  layout, and nothing here places a tensor on a device.
+  device holds.  :func:`distribute` lays a tree out as DTensors on a
+  ``DeviceMesh`` (``launch.mesh.device_mesh``) by its specs, the layout
+  the model stack's partitioned step runs on; :func:`gather` gives the
+  full tensors back.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict, Iterator, List, Sequence, Tuple
+
+import torch
 
 from ..launch.mesh import AbstractMesh
 
@@ -272,6 +276,75 @@ def placements(spec: Spec, mesh: AbstractMesh) -> Tuple:
 def named(mesh: AbstractMesh, spec_tree):
     """Every spec of ``spec_tree`` as its :func:`placements`."""
     return _map_specs(lambda s: placements(s, mesh), spec_tree)
+
+
+def mesh_axes(mesh) -> AbstractMesh:
+    """The axes of a ``DeviceMesh`` (or an :class:`AbstractMesh`) as an
+    :class:`AbstractMesh`."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh
+    return AbstractMesh(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+
+
+def _map_tree(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over a tree of dicts and named tuples and its
+    spec tree, by key."""
+    if isinstance(spec_tree, Spec):
+        return fn(tree, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: _map_tree(fn, tree[k], s) for k, s in spec_tree.items()}
+    if isinstance(spec_tree, tuple) and hasattr(spec_tree, "_fields"):
+        return type(tree)(*(_map_tree(fn, getattr(tree, k), s)
+                            for k, s in zip(spec_tree._fields, spec_tree)))
+    raise TypeError(f"not a spec tree: {type(spec_tree).__name__}")
+
+
+def distribute(tree, spec_tree, mesh):
+    """Every leaf of ``tree`` as a DTensor on the ``DeviceMesh`` ``mesh``,
+    laid out by its spec in ``spec_tree`` (:func:`placements`).  Each rank
+    keeps its own shard of the full leaf it holds, so every rank must
+    hold the same tree (the same seed): nothing is sent.  A leaf on the
+    meta device gives meta shards."""
+    from torch.distributed.tensor import distribute_tensor
+    axes = mesh_axes(mesh)
+    return _map_tree(lambda t, s: distribute_tensor(
+        t, mesh, placements(s, axes), src_data_rank=None), tree, spec_tree)
+
+
+def from_shards(tree, spec_tree, mesh, make):
+    """Every leaf of ``tree`` (anything with a shape and a dtype: the meta
+    stand-ins, ``TensorSpec`` records) as a DTensor on the ``DeviceMesh``
+    ``mesh`` laid out by its spec, its local shard ``make(leaf,
+    shard_shape)``: the shards of a step too large for one card made
+    where they run, with no full leaf anywhere."""
+    from torch.distributed.tensor import DTensor
+    from .ctx import strides
+    axes = mesh_axes(mesh)
+
+    def one(leaf, spec):
+        local = make(leaf, shard_shape(spec, tuple(leaf.shape), axes))
+        return DTensor.from_local(local, mesh, placements(spec, axes),
+                                  run_check=False,
+                                  shape=torch.Size(leaf.shape),
+                                  stride=strides(leaf.shape))
+
+    return _map_tree(one, tree, spec_tree)
+
+
+def gather(tree):
+    """``tree`` (dicts, named tuples, lists and tuples) with every DTensor
+    leaf gathered into the full tensor on each rank; other leaves as they
+    are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(gather(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather(v) for v in tree)
+    return tree
 
 
 def shard_shape(spec: Spec, shape: Tuple[int, ...],

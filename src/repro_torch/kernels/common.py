@@ -1,10 +1,11 @@
 """What every kernel wrapper of the port shares: argument checks, the
-dtype codes of the C entry points, the launch on the current stream, and
-the device a wrapper runs on (the card, or the meta device of the dry
-run)."""
+dtype codes of the C entry points, the launch on the current stream, the
+device a wrapper runs on (the card, or the meta device of the dry run),
+and the call of a wrapper on each rank's shards of DTensor arguments."""
 
 from __future__ import annotations
 
+import sys
 from typing import Sequence
 
 import torch
@@ -56,3 +57,54 @@ def kernel_device(name: str, t: torch.Tensor) -> torch.device:
     if t.device.type == "meta":
         return t.device
     return cuda_device(name, t)
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed.tensor.DTensor``.  On the
+    model's hot path with no mesh: a plain tensor is answered by its type
+    alone, and nothing is imported (no DTensor exists before its module
+    is)."""
+    if type(t) is torch.Tensor:
+        return False
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def on_shards(fn, args, in_placements, out_placements,
+              in_grad_placements=None):
+    """``fn`` on each rank's local shards of the DTensor ``args``, laid
+    out as ``in_placements`` declares (an argument laid out otherwise
+    raises: nothing is redistributed here), its results DTensors laid out
+    as ``out_placements``; autograd goes through ``fn``'s own, and a
+    gradient comes back as ``in_grad_placements`` declares (default: the
+    argument's own)."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+    if out_placements and isinstance(out_placements[0], Placement):
+        out_placements = (tuple(out_placements),)     # one result
+
+    def dense(*local):
+        # a DTensor's shard must be laid out as its global strides say:
+        # results and gradients of fn (a plain version's einsum on the
+        # CPU) are made contiguous, which the kernels' already are
+        local = [_ContiguousGrad.apply(t)
+                 if isinstance(t, torch.Tensor) and t.requires_grad else t
+                 for t in local]
+        return fn(*local)
+
+    return local_map(dense, out_placements=out_placements,
+                     in_placements=in_placements,
+                     in_grad_placements=in_grad_placements,
+                     device_mesh=args[0].device_mesh)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()

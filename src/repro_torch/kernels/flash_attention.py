@@ -26,6 +26,14 @@ HBM3; ``flash_attention_bwd.launches``).  Otherwise (serving, under
 ``no_grad``) the forward launches as it is and stores no lse.  On the CPU
 autograd goes through the plain version.
 
+On DTensor arguments (the model stack on a device mesh,
+``repro_torch.distributed.ctx``) the wrappers run the same kernels on
+each rank's shards of q, k and v through ``local_map``: the batch may be
+split over some mesh axes and the heads over others (k and v laid out as
+q, so each rank holds the kv heads of its query heads), and the sequence
+and the head dim are whole; any other layout raises.  The cost functions
+then report the shards' work.
+
 On the ``meta`` device (the dry run, ``repro_torch.launch.dryrun``) the
 wrappers take the card's route, checks and allocations included, and
 where the card would launch they count the launch and report the
@@ -38,12 +46,14 @@ and the backward's five products include the recomputed scores.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..launch.cost_analysis import kernel_cost
-from .common import DTYPE_CODES, check, kernel_device, launch
+from .common import (DTYPE_CODES, check, is_dtensor, kernel_device, launch,
+                     on_shards)
 
 _SOURCE = "flash_attention.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
@@ -128,6 +138,10 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
     ``block_q``/``block_kv`` are the TPU kernel's tiles, kept for parity:
     the CUDA kernels' tiles are fixed (bfloat16: 128 queries by 64 keys on
     the tensor cores; float32: 64 by 32 on the CUDA cores)."""
+    if is_dtensor(q):
+        pl = _shard_placements(q, k, v)
+        return on_shards(functools.partial(flash_attention, causal=causal),
+                         (q, k, v), (pl, pl, pl), pl)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -151,11 +165,37 @@ def _check(name, q, k, v):
     return device
 
 
+def _shard_placements(q, k, v):
+    """The placements of DTensor q, k and v, which must be one layout:
+    on each mesh axis the whole tensor, or a shard of the batch (dim 0)
+    or of the heads (dim 2)."""
+    pl = tuple(q.placements)
+    for p in pl:
+        if not (p.is_replicate() or (p.is_shard() and p.dim in (0, 2))):
+            raise ValueError(f"flash_attention runs on shards of the batch "
+                             f"or the heads, not on {pl}")
+    for name, t in (("k", k), ("v", v)):
+        if not is_dtensor(t) or tuple(t.placements) != pl:
+            raise ValueError(f"{name} must be laid out as q, {pl}")
+    return pl
+
+
+def _lse_placements(pl):
+    """The row lse (B, H, S)'s placements for q's (B, S, H, hd)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(1) if p.is_shard(2) else p for p in pl)
+
+
 def flash_attention_lse(q, k, v, *, causal: bool = True):
     """:func:`flash_attention` and the row log-sum-exp of its masked,
     scaled scores, float32 (B, H, S) (+inf for a row with no key): on a
     CUDA device one launch of the forward kernel that stores it, on the
     CPU the plain versions."""
+    if is_dtensor(q):
+        pl = _shard_placements(q, k, v)
+        return on_shards(functools.partial(flash_attention_lse,
+                                           causal=causal),
+                         (q, k, v), (pl, pl, pl), (pl, _lse_placements(pl)))
     if q.device.type == "cpu":
         return (flash_attention_ref(q, k, v, causal=causal),
                 flash_attention_lse_ref(q, k, v, causal=causal))

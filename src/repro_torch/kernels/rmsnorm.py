@@ -17,6 +17,12 @@ whose backward is the ``rmsnorm_bwd`` kernel of the same source
 (``rmsnorm_bwd.launches``); otherwise the forward launches as it is.  On
 the CPU autograd goes through the plain version.
 
+On a DTensor x (the model stack on a device mesh) the wrapper runs
+the same kernels on each rank's rows through ``local_map``: x's rows may
+be split over any mesh axes, its last dim must be whole and w
+replicated, and w's gradient comes back as partial sums over the axes
+that split the rows; any other layout raises.
+
 On the ``meta`` device (the dry run, ``repro_torch.launch.dryrun``) the
 wrappers take the card's route, checks and allocations included, and
 where the card would launch they count the launch and report the
@@ -26,12 +32,14 @@ cost count instead, with no arithmetic.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from ..launch.cost_analysis import kernel_cost
-from .common import DTYPE_CODES, check, kernel_device, launch
+from .common import (DTYPE_CODES, check, is_dtensor, kernel_device, launch,
+                     on_shards)
 
 _SOURCE = "rmsnorm.cu"
 
@@ -124,11 +132,26 @@ def rmsnorm(x, w, *, eps: float = 1e-5, block_rows: int = 256):
     """RMSNorm over the last axis of x (..., D) with weight w (D,); returns
     x's shape and dtype.  ``block_rows`` is the TPU kernel's row tile, kept
     for parity: the CUDA kernel's geometry is :func:`layout`'s."""
+    if is_dtensor(x):
+        return _on_rows(x, w, eps)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNorm.apply(x, w, eps)
     return _forward(x, w, eps)
+
+
+def _on_rows(x, w, eps):
+    """:func:`rmsnorm` on each rank's rows of a DTensor x, w replicated."""
+    from torch.distributed.tensor import Partial, Replicate
+    pl = tuple(x.placements)
+    if any(p.is_partial() or p.is_shard(x.ndim - 1) for p in pl):
+        raise ValueError(f"rmsnorm runs on shards of the rows, not on {pl}")
+    if not is_dtensor(w) or not all(p.is_replicate() for p in w.placements):
+        raise ValueError("rmsnorm on shards needs w replicated")
+    dw = tuple(Partial() if p.is_shard() else Replicate() for p in pl)
+    return on_shards(functools.partial(rmsnorm, eps=eps), (x, w),
+                     (pl, tuple(w.placements)), pl, (pl, dw))
 
 
 def _forward(x, w, eps):

@@ -29,8 +29,19 @@ Accounting, per op (one card; the reference's categories):
 * views, reshapes, ``expand``, ``detach`` and allocations count nothing.
 * ``kernel``: the port's hand-written kernels, which report their own work
   (:func:`kernel_cost`; each kernel module states its convention).
-* ``collective``: always 0 on one card, and so are the five
-  ``COLL_KINDS``; the reference's ``collective_wire`` has no counterpart.
+* ``collective``: the functional collectives (``_c10d_functional``, and
+  DTensor's ``shard_dim_alltoall``) that a partitioned step issues, the
+  result's bytes, and by kind (``COLL_KINDS``) the ring wire bytes a
+  device sends, :func:`collective_wire` (the reference's) over the
+  group's size; by process group too (``Costs.coll_groups``).  Nothing
+  on one card.
+
+On a device mesh (DTensor arguments, usually on the meta device in a
+``launch.mesh.fake_world``) the count is one rank's: DTensor's own
+dispatch runs under the mode, so the mode lets each DTensor op pass
+(``NotImplemented``) and counts the local ops and collectives it issues
+on the rank's shards, and it skips the ops of DTensor's shape
+propagation, which run on fake tensors.
 
 Each op's time bound is the larger of its bytes over the H100's HBM rate
 and its FLOPs over the peak of its type: bf16 (and fp16) products and
@@ -97,6 +108,8 @@ class Costs:
     ops_by: Dict[str, int] = field(
         default_factory=lambda: {k: 0 for k in BYTE_CATS})
     kernels: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    #: (kind, process group name) -> [calls, wire bytes, result bytes]
+    coll_groups: Dict[tuple, list] = field(default_factory=dict)
     compute_s: float = 0.0
     memory_s: float = 0.0
     op_sum_s: float = 0.0
@@ -114,12 +127,38 @@ class Costs:
         self.memory_s += m
         self.op_sum_s += max(c, m)
 
+    def collective(self, kind: str, group: str, size: int,
+                   result_bytes: float) -> None:
+        """One collective of ``kind`` over a process group (its name and
+        size) whose result has ``result_bytes``."""
+        wire = collective_wire(kind, result_bytes, max(2, size))
+        self.add("collective", 0, result_bytes)
+        self.coll[kind] += wire
+        tally = self.coll_groups.setdefault((kind, group), [0, 0.0, 0.0])
+        tally[0] += 1
+        tally[1] += wire
+        tally[2] += result_bytes
+
     def bound(self) -> Dict:
         """The H100 bound: the three time terms and the dominant one."""
         return {"compute_s": self.compute_s, "memory_s": self.memory_s,
                 "op_sum_s": self.op_sum_s,
                 "dominant": ("compute" if self.compute_s > self.memory_s
                              else "memory")}
+
+
+def collective_wire(kind: str, result_bytes: float, G: int) -> float:
+    """Per-device wire bytes for a ring implementation (the reference's
+    ``hlo_analysis.collective_wire``)."""
+    if kind == "all-gather":
+        return (G - 1) / G * result_bytes
+    if kind == "all-reduce":
+        return 2 * (G - 1) / G * result_bytes
+    if kind == "reduce-scatter":
+        return (G - 1) * result_bytes
+    if kind == "all-to-all":
+        return (G - 1) / G * result_bytes
+    return float(result_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +205,18 @@ _REDUCE = _packets("sum", "mean", "amax", "amin", "max", "min", "argmax",
                    "cumprod", "logcumsumexp", "_softmax", "_log_softmax",
                    "_softmax_backward_data", "_log_softmax_backward_data",
                    "searchsorted", "bincount", "any", "all", "count_nonzero")
+
+#: the functional collectives by kind; ``wait_tensor`` and the autograd
+#: wrapper move nothing
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_out": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_to_all_single": "all-to-all",
+                "broadcast": "collective-permute",
+                "broadcast_": "collective-permute",
+                "shard_dim_alltoall": "all-to-all"}
+_COLL_NAMESPACES = ("_c10d_functional", "_dtensor")
 
 _KIND: Dict = {}
 
@@ -229,8 +280,23 @@ def _partial(t: torch.Tensor) -> bool:
     return t.numel() * t.element_size() < t.untyped_storage().nbytes()
 
 
+def _group_of(func, args) -> tuple:
+    """(name, size) of a functional collective's process group: its
+    last argument names it."""
+    import torch.distributed.distributed_c10d as c10d
+    name = args[-1]
+    return name, c10d._resolve_process_group(name).size()
+
+
 def op_cost(func, args, kwargs, out, costs: Costs) -> None:
     """Add one dispatched op's FLOPs and bytes to ``costs``."""
+    if func.namespace.startswith(_COLL_NAMESPACES):
+        kind = _COLLECTIVES.get(func.overloadpacket.__name__)
+        if kind is not None:
+            group, size = _group_of(func, args)
+            costs.collective(kind, group, size,
+                             sum(nbytes(t) for t in _tensors(out)))
+        return
     kind = _kind(func)
     if kind == "free":
         return
@@ -310,6 +376,17 @@ def _meta_bincount(x, weights=None, minlength=0):
     return torch.empty(minlength, dtype=dtype, device=x.device)
 
 
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
+
+
+def _dtensor_types(types) -> bool:
+    """Whether a DTensor is among an op's tensor types."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
 class CostCounter(TorchDispatchMode):
     """Counts every aten op dispatched while it is open into ``costs``
     (:class:`Costs`), and the bytes of the storages those ops create
@@ -329,20 +406,37 @@ class CostCounter(TorchDispatchMode):
         self._live_by_op: Dict[str, int] = {}
         self._storages: Dict[int, int] = {}
         for t in arguments:
+            t = getattr(t, "_local_tensor", t)      # a DTensor's shard
             self._watch(t.untyped_storage(), 0, "")
 
-    def _free(self, key: int, n: int, op: str) -> None:
-        self._storages.pop(key, None)
+    def _free(self, key: int) -> None:
+        entry = self._storages.pop(key, None)
+        if entry is None:
+            return
+        n, op = entry
         self.live_bytes -= n
         if n:
             self._live_by_op[op] -= n
 
     def _watch(self, storage, n: int, op: str) -> None:
         key = id(storage)
-        self._storages[key] = n
-        weakref.finalize(storage, self._free, key, n, op).atexit = False
+        self._storages[key] = (n, op)
+        weakref.finalize(storage, self._free, key).atexit = False
 
-    def _track(self, func, out) -> None:
+    def _track(self, func, out, args=()) -> None:
+        if func.name() == "_c10d_functional::_wrap_tensor_autograd":
+            # on meta the collectives' autograd wrapper is a new empty
+            # tensor where the real one wraps its input: the input's bytes
+            # go on living in it
+            s, src = out.untyped_storage(), args[0].untyped_storage()
+            entry = self._storages.get(id(src))
+            if id(s) not in self._storages and entry is not None:
+                self._free(id(src))
+                self._watch(s, *entry)
+                self.live_bytes += entry[0]
+                if entry[0]:
+                    self._live_by_op[entry[1]] += entry[0]
+                return
         for t in _tensors(out):
             s = t.untyped_storage()
             if id(s) in self._storages:
@@ -359,15 +453,20 @@ class CostCounter(TorchDispatchMode):
                 self.peak_by_op = dict(self._live_by_op)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_types(types):
+            return NotImplemented       # DTensor issues the local ops
+        if torch._C._get_dispatch_mode(_FAKE) is not None:
+            # DTensor's shape propagation: not the rank's work
+            return func(*args, **(kwargs or {}))
         if func.overloadpacket is _aten.bincount and args[0].is_meta:
             out = _meta_bincount(*args, **(kwargs or {}))
         else:
             out = func(*args, **(kwargs or {}))
         op_cost(func, args, kwargs, out, self.costs)
-        self._track(func, out)
+        self._track(func, out, args)
         return out
 
 
 __all__ = ["BF16_OPS_PER_S", "BYTE_CATS", "COLL_KINDS", "CostCounter",
-           "Costs", "F32_OPS_PER_S", "HBM_BYTES_PER_S", "kernel_cost",
-           "nbytes", "op_cost", "ops_rate"]
+           "Costs", "F32_OPS_PER_S", "HBM_BYTES_PER_S", "collective_wire",
+           "kernel_cost", "nbytes", "op_cost", "ops_rate"]

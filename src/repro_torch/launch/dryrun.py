@@ -37,14 +37,20 @@ With ``--mesh single``, ``multi`` or ``both`` a cell is the reference's
 (:func:`mesh_cell`) is what one device holds there: the arguments and
 outputs, laid out by the reference's specs
 (``distributed.sharding``; ``--no-fsdp`` drops the weights' data-axis
-split).  Nothing runs.  The reference's per-device FLOPs, bytes and
-temporaries come from XLA's partitioned program; the port has no
-partitioner, so those keys are ``null`` (``not_counted``), and no
-collective is counted.
+split).  For the dense family's train and prefill cells
+(:data:`MESH_COUNTED`; :func:`counted_mesh_cell`) the partitioned step
+also runs, on the meta
+device, as rank 0 of a fake process group of 256 or 512 ranks
+(``launch.mesh.fake_world``), its parameters, optimizer state and batch
+DTensors laid out by those specs; rank 0's count gives the reference's
+per-device keys: FLOPs, bytes by category, temporaries and peak, and
+the collectives' wire bytes by kind (``collective_wire``; by mesh axes
+in ``collectives``).  Every other cell keeps ``null`` there, and
+``not_counted`` names its family or its shape kind.
 
 Not ported: ``--attn`` (the port's plan builder refuses ``attn_impl``:
-one attention, the flash kernel), ``--attn-bf16`` / ``--attn-remat`` (no
-module of the port reads them) and ``collective_wire``.
+one attention, the flash kernel) and ``--attn-bf16`` / ``--attn-remat``
+(no module of the port reads them).
 """
 
 from __future__ import annotations
@@ -62,15 +68,16 @@ from ..configs import ARCH_NAMES, SHAPES, applicable, get_config
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed.ctx import activation_sharding
 from ..distributed.sharding import (Spec, batch_specs, cache_specs,
-                                    data_axes, device_bytes, fit_spec,
-                                    opt_specs, param_specs, unsharded)
+                                    data_axes, device_bytes, distribute,
+                                    fit_spec, opt_specs,
+                                    param_specs, unsharded)
 from ..models.decode import TensorSpec, decode_cache_specs, prefill
 from ..models.model import _dtype, padded_vocab
 from ..optim.adamw import AdamWConfig, adamw_init
 from .cost_analysis import COLL_KINDS, CostCounter
-from .mesh import production_mesh
-from .steps import (input_specs, make_serve_step, make_train_step,
-                    params_shape)
+from .mesh import AbstractMesh, device_mesh, fake_world, production_mesh
+from .steps import (input_specs, make_prefill_step, make_serve_step,
+                    make_train_step, params_shape)
 
 #: per-cell plans, the reference's: grouped MoE dispatch for olmoe's
 #: 64-expert layers
@@ -84,15 +91,30 @@ CARD_BYTES = 80e9
 #: ``--mesh``: the production layouts of each choice (False: 16x16, True:
 #: 2x16x16); ``one`` is the one-card count
 MESHES = {"single": (False,), "multi": (True,), "both": (False, True)}
-#: what a per-device record leaves out, and why
-NOT_COUNTED = (
-    "flops_per_device, bytes_per_device, memory.temp_bytes and "
-    "memory.peak_bytes: the reference reads them from XLA's partitioned "
-    "program, and the port has no partitioner (it runs on one H100 and "
-    "places no tensor on more than one device); collectives are not "
-    "counted; the train step's metrics (a few scalars, the MoE's "
-    "expert_load) are not in output_bytes, since the reference leaves "
-    "their sharding to XLA")
+#: the (family, shape kind) pairs whose partitioned step the port runs
+MESH_COUNTED = {("dense", "train"), ("dense", "prefill")}
+#: what every per-device record leaves out
+NOT_IN_OUTPUT = (
+    "the train step's metrics (a few scalars, the MoE's expert_load) are "
+    "not in output_bytes, since the reference leaves their sharding to "
+    "XLA")
+_NULLS = ("flops_per_device, bytes_per_device, memory.temp_bytes, "
+          "memory.peak_bytes and the collectives")
+
+
+def mesh_not_counted(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """Why a cell's partitioned step is not counted, or ``None`` when it
+    is (:data:`MESH_COUNTED`)."""
+    if shape.kind == "decode":
+        return (f"{_NULLS}: the partitioned decode step (the serve step on "
+                f"sharded caches) is a later slice of the port")
+    if cfg.family == "dense" and (cfg.mrope or cfg.frontend):
+        return (f"{_NULLS}: the VL backbone's partitioned step (M-RoPE, "
+                f"the {cfg.frontend} frontend) is a later slice of the port")
+    if (cfg.family, shape.kind) not in MESH_COUNTED:
+        return (f"{_NULLS}: the {cfg.family} family's partitioned step is "
+                f"a later slice of the port")
+    return None
 
 
 def _meta(tree):
@@ -281,6 +303,62 @@ def mesh_layout(cfg: ModelConfig, shape: ShapeConfig, mesh,
             unsharded(intended, shapes, mesh))
 
 
+def _group_labels(dm) -> Dict[str, str]:
+    """Process group name -> the mesh axes it spans ("pod,data", "all")."""
+    names = tuple(dm.mesh_dim_names)
+    out = {dm[n].get_group().group_name: n for n in names}
+    data = tuple(a for a in ("pod", "data") if a in names)
+    if len(data) > 1:
+        out[dm[data]._flatten().get_group().group_name] = ",".join(data)
+    if dm.ndim > 1:
+        out[dm._flatten().get_group().group_name] = "all"
+    return out
+
+
+def mesh_count(cfg: ModelConfig, shape: ShapeConfig, mesh: AbstractMesh,
+               fsdp: bool = True) -> Dict:
+    """Rank 0's share of a cell's partitioned step on ``mesh`` (the
+    reference's 16x16 or 2x16x16 layout, ``production_mesh``), counted:
+    the step runs in a :func:`fake_world` of ``mesh.size`` ranks on a
+    mesh of the card's device type (its collectives are the ones NCCL
+    would run, where a CPU mesh turns an all-to-all into an all-gather;
+    meta tensors need no card), its parameters, AdamW state and batch
+    DTensors of meta shards laid out by the reference's specs, under a
+    :class:`CostCounter`.  Returns the counter's ``costs``,
+    ``temp_bytes`` (its peak of live bytes), ``peak_by_op``, ``count_s``
+    (the run's wall) and ``collectives`` (wire bytes and calls by mesh
+    axes and kind)."""
+    with fake_world(mesh.size):
+        dm = device_mesh(mesh, "cuda")
+        params = params_shape(cfg)
+        pspec = param_specs(cfg, mesh, params, fsdp=fsdp)
+        bspec = batch_specs(cfg, mesh)
+        inputs = _meta(input_specs(cfg, shape))
+        args = [distribute(params, pspec, dm)]
+        if shape.kind == "train":
+            opt_cfg = AdamWConfig(moment_dtype=cfg.moment_dtype)
+            args.append(distribute(adamw_init(params, opt_cfg),
+                                   opt_specs(pspec), dm))
+            step = make_train_step(cfg, opt_cfg)
+        else:
+            step = make_prefill_step(cfg)
+        args.append(distribute(inputs, {k: bspec[k] for k in inputs}, dm))
+        labels = _group_labels(dm)
+        t0 = time.perf_counter()
+        with activation_sharding(dm), \
+                CostCounter(_leaves(args)) as counter:
+            step(*args)
+        count_s = time.perf_counter() - t0
+    colls: Dict = {}
+    for (kind, group), (calls, wire, _) in sorted(
+            counter.costs.coll_groups.items()):
+        by = colls.setdefault(labels.get(group, group), {})
+        by[kind] = {"calls": calls, "wire_bytes": wire}
+    return {"costs": counter.costs, "temp_bytes": counter.peak_bytes,
+            "peak_by_op": counter.peak_by_op, "count_s": count_s,
+            "collectives": colls}
+
+
 def mesh_cell(arch: str, shape_name: str, multi_pod: bool,
               fsdp: bool = True, params: Optional[Dict] = None) -> Dict:
     """The per-device record of one cell on the reference's 16x16 (or,
@@ -292,9 +370,11 @@ def mesh_cell(arch: str, shape_name: str, multi_pod: bool,
     ``argument_bytes_by`` and ``output_bytes_by`` (by part),
     ``arguments_fit_80gb``, ``fsdp``, ``moe_groups`` (``TUNED_PLANS``),
     ``tree_params``, ``unsharded`` (where ``fit_spec`` dropped an axis:
-    the leaf, the dim, the axis), and ``null`` for what is not counted
-    (``not_counted`` says why).  ``params``: the parameter stand-ins, if
-    already made.  Nothing runs."""
+    the leaf, the dim, the axis).  ``flops_per_device``,
+    ``bytes_per_device``, ``memory.temp_bytes`` and ``peak_bytes`` are
+    ``null``: :func:`counted_mesh_cell` fills them where the partitioned
+    step is counted.  ``not_counted`` says what is not counted and why.
+    ``params``: the parameter stand-ins, if already made."""
     cfg, shape = get_config(arch), SHAPES[shape_name]
     res: Dict = {"arch": arch, "shape": shape_name,
                  "mesh": mesh_name(multi_pod)}
@@ -308,11 +388,12 @@ def mesh_cell(arch: str, shape_name: str, multi_pod: bool,
     arg_by = {k: device_bytes(t, s, mesh) for k, (t, s) in args.items()}
     out_by = {k: device_bytes(t, s, mesh) for k, (t, s) in outs.items()}
     argument = sum(arg_by.values())
+    moe_groups = TUNED_PLANS.get((arch, shape_name), {}).get("moe_groups", 1)
+    why = mesh_not_counted(cfg, shape)
     res.update({
         "devices": mesh.size,
         "fsdp": fsdp,
-        "moe_groups": TUNED_PLANS.get((arch, shape_name), {}).get(
-            "moe_groups", 1),
+        "moe_groups": moe_groups,
         "flops_per_device": None,
         "bytes_per_device": None,
         "memory": {
@@ -325,10 +406,46 @@ def mesh_cell(arch: str, shape_name: str, multi_pod: bool,
         },
         "arguments_fit_80gb": argument <= CARD_BYTES,
         "unsharded": drops,
-        "not_counted": NOT_COUNTED,
+        "not_counted": (NOT_IN_OUTPUT if why is None
+                        else f"{why}; {NOT_IN_OUTPUT}"),
         "n_params": cfg.n_params(),
         "active_params": cfg.active_params(),
         "tree_params": sum(t.numel() for t in _leaves(params)),
+    })
+    return res
+
+
+def counted_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
+                      fsdp: bool = True,
+                      params: Optional[Dict] = None) -> Dict:
+    """:func:`mesh_cell`'s record, and where the partitioned step is
+    counted (:func:`mesh_not_counted`), rank 0's count of it
+    (:func:`mesh_count`): ``flops_per_device``, ``bytes_per_device``,
+    ``memory.temp_bytes`` and ``peak_bytes`` (argument + temp, the
+    reference's sum), ``bytes_by_category``, ``flops_by_category``,
+    ``collective_wire_bytes_per_device`` by kind, ``collective_total``,
+    ``collectives`` (by mesh axes), ``kernels``, ``launches`` and
+    ``count_s``."""
+    res = mesh_cell(arch, shape_name, multi_pod, fsdp, params)
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    if "skipped" in res or mesh_not_counted(cfg, shape) is not None:
+        return res
+    c = mesh_count(cfg, shape, production_mesh(multi_pod=multi_pod), fsdp)
+    costs = c["costs"]
+    res["memory"].update(temp_bytes=c["temp_bytes"],
+                         peak_bytes=res["memory"]["argument_bytes"]
+                         + c["temp_bytes"])
+    res.update({
+        "count_s": c["count_s"],
+        "flops_per_device": costs.flops,
+        "bytes_per_device": costs.bytes,
+        "bytes_by_category": dict(costs.bytes_by),
+        "flops_by_category": dict(costs.flops_by),
+        "launches": dict(costs.ops_by),
+        "kernels": {k: dict(v) for k, v in costs.kernels.items()},
+        "collective_wire_bytes_per_device": dict(costs.coll),
+        "collective_total": sum(costs.coll.values()),
+        "collectives": c["collectives"],
     })
     return res
 
@@ -362,8 +479,9 @@ def main(argv=None) -> None:
                 else:
                     if arch not in stand_ins:
                         stand_ins[arch] = params_shape(get_config(arch))
-                    r = mesh_cell(arch, shape, mp, fsdp=not args.no_fsdp,
-                                  params=stand_ins[arch])
+                    r = counted_mesh_cell(arch, shape, mp,
+                                          fsdp=not args.no_fsdp,
+                                          params=stand_ins[arch])
             except Exception as e:  # a failing cell is a bug: surface it
                 r = {"arch": arch, "shape": shape,
                      "mesh": MESH if mp is None else mesh_name(mp),

@@ -15,8 +15,13 @@ stands in for eight host devices on a machine without cards.
 devices: the (16, 16) ``data, model`` pod or the (2, 16, 16) ``pod, data,
 model`` pair of pods as an :class:`AbstractMesh`, the axes' names and
 sizes only.  The specs of ``repro_torch.distributed.sharding`` need
-nothing more; nothing here places a tensor on a device or creates a
-process group.
+nothing more.  :func:`device_mesh` makes the ``torch`` ``DeviceMesh`` of
+an :class:`AbstractMesh` over the ranks of the default process group,
+which the model stack's DTensors are laid out on; :func:`fake_world`
+opens a process group of ``n`` ranks in which this process is rank 0 and
+no collective moves data (torch's fake backend), so that one process can
+stand for one device of a 256- or 512-device layout (the dry run, and
+rank 0's share of a step on the card).
 
 Functions, not module constants: importing this module reads no device.
 """
@@ -26,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+from contextlib import contextmanager
 from types import MappingProxyType
 from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
 
@@ -65,6 +71,56 @@ def production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     if multi_pod:
         return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
     return AbstractMesh(("data", "model"), (16, 16))
+
+
+def device_mesh(mesh: AbstractMesh, device_type: Optional[str] = None):
+    """The ``DeviceMesh`` of ``mesh``'s axes, names and sizes in their
+    order (``pod, data, model``), over the ranks of the default process
+    group, which must hold ``mesh.size`` of them.  ``device_type``:
+    ``"cuda"`` by default, which raises without a card; ``"cpu"`` for a
+    mesh of CPU ranks (gloo) or of meta tensors in a :func:`fake_world`."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if device_type is None:
+        resolve_device(None)                # raises: no CUDA device
+        device_type = "cuda"
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs a process group: "
+                           "init_process_group, or fake_world")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"{mesh} needs {mesh.size} ranks, the process "
+                         f"group has {dist.get_world_size()}")
+    dm = init_device_mesh(device_type, mesh.axis_sizes,
+                          mesh_dim_names=mesh.axis_names)
+    # flattened views of the data axes and of the whole mesh: with them
+    # DTensor moves a dim split over several axes (FSDP's gather over
+    # ``pod, data``, a sum over every axis) in one collective over their
+    # product, as XLA does, where it would run one an axis
+    data = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    if len(data) > 1:
+        dm[data]._flatten()
+    if dm.ndim > 1:
+        dm._flatten()
+    return dm
+
+
+@contextmanager
+def fake_world(n: int):
+    """A process group of ``n`` ranks on torch's fake backend, this
+    process rank 0, destroyed when the context closes.  Its collectives
+    return at once and move nothing: each rank's share of a step runs
+    with the shapes and the collectives of the real one, and values that
+    arrive by a collective are not the real ones."""
+    import torch.distributed as dist
+    # torch keeps the fake store in a private module: imported here only
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def local_devices(devices: Optional[Sequence] = None) -> List[torch.device]:

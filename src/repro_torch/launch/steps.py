@@ -12,6 +12,12 @@ loop; the update is :func:`repro_torch.optim.adamw_update_`, in place.
 Its ``jax.eval_shape`` stand-ins are tensors on the ``meta`` device (the
 parameters and the AdamW state) and :class:`TensorSpec` records of shape
 and dtype (the model inputs and the decode cache).
+
+The train and prefill steps take DTensor trees as they take plain ones
+(the dense family partitioned on a device mesh, ``models/model.py``):
+the gradients come back laid out as their parameters, a replicated
+parameter's partial sums all-reduced; microbatches split each rank's
+own rows; the update runs on each rank's shards (``optim.adamw``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.ctx import is_dtensor, redistribute, strides
 from ..models.decode import (TensorSpec, decode_cache_specs, decode_step,
                              prefill)
 from ..models.model import _dtype, init_params, loss_fn
@@ -31,13 +38,41 @@ from ..optim.adamw import (AdamWConfig, AdamWState, adamw_init,
 def value_and_grad(fn: Callable, params: Dict, *args) -> Tuple:
     """``((loss, aux), grads)`` of ``fn(params, *args) -> (loss, aux)``:
     grads nested as ``params``, each in its parameter's dtype (zeros for a
-    parameter the loss does not reach, as ``jax.grad`` gives)."""
+    parameter the loss does not reach, as ``jax.grad`` gives) and, for a
+    DTensor parameter, laid out as it is."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, aux = fn(leaves, *args)
     loss.backward()
-    grads = tree_map(lambda t: t.grad if t.grad is not None
-                     else torch.zeros_like(t), leaves)
+    grads = tree_map(_grad, leaves)
     return (loss.detach(), aux), grads
+
+
+def _grad(t):
+    if t.grad is None:
+        return torch.zeros_like(t)
+    if is_dtensor(t):       # a replicated leaf's partial sums all-reduced
+        return redistribute(t.grad, t.placements)
+    return t.grad
+
+
+def _microbatch(x, i: int, n: int):
+    """The i-th of ``n`` microbatches of a batch leaf: rows i*B/n to
+    (i+1)*B/n; of a DTensor, the i-th slice of each rank's own rows, laid
+    out as x (so the ranks' rows interleave where the plain split takes
+    contiguous ones)."""
+    if not is_dtensor(x):
+        b = x.shape[0] // n
+        return x[i * b:(i + 1) * b]
+    from torch.distributed.tensor import DTensor
+    loc = x.to_local()
+    b = loc.shape[0] // n
+    if b * n != loc.shape[0]:
+        raise ValueError(f"a rank's {loc.shape[0]} rows do not split into "
+                         f"{n} microbatches")
+    shape = torch.Size((x.shape[0] // n,) + tuple(x.shape[1:]))
+    return DTensor.from_local(loc[i * b:(i + 1) * b], x.device_mesh,
+                              x.placements, run_check=False, shape=shape,
+                              stride=strides(shape))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -65,17 +100,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             if B % microbatches:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
-            n = B // microbatches
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
+            grads = tree_map(_zeros32, params)
+            loss = (None if is_dtensor(batch["tokens"]) else
+                    torch.zeros((), dtype=torch.float32,
+                                device=batch["tokens"].device))
             for i in range(microbatches):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mb = {k: _microbatch(v, i, microbatches)
+                      for k, v in batch.items()}
                 (l, _), g = value_and_grad(lf, params, mb)
                 tree_map(lambda acc, gi: acc.add_(gi), grads, g)
                 del g
-                loss = loss + l
+                loss = l if loss is None else loss + l
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
             aux = {}
@@ -89,6 +124,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, new_opt, metrics
 
     return train_step
+
+
+def _zeros32(p):
+    """A float32 gradient accumulator for ``p`` (laid out as p)."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -32,7 +32,7 @@ from ..device import resolve_device
 from .layers import layer_norm, rms_norm
 from .model import (_check_family, _decoder_layer, _dense_block, _dtype,
                     _moe_block_apply, _sinusoid_at, forward, layer_params,
-                    logits_fn)
+                    last_hidden, logits_fn)
 from .ssm import ssm_layer_apply
 
 
@@ -106,7 +106,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens, *, embeds=None,
         (cache["k"], cache["v"]), cache["xk"], cache["xv"] = kvs
     else:
         cache["k"], cache["v"] = kvs
-    logits = logits_fn(cfg, params, hidden[:, -1:, :])[:, 0]
+    logits = logits_fn(cfg, params, last_hidden(hidden))[:, 0]
     return logits, cache
 
 

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import replicated
 from ..kernels.flash_attention import flash_attention
 from ..kernels.rmsnorm import rmsnorm
 
@@ -64,8 +65,10 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 
 def _rotate(x, ang):
-    """x (..., S, H, hd) rotated by the angles ang (..., S, hd/2)."""
+    """x (..., S, H, hd) rotated by the angles ang (..., S, hd/2); for a
+    DTensor x the rotations, the same on every rank, are replicated."""
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    cos, sin = replicated(cos, x), replicated(sin, x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -19,12 +19,27 @@ each Zamba2 segment (its Mamba2 layers and the shared block), runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``; the
 enc-dec family has none in either package, so it reads no remat), and the
 loss is the reference's blockwise cross-entropy, each sequence chunk
-checkpointed.  The reference's sharding hints are no-ops on one device
-and are left out (``repro_torch.distributed.ctx``).
+checkpointed.
+
+On a device mesh (parameters and batch as DTensors laid out by
+``distributed.sharding``'s specs: ``distribute``) the dense family's
+train and prefill steps run partitioned, as the reference's run under
+GSPMD: the block-boundary activations are constrained where the
+reference constrains them (``ctx.constrain_boundary``: batch on the data
+axes, sequence on ``model``), each product's weights are FSDP-gathered
+on the data axes first, attention and the SwiGLU run Megatron-SP
+(sequence gathered, heads and hidden split over ``model``, the partial
+sums reduce-scattered back), and the kernels run on each rank's shards.
+The embedding lookup, the loss's log-sum-exp and gold logit over the
+vocabulary-split head, and the prefill's last position are done by hand
+where DTensor has no strategy but a whole gather.  With plain tensors
+none of this runs: each of those functions is the identity.  The other
+families' partitioned stacks are later slices and raise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Union
 
@@ -33,7 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.ctx import moe_groups
+from ..distributed import ctx
+from ..distributed.ctx import constrain_boundary, is_dtensor, moe_groups
 from .layers import (apply_mrope, apply_rope, decode_attention,
                      full_attention, gelu_mlp, layer_norm, matmul, moe_block,
                      rms_norm, swiglu)
@@ -240,7 +256,13 @@ def _attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
     cache: (k_cache, v_cache) for decode (x is a single step); the step's
     k and v are written into the caches at ``cache_len`` in place, and the
     caches are returned.
-    prefix: of the projections' names (``"x"``: the cross attention's)."""
+    prefix: of the projections' names (``"x"``: the cross attention's).
+    A DTensor x (self-attention on a mesh) goes to :func:`_attn_sharded`."""
+    if is_dtensor(x):
+        if kv is not None or cache is not None or prefix:
+            raise NotImplementedError("cross attention and decode on a "
+                                      "mesh are a later slice of the port")
+        return _attn_sharded(p, cfg, x, positions, causal)
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = lambda n: p[prefix + n]  # noqa: E731
@@ -277,6 +299,48 @@ def _attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
     return out, kv_out
 
 
+def _attn_sharded(p, cfg, x, positions, causal):
+    """Self-attention of a DTensor x (B, S, D) on its mesh, Megatron-SP:
+    x's sequence gathered over ``model``, the projections gathered on the
+    data axes (FSDP), the heads split over ``model`` (``ctx.head_groups``):
+    q column-parallel (its groups padded with zero heads where they do not
+    split evenly, ``ctx.pad_heads``), the kv heads through
+    ``ctx.kv_weight``, the output projection row-parallel, its partial
+    sums reduce-scattered back to x's layout.  ``positions``: (1, S).
+    Returns (out, (k, v)), k and v with the kv heads the kernel read."""
+    B, S, _ = x.shape
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    group = ctx.head_groups(cfg, x.device_mesh)
+    wq = ctx.pad_heads(p["wq"], K, group, hd, 1)
+    wo = ctx.pad_heads(p["wo"], K, group, hd, 0)
+    wk, wv = (ctx.kv_weight(p[n], K, hd) for n in ("wk", "wv"))
+    H = wq.shape[1] // hd
+    h = ctx.gather_model(x)
+    q = matmul(h, wq).reshape(B, S, H, hd)
+    k = matmul(h, wk).reshape(B, S, wk.shape[1] // hd, hd)
+    v = matmul(h, wv).reshape(B, S, wv.shape[1] // hd, hd)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = full_attention(q, k, v, causal=causal)
+    return ctx.like(matmul(o.reshape(B, S, H * hd), wo), x), (k, v)
+
+
+def _swiglu(p, h):
+    """The block's SwiGLU of h; for a DTensor h, Megatron-SP's column- then
+    row-parallel products: h's sequence gathered over ``model``, the
+    weights gathered on the data axes (FSDP), the down product's partial
+    sums reduce-scattered back to h's layout."""
+    if not is_dtensor(h):
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    g = ctx.gather_weight
+    out = swiglu(ctx.gather_model(h), g(p["w_gate"]), g(p["w_up"]),
+                 g(p["w_down"]))
+    return ctx.like(out, h)
+
+
 def _dense_block(p, cfg, x, positions, collect_kv=False, cache=None,
                  cache_len=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -284,7 +348,7 @@ def _dense_block(p, cfg, x, positions, collect_kv=False, cache=None,
                         cache_len=cache_len)
     x = x + o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+    x = x + _swiglu(p, h2)
     return (x, kv) if (collect_kv or cache is not None) else (x, None)
 
 
@@ -338,8 +402,13 @@ def forward(cfg: ModelConfig, params: Dict, tokens, *, embeds=None,
         return _encdec_forward(cfg, params, tokens, embeds=embeds,
                                collect_cache=collect_cache, max_len=max_len)
     B, S = tokens.shape
-    x = params["embed"][tokens]
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if is_dtensor(tokens):
+        _check_sharded(cfg, S, max_len)
+        x = _embed_sharded(params["embed"], tokens)
+        positions = torch.arange(S, device=tokens.device)[None]
+    else:
+        x = params["embed"][tokens]
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux: Dict = {}
     if cfg.family == "ssm":
         x, cache = _ssm_forward(cfg, params, x, collect_cache)
@@ -359,30 +428,110 @@ def forward(cfg: ModelConfig, params: Dict, tokens, *, embeds=None,
     return x, cache, aux
 
 
+def _check_sharded(cfg, S, max_len):
+    """Raise unless the partitioned stack covers the step: the dense
+    family without M-RoPE (the VL backbone's), caches of the prompt's
+    length."""
+    if cfg.family != "dense" or cfg.mrope:
+        raise NotImplementedError(
+            f"the {cfg.family} family's partitioned stack (and the VL "
+            f"backbone's) is a later slice of the port")
+    if max_len is not None and max_len != S:
+        raise NotImplementedError("a partitioned prefill's caches hold the "
+                                  "prompt's length")
+
+
+def _embed_sharded(table, tokens):
+    """``table[tokens]`` of a DTensor table (V, D), its rows on ``model``
+    and D on the data axes (``Spec(model, data)``), and tokens (B, S) on
+    the data axes.  DTensor has no strategy for an index into a sharded
+    table but gathering it whole, so it is done by hand, as Megatron's
+    vocab-parallel embedding: the table gathered on the data axes, each
+    ``model`` rank looks the tokens up in its rows (zeros for the
+    others), and the partial sums are left to the boundary constraint's
+    reduce-scatter.  Its gradient: partial over the data axes, this
+    rank's rows on ``model``."""
+    from torch.distributed.tensor import Partial, Replicate
+    t = ctx.gather_weight(table)
+    m = t.device_mesh
+    tp = ctx.model_dim(m)
+    split = tp is not None and t.placements[tp].is_shard(0)
+    rows = t.to_local().shape[0]
+    lo = ctx.model_rank(m) * rows if split else 0
+
+    def look(tab, tok):
+        idx = tok - lo
+        ok = (idx >= 0) & (idx < rows)
+        return torch.where(ok[..., None], tab[idx.clamp(0, rows - 1)], 0)
+
+    tok_pl, tab_pl = tuple(tokens.placements), tuple(t.placements)
+    out = tuple(Partial() if (split and i == tp) else p
+                for i, p in enumerate(tok_pl))
+    grad = tuple(p if i == tp else
+                 (Partial() if tok_pl[i].is_shard() else Replicate())
+                 for i, p in enumerate(tab_pl))
+    return ctx.on_shards(look, (t, tokens), (tab_pl, tok_pl), out,
+                         (grad, tok_pl))
+
+
 def _kv_stacks(cfg, n, x, max_len):
     """The prefill's zero (k, v) stacks (n, B, max_len or S, K, hd) in
-    x's dtype, which is the k and v's."""
+    x's dtype, which is the k and v's; for a DTensor x laid out as the
+    reference's cache specs (batch on the data axes, sequence on
+    ``model``)."""
     B, S, _ = x.shape
     T = S if max_len is None else max_len
     if T < S:
         raise ValueError(f"max_len {T} < the prompt's {S} tokens")
     shape = (n, B, T, cfg.n_kv_heads, cfg.head_dim)
+    if is_dtensor(x):
+        return _sharded_zeros(shape, x), _sharded_zeros(shape, x)
     return x.new_zeros(shape), x.new_zeros(shape)
+
+
+def _sharded_zeros(shape, x):
+    from ..distributed.sharding import (Spec, _dp_tp, fit_spec, from_shards,
+                                        mesh_axes)
+    from .decode import TensorSpec
+    axes = mesh_axes(x.device_mesh)
+    dp, tp = _dp_tp(axes)
+    return from_shards(TensorSpec(shape, x.dtype),
+                       fit_spec(Spec(None, dp, tp), shape, axes),
+                       x.device_mesh, lambda leaf, local: torch.zeros(
+                           local, dtype=leaf.dtype, device=x.device))
 
 
 def _write_kv(kv, i, kv_i):
     for stack, t in zip(kv, kv_i):
-        stack[i, :, :t.shape[1]] = t
+        if is_dtensor(stack):
+            stack[i].copy_(_cache_slot(t, stack))
+        else:
+            stack[i, :, :t.shape[1]] = t
+
+
+def _cache_slot(t, stack):
+    """A layer's k or v (B, S, Kx, hd), as the kernel read them, laid out
+    as its slot of a sharded cache stack (L, B, S, K, hd): redistributed
+    to the slot's placements, and the kv heads repeated by whole copies
+    (``ctx.kv_weight``) taken back to the stack's K."""
+    from torch.distributed.tensor import Shard
+    slot = tuple(Shard(p.dim - 1) if p.is_shard() else p
+                 for p in stack.placements)
+    t = ctx.redistribute(t, slot)
+    r = t.shape[2] // stack.shape[3]
+    return t[:, :, ::r] if r > 1 else t
 
 
 def _block(p, cfg, x, positions, collect, groups):
     """One dense or MoE block, the MoE's dispatch in ``groups`` groups:
-    (x, its (k, v) if ``collect``, the MoE's expert_load)."""
+    (x, its (k, v) if ``collect``, the MoE's expert_load); x leaves it
+    constrained as the reference's scanned body returns it."""
     if cfg.family == "moe":
         x, kv, aux = _moe_block_apply(p, cfg, x, positions, groups=groups)
-        return x, (kv if collect else None), aux["expert_load"]
+        return constrain_boundary(x), (kv if collect else None), \
+            aux["expert_load"]
     x, kv = _dense_block(p, cfg, x, positions, collect_kv=collect)
-    return x, kv, None
+    return constrain_boundary(x), kv, None
 
 
 def _stack_forward(cfg, params, x, positions, kv):
@@ -392,8 +541,10 @@ def _stack_forward(cfg, params, x, positions, kv):
     ``jax.checkpoint`` around the scanned body).  The MoE's token groups
     are read from the context here, once, and passed in: a recompute in
     the backward, which may run after the context has closed, routes as
-    the forward did.  Returns (x, aux)."""
+    the forward did.  x enters constrained, as the reference's scan's
+    carry does.  Returns (x, aux)."""
     loads, groups = [], moe_groups()
+    x = constrain_boundary(x)
     for i, p in enumerate(unstack_layers(params)):
         if kv is None and cfg.remat:
             x, _, load = checkpoint(_block, p, cfg, x, positions, False,
@@ -593,7 +744,45 @@ def _head(cfg, params):
 
 
 def logits_fn(cfg, params, hidden):
+    """hidden @ the head; on a mesh the head is gathered on the data axes
+    first, its vocabulary left on ``model`` (:func:`_mesh_head`)."""
+    if is_dtensor(hidden):
+        return matmul(hidden, _mesh_head(cfg, params))
     return matmul(hidden, _head(cfg, params))
+
+
+def _mesh_head(cfg, params, whole: bool = False):
+    """The head of a DTensor parameter tree gathered on the data axes
+    (and, ``whole``, over ``model``), a tied embedding before its
+    transpose, so that a product reads the head as the unsharded model
+    reads it (the embedding's transposed view)."""
+    if not cfg.tie_embeddings:
+        head = ctx.gather_weight(params["lm_head"])
+        return ctx.gather_model(head) if whole else head
+    table = ctx.gather_weight(params["embed"])
+    return (ctx.gather_model(table) if whole else table).T
+
+
+def last_hidden(hidden):
+    """``hidden[:, -1:, :]``.  Of a DTensor with its sequence on
+    ``model`` (DTensor would gather the whole sequence to slice it) by
+    hand: the last ``model`` rank gives its last row, the others zeros,
+    and the sum over ``model`` replicates it."""
+    if not is_dtensor(hidden):
+        return hidden[:, -1:, :]
+    from torch.distributed.tensor import Partial
+    m = hidden.device_mesh
+    tp = ctx.model_dim(m)
+    if tp is None or not hidden.placements[tp].is_shard(1):
+        return hidden[:, -1:, :]
+    last = ctx.model_rank(m) == ctx.model_size(m) - 1
+    pl = tuple(hidden.placements)
+    out = tuple(Partial() if i == tp else p for i, p in enumerate(pl))
+
+    def pick(h):
+        return h[:, -1:] if last else torch.zeros_like(h[:, -1:])
+
+    return ctx.gather_model(ctx.on_shards(pick, (hidden,), (pl,), out))
 
 
 def _ce_chunk(h, labels, head, z_loss: float):
@@ -614,6 +803,8 @@ def chunked_ce_loss(cfg, params, hidden, labels, z_loss: float = 1e-4):
     time.  Labels < 0 are masked; a z-loss of ``z_loss * lse**2`` is added.
     hidden (B, S, D), labels (B, S).  Returns the scalar mean loss."""
     B, S, _ = hidden.shape
+    if is_dtensor(hidden):
+        return _ce_sharded(cfg, params, hidden, labels, z_loss)
     head = _head(cfg, params)
     n_chunks = -(-S // CE_CHUNK)
     pad = n_chunks * CE_CHUNK - S
@@ -629,6 +820,74 @@ def chunked_ce_loss(cfg, params, hidden, labels, z_loss: float = 1e-4):
         tot = tot + nll
         cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_sharded(cfg, params, hidden, labels, z_loss):
+    """:func:`chunked_ce_loss` of a DTensor hidden on its mesh: the
+    sequence gathered over ``model`` and the head gathered on the data
+    axes, its vocabulary left on ``model``; over a split vocabulary each
+    chunk's log-sum-exp and gold logit by :func:`_ce_chunk_vocab`, else by
+    :func:`_ce_chunk`.  The sums are partial over the data axes until the
+    mean, which is replicated."""
+    B, S, _ = hidden.shape
+    hidden = ctx.gather_model(hidden)
+    m = hidden.device_mesh
+    tp = ctx.model_dim(m)
+    split = (tp is not None and ctx.model_size(m) > 1
+             and _head(cfg, params).placements[tp].is_shard(1))
+    head = _mesh_head(cfg, params, whole=not split)
+    chunk_fn = _ce_chunk
+    if split:
+        chunk_fn = functools.partial(
+            _ce_chunk_vocab, lo=ctx.model_rank(m) * head.to_local().shape[1])
+    n_chunks = -(-S // CE_CHUNK)
+    pad = n_chunks * CE_CHUNK - S
+    if pad:                 # the sequence is whole on every rank: pad shards
+        pad_h = functools.partial(torch.nn.functional.pad, pad=(0, 0, 0, pad))
+        pad_l = functools.partial(torch.nn.functional.pad, pad=(0, pad),
+                                  value=-1)
+        hidden = ctx.on_shards(pad_h, (hidden,), (hidden.placements,),
+                               hidden.placements)
+        labels = ctx.on_shards(pad_l, (labels,), (labels.placements,),
+                               labels.placements)
+    tot = cnt = None
+    for c in range(n_chunks):
+        sl = slice(c * CE_CHUNK, (c + 1) * CE_CHUNK)
+        nll, n = checkpoint(chunk_fn, hidden[:, sl], labels[:, sl], head,
+                            z_loss, use_reentrant=False)
+        tot = nll if tot is None else tot + nll
+        cnt = n if cnt is None else cnt + n
+    tot, cnt = ctx.replicate(tot), ctx.replicate(cnt)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_chunk_vocab(h, labels, head, z_loss: float, lo: int):
+    """:func:`_ce_chunk` over a head (D, V) split over ``model``, this
+    rank's columns from ``lo``: the log-sum-exp from the partial max
+    (all-reduced) and partial sums of exponentials, the gold logit from
+    the rank that holds it (zeros elsewhere, summed), where DTensor would
+    gather the (B, chunk, V) logits whole for both."""
+    from torch.distributed.tensor import Partial
+    lg = matmul(h, head).float()
+    m = ctx.gather_model(lg.detach().amax(dim=-1, keepdim=True))
+    lse = torch.log(ctx.gather_model(torch.exp(lg - m).sum(dim=-1))) \
+        + m[..., 0]
+    cols = lg.to_local().shape[-1]
+
+    def pick(lg_, lab):
+        idx = lab.long() - lo
+        ok = (idx >= 0) & (idx < cols)
+        g = lg_.gather(-1, idx.clamp(0, cols - 1)[..., None])[..., 0]
+        return torch.where(ok, g, 0.0)
+
+    tp = ctx.model_dim(lg.device_mesh)
+    lab_pl = tuple(labels.placements)
+    out = tuple(Partial() if i == tp else p for i, p in enumerate(lab_pl))
+    gold = ctx.gather_model(ctx.on_shards(
+        pick, (lg, labels), (tuple(lg.placements), lab_pl), out))
+    valid = (labels >= 0).float()
+    nll = ((lse - gold) + z_loss * lse ** 2) * valid
+    return nll.sum(), valid.sum()
 
 
 def loss_fn(cfg: ModelConfig, params, batch):

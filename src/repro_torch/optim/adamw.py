@@ -18,6 +18,13 @@ step uses :func:`adamw_update_`, which writes the same float32 operations'
 results into the parameters and moments in place, a slice of each leaf at
 a time: a functional update of a model at full width would hold the old
 and the new state and a whole stack's float32 temporaries at once.
+
+On a device mesh (DTensor trees, each gradient and moment laid out as its
+parameter) :func:`global_norm` sums each rank's shards' squares into one
+partial sum, all-reduced once, and :func:`adamw_update_` updates each
+rank's shards in place with the same operations; the order of the
+norm's float32 sums is then the ranks' shards', not the reference's
+leaf order alone.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, NamedTuple, Tuple, Union
 
 import torch
+
+from ..kernels.common import is_dtensor as _dtensor
 
 
 class AdamWState(NamedTuple):
@@ -112,11 +121,35 @@ def schedule_lr(cfg: AdamWConfig, step: Union[int, torch.Tensor]
     return cfg.lr * warm * decay
 
 
+def _local(t):
+    return t.to_local() if _dtensor(t) else t
+
+
 def global_norm(tree: Dict) -> torch.Tensor:
     """The float32 L2 norm of every leaf together, leaves in
-    ``jax.tree.leaves`` order."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    ``jax.tree.leaves`` order.  Of DTensor leaves: each rank sums the
+    squares of its shards in that order (a leaf replicated over a mesh
+    axis is counted by that axis's rank 0 only), and that partial sum is
+    all-reduced once; a replicated scalar."""
+    leaves = tree_leaves(tree)
+    if not _dtensor(leaves[0]):
+        leaves = [torch.sum(torch.square(x.float())) for x in leaves]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    parts = []
+    for x in leaves:
+        if any(p.is_partial() for p in x.placements):
+            raise ValueError("global_norm takes leaves laid out as their "
+                             "parameters, not partial sums")
+        s = torch.sum(torch.square(x.to_local().float()))
+        if any(p.is_replicate() and c for p, c in zip(x.placements, coord)):
+            s = torch.zeros_like(s)
+        parts.append(s)
+    total = DTensor.from_local(torch.sum(torch.stack(parts)), mesh,
+                               [Partial()] * mesh.ndim, run_check=False)
+    return torch.sqrt(total.redistribute(mesh, [Replicate()] * mesh.ndim))
 
 
 def _coefficients(grads: Dict, state: AdamWState, cfg: AdamWConfig):
@@ -174,10 +207,18 @@ def adamw_update_(grads: Dict, state: AdamWState, params: Dict,
     Each leaf is walked in slices along its leading axis (a stacked leaf
     layer by layer) of at most ``SLICE_ELEMENTS``, so the float32
     temporaries are one slice's; the operations are elementwise and the
-    same, so the result equals the functional update bit for bit."""
+    same, so the result equals the functional update bit for bit.
+    DTensor leaves are updated on each rank's shards, the gradients and
+    moments laid out as their parameters."""
     scale, step, lr, bc1, bc2, metrics = _coefficients(grads, state, cfg)
+    scale, lr, bc1, bc2 = (_local(t) for t in (scale, lr, bc1, bc2))
     for path, p in tree_items(params):
         g, m, v = (tree_get(t, path) for t in (grads, state.m, state.v))
+        if _dtensor(p):
+            if any(t.placements != p.placements for t in (g, m, v)):
+                raise ValueError(f"{'/'.join(path)}: gradient and moments "
+                                 f"must be laid out as the parameter")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         n = p.shape[0] if p.dim() else 1
         rows = max(1, SLICE_ELEMENTS // max(p[0].numel() if p.dim() else 1,
                                             1))
