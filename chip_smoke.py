@@ -296,7 +296,19 @@ kernels, and prints one JSON line per result.  Phases, in order:
     real tensors on the card in a fake process group of 256 ranks (its
     collectives move nothing; values not checked), two steps timed: its
     peak allocated bytes held against the dry run's count of the same
-    cell (``launch.dryrun.counted_mesh_cell``) as [23] holds its counts.
+    cell (``launch.dryrun.counted_mesh_cell``) as [23] holds its counts;
+    the MoE family and the VL backbone on the same meshes: (c)
+    olmoe-1b-7b at full width cut to [21c]'s 4 of 16 layers, two
+    mb1_noremat steps of 4 x 1024 tokens at [21c]'s one dispatch group,
+    plain and on the (1, 1) mesh: losses, final parameters and every
+    step's expert_load bit-equal, launches equal and added to the
+    records; (d) qwen2-vl-72b at full width cut to 2 of 80 layers (M-RoPE),
+    an 8 x 2048 prefill and forward plain and on the (1, 1) mesh: logits,
+    k cache and hidden states bit-equal, launches equal; (e) rank 0's
+    share of olmoe-1b-7b's ``train_4k`` on 16x16 at its plan's 16 groups,
+    as (b): the card's peak at most 1.02 of the count's (the count fills
+    every slot of the dispatch, its upper bound), its steps' walls
+    logged.
 
 The kernels' bound columns (bytes and operations) are the kernel
 modules' cost functions, the work the dry run counts.  The line before
@@ -4980,15 +4992,17 @@ def profiled_kernels(prof):
     return out if busy > 0 else None
 
 
-def sharded_steps(cfg, device, mesh=None):
+def sharded_steps(cfg, device, mesh=None, B=TRAIN_B, S=TRAIN_S,
+                  windows=SHARDED_WINDOWS, moe_groups=1):
     """SHARDED_STEPS steps of ``cfg`` (mb1, its remat) from seed 0 on
-    seeded token batches, plain, or with every parameter, moment and
-    batch leaf a DTensor on ``mesh`` placed by the reference's specs;
-    then SHARDED_WINDOWS profiler windows of a step each, each after a
-    warm-up step.  Returns
-    the losses, the final parameters (gathered), the wrappers' launches
-    over the steps, the profiled kernels (each group's largest count over
-    the windows, and each window's) and the steps' walls."""
+    seeded B x S token batches, plain, or with every parameter, moment
+    and batch leaf a DTensor on ``mesh`` placed by the reference's specs,
+    the MoE dispatched in ``moe_groups`` groups; then ``windows`` profiler
+    windows of a step each, each after a warm-up step.  Returns
+    the losses, the MoE's expert_load of each step, the final parameters
+    (gathered), the wrappers' launches over the steps, the profiled
+    kernels (each group's largest count over the windows, and each
+    window's; ``None`` without windows) and the steps' walls."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch import kernels
     from repro_torch.distributed.ctx import activation_sharding
@@ -5003,13 +5017,12 @@ def sharded_steps(cfg, device, mesh=None):
     params = init_params(cfg, 0, device=device)
     opt = adamw_init(params, opt_cfg)
     gen = torch.Generator(device=device).manual_seed(0)
-    batches = [{k: torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+    batches = [{k: torch.randint(0, cfg.vocab_size, (B, S),
                                  generator=gen, device=device,
                                  dtype=torch.int32)
                 for k in ("tokens", "labels")}
                for _ in range(SHARDED_STEPS)]
     extra = {k: v.clone() for k, v in batches[-1].items()}
-    ctx = contextlib.nullcontext()
     if mesh is not None:
         am = mesh_axes(mesh)
         pspec = param_specs(cfg, am, params)
@@ -5022,11 +5035,10 @@ def sharded_steps(cfg, device, mesh=None):
         batches = [place_leafwise(b, dict(bspec), mesh)
                    for b in batches + [extra]]
         extra = batches.pop()
-        ctx = activation_sharding(mesh)
     step = make_train_step(cfg, opt_cfg)
-    losses, walls = [], []
+    losses, loads, walls = [], [], []
     kernels.reset_launch_counts()
-    with ctx:
+    with activation_sharding(mesh, moe_groups=moe_groups):
         for b in batches:
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
@@ -5034,6 +5046,8 @@ def sharded_steps(cfg, device, mesh=None):
             torch.cuda.synchronize(device)
             walls.append(time.perf_counter() - t0)
             losses.append(float(gather(met["loss"])))
+            if "expert_load" in met:
+                loads.append(gather(met["expert_load"]).tolist())
         launches = {k: v for k, v in kernels.launch_counts().items()
                     if k in SHARDED_KERNELS}
         final = tree_map(torch.clone, gather(params))
@@ -5042,22 +5056,24 @@ def sharded_steps(cfg, device, mesh=None):
         # dropped (the profiler's own schedule): late in the script a
         # window opened on the step itself lost its first kernels (PERF.md
         # section 7); each group keeps its largest count over the windows
-        windows = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=SHARDED_WINDOWS),
-                     on_trace_ready=lambda p: windows.append(
-                         profiled_kernels(p))) as prof:
-            for _ in range(2 * SHARDED_WINDOWS):
-                step(params, opt, extra)
-                torch.cuda.synchronize(device)
-                prof.step()
-    kept = [w for w in windows if w is not None]
+        seen = []
+        if windows:
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=windows),
+                         on_trace_ready=lambda p: seen.append(
+                             profiled_kernels(p))) as prof:
+                for _ in range(2 * windows):
+                    step(params, opt, extra)
+                    torch.cuda.synchronize(device)
+                    prof.step()
+    kept = [w for w in seen if w is not None]
     profiled = ({k: max(w[k] for w in kept) for k in kept[0]} if kept
                 else None)
     del opt, batches, params
-    return {"losses": losses, "params": final, "launches": launches,
-            "profiled": profiled, "windows": windows, "step_s": walls}
+    return {"losses": losses, "expert_load": loads, "params": final,
+            "launches": launches, "profiled": profiled, "windows": seen,
+            "step_s": walls}
 
 
 def same_leaves(a, b):
@@ -5073,27 +5089,19 @@ def same_leaves(a, b):
     return worst == 0.0, worst
 
 
-def mesh_train_equal(device, records):
+def mesh_train_equal(device, records, mesh):
     """[25a]: SHARDED_STEPS steps of SHARDED_ARCH at full width and depth
-    (mb1_noremat), plain, then with DTensor leaves on a one-rank (1, 1)
-    ``data, model`` NCCL mesh: the losses and the final parameters
-    bit-equal, the wrappers' and the profiler's kernel launches equal, and
-    the partitioned path's launches added to the kernels' records."""
-    import torch.distributed as dist
+    (mb1_noremat), plain, then with DTensor leaves on ``mesh``, a
+    one-rank (1, 1) ``data, model`` NCCL mesh: the losses and the final
+    parameters bit-equal, the wrappers' and the profiler's kernel
+    launches equal, and the partitioned path's launches added to the
+    kernels' records."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import AbstractMesh, device_mesh
     cfg = dataclasses.replace(get_config(SHARDED_ARCH), remat=False)
     torch.cuda.empty_cache()
     plain = sharded_steps(cfg, device)
     torch.cuda.empty_cache()
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1,
-                            device_id=device)
-    try:
-        mesh = device_mesh(AbstractMesh(("data", "model"), (1, 1)))
-        sharded = sharded_steps(cfg, device, mesh)
-    finally:
-        dist.destroy_process_group()
+    sharded = sharded_steps(cfg, device, mesh)
     equal, worst = same_leaves(sharded.pop("params"), plain.pop("params"))
     torch.cuda.empty_cache()
     row = {"arch": SHARDED_ARCH, "layers": cfg.n_layers,
@@ -5116,6 +5124,135 @@ def mesh_train_equal(device, records):
     add_launches(records, {"train sharded (1, 1) [25a]":
                            sharded["launches"]}, SHARDED_KERNELS)
     return row
+
+
+#: [25c]: olmoe-1b-7b at full width cut to [21c]'s MOE_TRAIN_LAYERS,
+#: SHARDED_STEPS mb1_noremat steps of SSM_TRAIN_B x SSM_TRAIN_S tokens at
+#: [21c]'s dispatch groups (one), plain and on the (1, 1) mesh
+MESH_MOE_ARCH, MESH_MOE_GROUPS = "olmoe-1b-7b", 1
+
+
+def mesh_moe_equal(device, records, mesh):
+    """[25c]: the MoE family's steps plain and on ``mesh`` (one rank):
+    losses, the final parameters and every step's expert_load bit-equal,
+    the wrappers' launches equal and added to the kernels' records."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS, remat=False)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        runs[name] = sharded_steps(cfg, device, m, B=SSM_TRAIN_B,
+                                   S=SSM_TRAIN_S, windows=0,
+                                   moe_groups=MESH_MOE_GROUPS)
+    plain, sharded = runs["plain"], runs["mesh"]
+    equal, worst = same_leaves(sharded.pop("params"), plain.pop("params"))
+    torch.cuda.empty_cache()
+    row = {"arch": MESH_MOE_ARCH, "layers": cfg.n_layers,
+           "tokens": [SSM_TRAIN_B, SSM_TRAIN_S],
+           "moe_groups": MESH_MOE_GROUPS, "plain": plain, "mesh": sharded,
+           "losses_equal": plain["losses"] == sharded["losses"],
+           "expert_load_equal": plain["expert_load"] == sharded[
+               "expert_load"],
+           "params_bit_equal": equal, "params_max_abs_diff": worst}
+    log(f"[25c] {json.dumps(row)}")
+    require(row["losses_equal"] and equal and row["expert_load_equal"]
+            and plain["expert_load"],
+            f"[25c] the (1, 1) mesh's MoE steps differ from the plain ones: "
+            f"losses {plain['losses']} / {sharded['losses']}, parameters "
+            f"{worst}, expert_load equal {row['expert_load_equal']}")
+    require(plain["launches"] == sharded["launches"]
+            and all(sharded["launches"].values()),
+            f"[25c] launches {plain['launches']} / {sharded['launches']}")
+    add_launches(records, {"MoE train sharded (1, 1) [25c]":
+                           sharded["launches"]}, SHARDED_KERNELS)
+    return row
+
+
+#: [25d]: qwen2-vl-72b at full width cut to 2 of its 80 layers (the
+#: embedding and head alone are 5 GB), a FAMILY_BATCH x FAMILY_PROMPT
+#: prefill, plain and on the (1, 1) mesh
+MESH_VL_ARCH, MESH_VL_LAYERS = "qwen2-vl-72b", 2
+
+
+def vl_prefill(cfg, device, mesh=None):
+    """The prefill (logits, k cache) and the forward's hidden states of
+    ``cfg`` from seed 0 on seeded prompts, plain or with every leaf a
+    DTensor on ``mesh``; the wrappers' launches of the prefill and its
+    wall."""
+    from repro_torch import kernels
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import (batch_specs, gather,
+                                                  mesh_axes, param_specs)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models.model import forward
+    params = init_params(cfg, 0, device=device)
+    batch = {"tokens": prompt_tokens(cfg, device)}
+    if mesh is not None:
+        am = mesh_axes(mesh)
+        place_leafwise(params, param_specs(cfg, am, params), mesh)
+        place_leafwise(batch, {"tokens": batch_specs(cfg, am)["tokens"]},
+                       mesh)
+    kernels.reset_launch_counts()
+    with activation_sharding(mesh), torch.no_grad():
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(cfg)(params, batch)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items()
+                    if k in SHARDED_KERNELS and v}
+        hidden = forward(cfg, params, batch["tokens"])[0]
+        out = {"logits": gather(logits), "k": gather(cache["k"]),
+               "hidden": gather(hidden)}
+    del params, batch, logits, cache, hidden
+    return out, {"launches": launches, "prefill_s": wall}
+
+
+def mesh_vl_prefill(device, records, mesh):
+    """[25d]: the VL backbone's prefill (M-RoPE) plain and on ``mesh``
+    (one rank): logits, k cache and hidden states bit-equal, launches
+    equal and added to the kernels' records."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MESH_VL_ARCH),
+                              n_layers=MESH_VL_LAYERS)
+    torch.cuda.empty_cache()
+    plain, p_row = vl_prefill(cfg, device)
+    torch.cuda.empty_cache()
+    sharded, m_row = vl_prefill(cfg, device, mesh)
+    same = {k: torch.equal(plain[k], sharded[k]) for k in plain}
+    del plain, sharded
+    torch.cuda.empty_cache()
+    row = {"arch": MESH_VL_ARCH, "layers": MESH_VL_LAYERS,
+           "of_layers": get_config(MESH_VL_ARCH).n_layers,
+           "tokens": [FAMILY_BATCH, FAMILY_PROMPT], "plain": p_row,
+           "mesh": m_row, "bit_equal": same}
+    log(f"[25d] {json.dumps(row)}")
+    require(all(same.values()), f"[25d] the (1, 1) mesh's VL prefill "
+            f"differs from the plain one: {same}")
+    require(p_row["launches"] == m_row["launches"]
+            and len(m_row["launches"]) == 2,
+            f"[25d] launches {p_row['launches']} / {m_row['launches']}")
+    add_launches(records, {"VL prefill sharded (1, 1) [25d]":
+                           {k: m_row["launches"].get(k, 0)
+                            for k in SHARDED_KERNELS}}, SHARDED_KERNELS)
+    return row
+
+
+@contextlib.contextmanager
+def one_rank_mesh(device):
+    """A one-rank NCCL process group and its (1, 1) ``data, model``
+    mesh, destroyed when the context closes."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import AbstractMesh, device_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=device)
+    try:
+        yield device_mesh(AbstractMesh(("data", "model"), (1, 1)))
+    finally:
+        dist.destroy_process_group()
 
 
 def free_port() -> int:
@@ -5143,14 +5280,14 @@ def shard_maker(cfg, device):
     return make
 
 
-def share_steps(cfg, shape, device):
+def share_steps(cfg, shape, device, moe_groups=1):
     """Rank 0's share of ``cfg``'s partitioned step at ``shape`` on 16x16
     on the card: a fake process group of 256 ranks (its collectives move
     nothing), a mesh of the card's device type, each parameter, moment
     and batch leaf a DTensor whose local shard is made on the card
     (``sharding.from_shards``, ``shard_maker``), laid out by the
-    reference's specs; SHARDED_STEPS steps, each timed.  Returns their
-    walls."""
+    reference's specs; SHARDED_STEPS steps, each timed, the MoE
+    dispatched in ``moe_groups`` groups.  Returns their walls."""
     from repro_torch.distributed.ctx import activation_sharding
     from repro_torch.distributed.sharding import (batch_specs, from_shards,
                                                   opt_specs, param_specs)
@@ -5174,7 +5311,7 @@ def share_steps(cfg, shape, device):
         bspec = batch_specs(cfg, am)
         batch = from_shards(inputs, {k: bspec[k] for k in inputs}, dm, make)
         step = make_train_step(cfg, opt_cfg)
-        with activation_sharding(dm):
+        with activation_sharding(dm, moe_groups=moe_groups):
             for _ in range(SHARDED_STEPS):
                 t0 = time.perf_counter()
                 params, opt, _ = step(params, opt, batch)
@@ -5184,15 +5321,24 @@ def share_steps(cfg, shape, device):
     return walls
 
 
-def mesh_share(device):
-    """[25b]: rank 0's share of SHARDED_CELL on 16x16 on the card, real
-    tensors in a fake process group of 256 ranks (its collectives move
-    nothing: the values are not checked), two steps (``share_steps``);
-    its peak allocated bytes held against the count of the same cell
-    (``launch.dryrun.counted_mesh_cell``) as [23] holds its counts."""
+#: [25e]: rank 0's share of olmoe-1b-7b's train_4k cell on 16x16 at its
+#: plan's 16 groups (one a data rank)
+MOE_SHARE_CELL = ("olmoe-1b-7b", "train_4k")
+
+
+def mesh_share(device, cell=SHARDED_CELL, tag="[25b]"):
+    """[25b] / [25e]: rank 0's share of ``cell`` on 16x16 on the card,
+    real tensors in a fake process group of 256 ranks (its collectives
+    move nothing: the values are not checked), two steps
+    (``share_steps``) at the cell's plan's MoE groups; its peak
+    allocated bytes held against the count of the same cell
+    (``launch.dryrun.counted_mesh_cell``) as [23] holds its counts: the
+    count within DRY_RUN_PEAK_SHARE of the card's, or for a MoE cell,
+    whose count fills every slot of the dispatch (its upper bound), the
+    card's within DRY_RUN_PEAK_SHARE of the count's."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.dryrun import counted_mesh_cell
-    arch, shape = SHARDED_CELL
+    arch, shape = cell
     t0 = time.perf_counter()
     rec = counted_mesh_cell(arch, shape, False)
     count_s = time.perf_counter() - t0
@@ -5200,11 +5346,13 @@ def mesh_share(device):
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    walls = share_steps(get_config(arch), SHAPES[shape], device)
+    cfg = get_config(arch)
+    walls = share_steps(cfg, SHAPES[shape], device, rec["moe_groups"])
     peak = torch.cuda.max_memory_allocated(device) - resident
     torch.cuda.empty_cache()
     mem = rec["memory"]
     row = {"cell": f"{arch} {shape}", "mesh": rec["mesh"],
+           "moe_groups": rec["moe_groups"],
            "step_s": walls, "card": nvidia_smi_line(),
            "card_peak_gb": peak / 1e9,
            "counted_peak_gb": mem["peak_bytes"] / 1e9,
@@ -5218,20 +5366,40 @@ def mesh_share(device):
            "kernels_counted": {k: v["launches"]
                                for k, v in rec["kernels"].items()},
            "count_s": count_s}
-    log(f"[25b] {json.dumps(row)}")
-    require(mem["peak_bytes"] <= DRY_RUN_PEAK_SHARE * peak,
-            f"[25b] counted peak {mem['peak_bytes']} above the card's "
-            f"{peak}")
+    log(f"{tag} {json.dumps(row)}")
+    if cfg.family == "moe":
+        require(peak <= DRY_RUN_PEAK_SHARE * mem["peak_bytes"],
+                f"{tag} the card's peak {peak} above the count's "
+                f"{mem['peak_bytes']}")
+    else:
+        require(mem["peak_bytes"] <= DRY_RUN_PEAK_SHARE * peak,
+                f"{tag} counted peak {mem['peak_bytes']} above the card's "
+                f"{peak}")
     return row
 
 
 def phase_mesh(device, records):
-    """Phase [25]: the dense stack run partitioned on DTensor: (a)
-    ``mesh_train_equal``, (b) ``mesh_share``."""
+    """Phase [25]: the dense stack, the MoE family and the VL backbone
+    run partitioned on DTensor: (a) ``mesh_train_equal``, (b)
+    ``mesh_share`` of SHARDED_CELL, (c) ``mesh_moe_equal``, (d)
+    ``mesh_vl_prefill``, (e) ``mesh_share`` of MOE_SHARE_CELL."""
     t0 = time.perf_counter()
-    mesh_train_equal(device, records)
+    with one_rank_mesh(device) as mesh:
+        mesh_train_equal(device, records, mesh)
     log(f"[25a] {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
     mesh_share(device)
+    log(f"[25b] {time.perf_counter() - t1:.1f} s")
+    with one_rank_mesh(device) as mesh:
+        t1 = time.perf_counter()
+        mesh_moe_equal(device, records, mesh)
+        log(f"[25c] {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        mesh_vl_prefill(device, records, mesh)
+        log(f"[25d] {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mesh_share(device, MOE_SHARE_CELL, "[25e]")
+    log(f"[25e] {time.perf_counter() - t1:.1f} s")
     log(f"[25] {time.perf_counter() - t0:.1f} s")
 
 
@@ -5564,8 +5732,9 @@ def run() -> int:
         "the card's allocator and tensors")
     phase_sharding(device)
     log(f"[24] {time.perf_counter() - t_start:.1f} s so far")
-    log("[25] the dense stack partitioned over a device mesh: a (1, 1) "
-        "mesh against the plain steps, rank 0's share of 16x16")
+    log("[25] the dense stack, the MoE family and the VL backbone "
+        "partitioned over a device mesh: a (1, 1) mesh against the plain "
+        "steps and prefill, rank 0's shares of 16x16")
     phase_mesh(device, model_records + bwd_records)
     log(f"[25] total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())

@@ -19,9 +19,8 @@ the reference's §Perf B2 case):
   activation (B, S, D) has its batch on the data axes where B divides
   and its sequence on ``model`` where S divides (Megatron-SP).
 * :func:`gather_weight` gathers a weight's shards on the data axes
-  (FSDP's all-gather before a layer's products; the reference forces it
-  for the expert weights, :func:`constrain_expert_weights`' note) and
-  keeps its ``model`` placement; :func:`gather_model` gathers an
+  (FSDP's all-gather before a layer's products, the expert weights'
+  too) and keeps its ``model`` placement; :func:`gather_model` gathers an
   activation's sequence over ``model`` before the column-parallel
   products; :func:`like` takes a row-parallel product's partial sums
   back to the residual's layout (a reduce-scatter).
@@ -30,6 +29,12 @@ the reference's §Perf B2 case):
   than ``model`` ranks would leave a rank without its group, and
   :func:`pad_heads` pads the groups with zero heads where they do not
   split evenly.
+* The MoE dispatch (``models/layers.py::_moe_mesh``):
+  :func:`constrain_tokens_grouped` lays its groups over the data axes;
+  a group that spans several data ranks moves its rows by
+  :func:`all_to_all` over the process group :func:`span_group` makes,
+  and sums its counts with :func:`group_all_gather` and
+  :func:`group_all_reduce`.
 
 Each is the identity on a plain tensor, so with no mesh every path
 computes what it computed before.  ``moe_groups`` is read by the MoE
@@ -66,10 +71,17 @@ def activation_sharding(mesh=None, tp: Optional[str] = None,
     is the ``DeviceMesh`` the model's DTensors lie on, or ``None`` (one
     device).  ``tp``, ``dp_size`` and ``tp_size`` are the reference's
     arguments; on a ``DeviceMesh`` the axes' names and sizes are read
-    from the mesh, and nothing reads them."""
+    from the mesh, and nothing reads them.  Where ``moe_groups`` groups
+    each span several of the mesh's data ranks, their process groups are
+    made here (:func:`span_group`), by every rank, before any step."""
     if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"activation_sharding takes a DeviceMesh or None, "
                         f"not {type(mesh).__name__}")
+    if mesh is not None:
+        dp, _ = _dims(mesh)
+        P = math.prod(mesh.size(i) for i in dp)
+        if moe_groups < P and P % moe_groups == 0:
+            span_group(mesh, dp, P // moe_groups)
     prev = dict(_STATE)
     _STATE.update(mesh=mesh, attn_bf16=attn_bf16, attn_remat=attn_remat,
                   moe_groups=moe_groups)
@@ -108,6 +120,11 @@ def model_size(device_mesh) -> int:
     return 1 if tp is None else device_mesh.size(tp)
 
 
+def data_dims(device_mesh) -> List[int]:
+    """The indices of the data axes of a mesh, major first."""
+    return _dims(device_mesh)[0]
+
+
 def model_rank(device_mesh) -> int:
     """This rank's coordinate on the model axis (0 without one)."""
     _, tp = _dims(device_mesh)
@@ -137,17 +154,28 @@ def redistribute(x, placements):
 
 
 def constrain_expert_weights(w, kind: str):
-    """Identity: the reference gathers FSDP expert weights (``kind``
-    "up" or "down") before the expert products; the MoE family's
-    partitioned stack is a later slice of the port."""
+    """Identity, as the reference's stack leaves it (it never calls its
+    version: forcing the expert weights' FSDP gather made GSPMD replicate
+    the expert gradients' products over the data axes).  On a mesh the
+    expert weights are gathered on the data axes by :func:`gather_weight`
+    like every other weight, their F left on ``model``."""
     return w
 
 
 def constrain_tokens_grouped(xg):
-    """Identity: the reference spreads the MoE groups (G, T_local, D) over
-    the data axes; the MoE family's partitioned stack is a later slice of
-    the port."""
-    return xg
+    """The MoE's dispatch groups xg (G, T / G, D): a DTensor has its
+    groups laid over the data axes where G is a multiple of their size,
+    the rest replicated, as the reference constrains them; otherwise, or
+    for a plain tensor, xg as it is."""
+    if not is_dtensor(xg) or xg.ndim != 3:
+        return xg
+    from torch.distributed.tensor import Replicate, Shard
+    m = xg.device_mesh
+    dp, _ = _dims(m)
+    if not dp or xg.shape[0] % math.prod(m.size(i) for i in dp):
+        return xg
+    return redistribute(xg, [Shard(0) if i in dp else Replicate()
+                             for i in range(m.ndim)])
 
 
 def constrain_boundary(x):
@@ -207,16 +235,93 @@ def replicate(w):
     return redistribute(gather_weight(w), [Replicate()] * w.device_mesh.ndim)
 
 
-def _collective(name: str, t, dim: int, group_mesh):
+def _collective(name: str, t, dim: int, n: int, group_name: str):
     """An all-gather or a sum's reduce-scatter of ``t`` along ``dim`` over
-    a 1-d mesh's group, by the functional collective ops (which move dim
-    0)."""
+    a process group of ``n`` ranks, by the functional collective ops
+    (which move dim 0)."""
     c10d = torch.ops._c10d_functional
     x = t.movedim(dim, 0).contiguous()
     args = (x,) if name == "all_gather_into_tensor" else (x, "sum")
-    out = getattr(c10d, name)(*args, group_mesh.size(),
-                              group_mesh.get_group().group_name)
+    out = getattr(c10d, name)(*args, n, group_name)
     return c10d.wait_tensor(out).movedim(0, dim).contiguous()
+
+
+def group_all_gather(t, group_name: str, n: int):
+    """The ``n`` ranks' ``t`` of a process group, concatenated along dim 0
+    in their order (no gradient)."""
+    return _collective("all_gather_into_tensor", t, 0, n, group_name)
+
+
+def group_all_reduce(t, group_name: str):
+    """The sum of ``t`` over a process group's ranks (no gradient)."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_reduce(t.contiguous(), "sum",
+                                            group_name))
+
+
+def _all_to_all(t, out_splits, in_splits, group_name: str):
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_to_all_single(
+        t.contiguous(), list(out_splits), list(in_splits), group_name))
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all of rows over a process group: ``in_splits[i]`` rows
+    of ``t`` go to rank i, ``out_splits[i]`` arrive from it, in rank
+    order.  Its gradient is the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, t, out_splits, in_splits, group_name):
+        ctx.routes = (out_splits, in_splits, group_name)
+        return _all_to_all(t, out_splits, in_splits, group_name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out_splits, in_splits, group_name = ctx.routes
+        return (_all_to_all(grad, in_splits, out_splits, group_name),
+                None, None, None)
+
+
+def all_to_all(t, out_splits, in_splits, group_name: str):
+    """Rows of ``t`` exchanged over a process group (:class:`_AllToAll`):
+    ``in_splits[i]`` rows to rank i, ``out_splits[i]`` from it."""
+    return _AllToAll.apply(t, out_splits, in_splits, group_name)
+
+
+#: id(DeviceMesh) -> {(data dims, ranks): span_group's answer}
+_SPANS: dict = {}
+
+
+def span_group(device_mesh, dims, ranks: int) -> Tuple[str, int, int]:
+    """The process group of the ``ranks`` consecutive data ranks (over the
+    mesh dims ``dims``, major first) that hold this rank's MoE dispatch
+    group, at this rank's ``model`` coordinate: (its name, ``ranks``, this
+    rank's place in it).  Made once a mesh: a group is made by every rank
+    of the mesh together (``activation_sharding`` makes the stack's own
+    before a step)."""
+    import weakref
+    from torch.distributed.device_mesh import DeviceMesh
+    key = (tuple(dims), ranks)
+    spans = _SPANS.get(id(device_mesh))
+    if spans is None:
+        spans = _SPANS[id(device_mesh)] = {}
+        weakref.finalize(device_mesh, _SPANS.pop, id(device_mesh), None)
+    if key not in spans:
+        t = device_mesh.mesh
+        rest = [i for i in range(t.ndim) if i not in dims]
+        t = t.permute(*dims, *rest).reshape(
+            -1, ranks, math.prod(t.shape[i] for i in rest))
+        rows = t.transpose(1, 2).reshape(-1, ranks)
+        sub = DeviceMesh(device_mesh.device_type, rows,
+                         mesh_dim_names=("moe_rows", "moe_span"))["moe_span"]
+        spans[key] = (sub.get_group().group_name, ranks,
+                      sub.get_local_rank())
+    return spans[key]
+
+
+def span_groups(device_mesh) -> List[Tuple[str, int, int]]:
+    """Every :func:`span_group` made on a mesh so far."""
+    return list(_SPANS.get(id(device_mesh), {}).values())
 
 
 class _GatherData(torch.autograd.Function):
@@ -236,7 +341,8 @@ class _GatherData(torch.autograd.Function):
         ctx.placements = tuple(w.placements)
         ctx.out = tuple(Replicate() if i in dp else p
                         for i, p in enumerate(w.placements))
-        full = _collective("all_gather_into_tensor", w.to_local(), dim, flat)
+        full = _collective("all_gather_into_tensor", w.to_local(), dim,
+                           flat.size(), flat.get_group().group_name)
         return DTensor.from_local(full, m, ctx.out, run_check=False)
 
     @staticmethod
@@ -252,7 +358,8 @@ class _GatherData(torch.autograd.Function):
             local = g.to_local().chunk(n, ctx.dim)[r].contiguous()
         else:
             local = _collective("reduce_scatter_tensor", g.to_local(),
-                                ctx.dim, ctx.flat)
+                                ctx.dim, ctx.flat.size(),
+                                ctx.flat.get_group().group_name)
         return DTensor.from_local(local, ctx.mesh, ctx.placements,
                                   run_check=False), None
 
@@ -366,6 +473,8 @@ __all__ = ["activation_sharding", "attn_bf16", "attn_remat", "moe_groups",
            "mesh", "constrain_expert_weights", "constrain_tokens_grouped",
            "constrain_boundary", "gather_weight", "gather_model", "like",
            "replicate", "replicated", "head_groups", "pad_heads",
-           "kv_weight",
+           "kv_weight", "data_dims", "span_group", "span_groups",
+           "all_to_all",
+           "group_all_gather", "group_all_reduce",
            "is_dtensor", "model_size", "model_rank", "model_dim",
            "redistribute", "on_shards", "strides"]

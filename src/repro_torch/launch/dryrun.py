@@ -37,15 +37,18 @@ With ``--mesh single``, ``multi`` or ``both`` a cell is the reference's
 (:func:`mesh_cell`) is what one device holds there: the arguments and
 outputs, laid out by the reference's specs
 (``distributed.sharding``; ``--no-fsdp`` drops the weights' data-axis
-split).  For the dense family's train and prefill cells
-(:data:`MESH_COUNTED`; :func:`counted_mesh_cell`) the partitioned step
-also runs, on the meta
+split).  For the dense (the VL backbone's too) and MoE families' train
+and prefill cells (:data:`MESH_COUNTED`; :func:`counted_mesh_cell`) the
+partitioned step also runs, the MoE at its ``TUNED_PLANS`` groups, on
+the meta
 device, as rank 0 of a fake process group of 256 or 512 ranks
 (``launch.mesh.fake_world``), its parameters, optimizer state and batch
 DTensors laid out by those specs; rank 0's count gives the reference's
 per-device keys: FLOPs, bytes by category, temporaries and peak, and
 the collectives' wire bytes by kind (``collective_wire``; by mesh axes
-in ``collectives``).  Every other cell keeps ``null`` there, and
+in ``collectives``); the MoE dispatch's all-to-all, whose split sizes
+depend on the data, at its upper bound (``moe_gather``).  Every other
+cell keeps ``null`` there, and
 ``not_counted`` names its family or its shape kind.
 
 Not ported: ``--attn`` (the port's plan builder refuses ``attn_impl``:
@@ -92,7 +95,13 @@ CARD_BYTES = 80e9
 #: 2x16x16); ``one`` is the one-card count
 MESHES = {"single": (False,), "multi": (True,), "both": (False, True)}
 #: the (family, shape kind) pairs whose partitioned step the port runs
-MESH_COUNTED = {("dense", "train"), ("dense", "prefill")}
+#: (the dense family's includes the VL backbone)
+MESH_COUNTED = {("dense", "train"), ("dense", "prefill"), ("moe", "train"),
+                ("moe", "prefill")}
+#: what a counted MoE record says of its dispatch
+MOE_COUNTED = ("upper bound: every one of min(T*k, E*C) slots of a group "
+               "filled; a group spanning R data ranks sends and receives "
+               "min(T_rank*k, E*ceil(C/R)) rows a rank, evenly")
 #: what every per-device record leaves out
 NOT_IN_OUTPUT = (
     "the train step's metrics (a few scalars, the MoE's expert_load) are "
@@ -108,9 +117,6 @@ def mesh_not_counted(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     if shape.kind == "decode":
         return (f"{_NULLS}: the partitioned decode step (the serve step on "
                 f"sharded caches) is a later slice of the port")
-    if cfg.family == "dense" and (cfg.mrope or cfg.frontend):
-        return (f"{_NULLS}: the VL backbone's partitioned step (M-RoPE, "
-                f"the {cfg.frontend} frontend) is a later slice of the port")
     if (cfg.family, shape.kind) not in MESH_COUNTED:
         return (f"{_NULLS}: the {cfg.family} family's partitioned step is "
                 f"a later slice of the port")
@@ -315,8 +321,16 @@ def _group_labels(dm) -> Dict[str, str]:
     return out
 
 
+def _span_labels(dm) -> Dict[str, str]:
+    """Process group name -> "moe span of R" for the groups of R data
+    ranks that a MoE dispatch group spans (``ctx.span_groups``)."""
+    from ..distributed.ctx import span_groups
+    return {name: f"moe span of {ranks}"
+            for name, ranks, _ in span_groups(dm)}
+
+
 def mesh_count(cfg: ModelConfig, shape: ShapeConfig, mesh: AbstractMesh,
-               fsdp: bool = True) -> Dict:
+               fsdp: bool = True, moe_groups: int = 1) -> Dict:
     """Rank 0's share of a cell's partitioned step on ``mesh`` (the
     reference's 16x16 or 2x16x16 layout, ``production_mesh``), counted:
     the step runs in a :func:`fake_world` of ``mesh.size`` ranks on a
@@ -324,10 +338,13 @@ def mesh_count(cfg: ModelConfig, shape: ShapeConfig, mesh: AbstractMesh,
     would run, where a CPU mesh turns an all-to-all into an all-gather;
     meta tensors need no card), its parameters, AdamW state and batch
     DTensors of meta shards laid out by the reference's specs, under a
-    :class:`CostCounter`.  Returns the counter's ``costs``,
+    :class:`CostCounter`, the MoE dispatched in ``moe_groups`` groups
+    (the cell's ``TUNED_PLANS``, as :func:`counted_mesh_cell` passes
+    them).  Returns the counter's ``costs``,
     ``temp_bytes`` (its peak of live bytes), ``peak_by_op``, ``count_s``
     (the run's wall) and ``collectives`` (wire bytes and calls by mesh
-    axes and kind)."""
+    axes and kind; a MoE dispatch's all-to-all under "moe span of R",
+    its group of R data ranks)."""
     with fake_world(mesh.size):
         dm = device_mesh(mesh, "cuda")
         params = params_shape(cfg)
@@ -345,10 +362,11 @@ def mesh_count(cfg: ModelConfig, shape: ShapeConfig, mesh: AbstractMesh,
         args.append(distribute(inputs, {k: bspec[k] for k in inputs}, dm))
         labels = _group_labels(dm)
         t0 = time.perf_counter()
-        with activation_sharding(dm), \
+        with activation_sharding(dm, moe_groups=moe_groups), \
                 CostCounter(_leaves(args)) as counter:
             step(*args)
         count_s = time.perf_counter() - t0
+        labels.update(_span_labels(dm))
     colls: Dict = {}
     for (kind, group), (calls, wire, _) in sorted(
             counter.costs.coll_groups.items()):
@@ -422,19 +440,25 @@ def counted_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
     counted (:func:`mesh_not_counted`), rank 0's count of it
     (:func:`mesh_count`): ``flops_per_device``, ``bytes_per_device``,
     ``memory.temp_bytes`` and ``peak_bytes`` (argument + temp, the
-    reference's sum), ``bytes_by_category``, ``flops_by_category``,
-    ``collective_wire_bytes_per_device`` by kind, ``collective_total``,
+    reference's sum) and ``peak_by_op`` (the temporaries live at the
+    peak by the op that made them), ``bytes_by_category``,
+    ``flops_by_category``, ``collective_wire_bytes_per_device`` by kind,
+    ``collective_total``,
     ``collectives`` (by mesh axes), ``kernels``, ``launches`` and
     ``count_s``."""
     res = mesh_cell(arch, shape_name, multi_pod, fsdp, params)
     cfg, shape = get_config(arch), SHAPES[shape_name]
     if "skipped" in res or mesh_not_counted(cfg, shape) is not None:
         return res
-    c = mesh_count(cfg, shape, production_mesh(multi_pod=multi_pod), fsdp)
+    c = mesh_count(cfg, shape, production_mesh(multi_pod=multi_pod), fsdp,
+                   res["moe_groups"])
     costs = c["costs"]
     res["memory"].update(temp_bytes=c["temp_bytes"],
                          peak_bytes=res["memory"]["argument_bytes"]
-                         + c["temp_bytes"])
+                         + c["temp_bytes"],
+                         peak_by_op=dict(sorted(
+                             ((k, v) for k, v in c["peak_by_op"].items()
+                              if v), key=lambda kv: -kv[1])))
     res.update({
         "count_s": c["count_s"],
         "flops_per_device": costs.flops,
@@ -447,6 +471,8 @@ def counted_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
         "collective_total": sum(costs.coll.values()),
         "collectives": c["collectives"],
     })
+    if cfg.family == "moe":
+        res["moe_gather"] = MOE_COUNTED
     return res
 
 

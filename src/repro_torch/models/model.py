@@ -23,18 +23,22 @@ checkpointed.
 
 On a device mesh (parameters and batch as DTensors laid out by
 ``distributed.sharding``'s specs: ``distribute``) the dense family's
+(the VL backbone's, M-RoPE's positions replicated) and the MoE family's
 train and prefill steps run partitioned, as the reference's run under
 GSPMD: the block-boundary activations are constrained where the
 reference constrains them (``ctx.constrain_boundary``: batch on the data
 axes, sequence on ``model``), each product's weights are FSDP-gathered
 on the data axes first, attention and the SwiGLU run Megatron-SP
 (sequence gathered, heads and hidden split over ``model``, the partial
-sums reduce-scattered back), and the kernels run on each rank's shards.
+sums reduce-scattered back; the MoE's experts split along F the same
+way, their dispatch groups on the data ranks, ``layers.moe_block``), and
+the kernels run on each rank's shards.
 The embedding lookup, the loss's log-sum-exp and gold logit over the
 vocabulary-split head, and the prefill's last position are done by hand
 where DTensor has no strategy but a whole gather.  With plain tensors
-none of this runs: each of those functions is the identity.  The other
-families' partitioned stacks are later slices and raise.
+none of this runs: each of those functions is the identity.  The SSM,
+hybrid and enc-dec families' partitioned stacks are later slices and
+raise.
 """
 
 from __future__ import annotations
@@ -306,8 +310,10 @@ def _attn_sharded(p, cfg, x, positions, causal):
     q column-parallel (its groups padded with zero heads where they do not
     split evenly, ``ctx.pad_heads``), the kv heads through
     ``ctx.kv_weight``, the output projection row-parallel, its partial
-    sums reduce-scattered back to x's layout.  ``positions``: (1, S).
-    Returns (out, (k, v)), k and v with the kv heads the kernel read."""
+    sums reduce-scattered back to x's layout.  ``positions``: (1, S),
+    the same on every rank (M-RoPE's three streams of text-only input are
+    those positions: the rotation needs no layout of its own).  Returns
+    (out, (k, v)), k and v with the kv heads the kernel read."""
     B, S, _ = x.shape
     K, hd = cfg.n_kv_heads, cfg.head_dim
     group = ctx.head_groups(cfg, x.device_mesh)
@@ -322,8 +328,12 @@ def _attn_sharded(p, cfg, x, positions, causal):
     if cfg.qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = apply_mrope(q, _positions3(positions), cfg.rope_theta)
+        k = apply_mrope(k, _positions3(positions), cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     o = full_attention(q, k, v, causal=causal)
     return ctx.like(matmul(o.reshape(B, S, H * hd), wo), x), (k, v)
 
@@ -358,18 +368,25 @@ def _moe_block_apply(p, cfg, x, positions, cache=None, cache_len=None,
     mixture of SwiGLU experts over the B * S tokens, dispatched in
     ``groups`` groups (the stack's forward passes ``moe_groups()``; decode
     one), as the reference does.  Returns (x, (k, v), the dispatch's
-    aux)."""
+    aux).  For a DTensor x, Megatron-SP around the experts, as
+    :func:`_swiglu` around the dense MLP: h2's sequence gathered over
+    ``model``, the router and the expert weights gathered on the data axes
+    (FSDP), each ``model`` rank routing the same tokens through its F
+    columns of every expert (``layers.moe_block`` on the mesh), the
+    partial sums reduce-scattered back to x's layout."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     o, kv = _attn_apply(p, cfg, h, positions, cache=cache,
                         cache_len=cache_len)
     x = x + o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     B, S, D = h2.shape
-    y, aux = moe_block(h2.reshape(B * S, D), p["router"], p["we_gate"],
-                       p["we_up"], p["we_down"], k=cfg.experts_per_token,
+    g = ctx.gather_weight
+    y, aux = moe_block(ctx.gather_model(h2).reshape(B * S, D),
+                       g(p["router"]), g(p["we_gate"]), g(p["we_up"]),
+                       g(p["we_down"]), k=cfg.experts_per_token,
                        capacity_factor=cfg.capacity_factor,
                        groups=groups)
-    return x + y.reshape(B, S, D), kv, aux
+    return x + ctx.like(y.reshape(B, S, D), h2), kv, aux
 
 
 # ===========================================================================
@@ -430,12 +447,12 @@ def forward(cfg: ModelConfig, params: Dict, tokens, *, embeds=None,
 
 def _check_sharded(cfg, S, max_len):
     """Raise unless the partitioned stack covers the step: the dense
-    family without M-RoPE (the VL backbone's), caches of the prompt's
-    length."""
-    if cfg.family != "dense" or cfg.mrope:
+    family (the VL backbone's M-RoPE too) and the MoE one, caches of the
+    prompt's length."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the {cfg.family} family's partitioned stack (and the VL "
-            f"backbone's) is a later slice of the port")
+            f"the {cfg.family} family's partitioned stack is a later slice "
+            f"of the port")
     if max_len is not None and max_len != S:
         raise NotImplementedError("a partitioned prefill's caches hold the "
                                   "prompt's length")

@@ -19,10 +19,12 @@ in place of the reference's GSPMD), on the CPU.
     and its FLOPs against the reference's partitioned count
     (``hlo_analysis``) of the step compiled for eight forced host
     devices, in a subprocess.
-(c) Every dense arch's ``train_4k`` and ``prefill_32k`` cell on 16x16 and
-    2x16x16: ``dryrun.counted_mesh_cell`` fills every per-device field,
-    and the argument bytes are the layout's (counted in four subprocesses
-    at once).
+(c) Every dense, VL and MoE arch's ``train_4k`` and ``prefill_32k`` cell
+    on 16x16 and 2x16x16 (28 records): ``dryrun.counted_mesh_cell`` fills
+    every per-device field, and the argument bytes are the layout's
+    (counted once a run, in subprocesses side by side); ``dryrun.main(
+    ["--all", "--mesh", "both"])`` over those records and the layout of
+    the rest.
 (d) With no mesh the kernels' wrappers and the ``ctx`` functions are what
     they were, and a (1, 1) mesh of one gloo rank computes the unsharded
     steps bit for bit.
@@ -48,7 +50,8 @@ from repro.launch import steps as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
 from repro.optim.adamw import adamw_init as j_adamw_init  # noqa: E402
-from repro_torch.configs import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.configs import (ARCH_NAMES, SHAPES,  # noqa: E402
+                                 ShapeConfig, applicable, get_config)
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.convert import model_params_from_jax  # noqa: E402
 from repro_torch.distributed import ctx  # noqa: E402
@@ -124,7 +127,7 @@ def env(**extra):
 class Job:
     """A subprocess started at once (the module's subprocesses run side by
     side), read when a test needs it.  ``nice``: run it below the others'
-    priority (the dense cells' counts are the module's longest path)."""
+    priority (the other test files' workers come first)."""
 
     def __init__(self, args, nice=False, **extra):
         script, *rest = args
@@ -300,15 +303,15 @@ def held_param_diff(a, b, grads):
 def jobs(tmp_path_factory):
     """Every subprocess of the module, started side by side: each mesh's
     four ranks (a), the reference's compile on eight host devices (b), the
-    dense cells' counts in four parts (c) and the one-rank mesh runs
+    counted cells in CELL_PARTS parts (c) and the one-rank mesh runs
     (d)."""
     path = tmp_path_factory.mktemp("mesh")
     jparams = {c["name"]: JM.init_params(JModelConfig(**c),
                                          jax.random.PRNGKey(0))
                for c in (TINY, HEADS)}
     out = {"path": path,
-           "cells": [Job([CELLS_SCRIPT, json.dumps(part)])
-                     for part in cell_parts(4)],
+           "cells": [Job([CELLS_SCRIPT, json.dumps(part)], nice=True)
+                     for part in cell_parts(CELL_PARTS)],
            "ranks": start_ranks(path, jparams),
            "ref8": Job([REF_SCRIPT, json.dumps(TINY),
                         json.dumps(list(dataclasses.astuple(TRAIN)))],
@@ -448,13 +451,15 @@ from repro.launch.steps import (input_specs, make_train_step, opt_shape,
 from repro.optim.adamw import AdamWConfig
 cfg = ModelConfig(**json.loads(sys.argv[1]))
 shape = ShapeConfig(*json.loads(sys.argv[2]))
+groups = int(sys.argv[3]) if len(sys.argv) > 3 else 1
 devs = np.asarray(jax.devices()[:8], dtype=object).reshape(2, 2, 2)
 mesh = Mesh(devs, ("pod", "data", "model"))
 pshape = params_shape(cfg)
 pspec = param_specs(cfg, mesh, pshape, fsdp=True)
 ospec = opt_specs(pspec)
 opt_cfg = AdamWConfig(moment_dtype=cfg.moment_dtype)
-with mesh, activation_sharding(data_axes(mesh), "model", 4, 2):
+with mesh, activation_sharding(data_axes(mesh), "model", 4, 2,
+                               moe_groups=groups):
     jitted = jax.jit(make_train_step(cfg, opt_cfg),
                      in_shardings=(named(mesh, pspec), named(mesh, ospec),
                                    named(mesh, batch_specs(cfg, mesh))),
@@ -542,10 +547,15 @@ def test_flops_per_device_near_the_reference(count8, jobs):
 
 
 # ---------------------------------------------------------------------------
-# (c) every dense cell's per-device record
+# (c) every counted cell's per-device record
 # ---------------------------------------------------------------------------
 
 DENSE = ("llama3.2-3b", "granite-8b", "mistral-nemo-12b", "qwen3-32b")
+#: the archs whose train_4k and prefill_32k cells are counted per device:
+#: the dense ones, the VL backbone and the MoE family
+COUNTED = DENSE + ("qwen2-vl-72b", "olmoe-1b-7b", "grok-1-314b")
+#: the subprocesses that count them side by side
+CELL_PARTS = 5
 #: per-device argument bytes of each cell on (16x16, 2x16x16), as the
 #: specs' layout alone counts them (``dryrun.mesh_cell``; held against the
 #: reference's specs by tests/test_torch_sharding_specs.py)
@@ -558,6 +568,12 @@ ARGUMENT_BYTES = {
     ("mistral-nemo-12b", "prefill_32k"): (96774144, 48801792),
     ("qwen3-32b", "train_4k"): (1287088132, 646928388),
     ("qwen3-32b", "prefill_32k"): (257574912, 129464320),
+    ("qwen2-vl-72b", "train_4k"): (1712439300, 860176388),
+    ("qwen2-vl-72b", "prefill_32k"): (570900480, 286769152),
+    ("olmoe-1b-7b", "train_4k"): (272764932, 136740868),
+    ("olmoe-1b-7b", "prefill_32k"): (54710272, 27426816),
+    ("grok-1-314b", "train_4k"): (7424086020, 3714420740),
+    ("grok-1-314b", "prefill_32k"): (2474782720, 1238183936),
 }
 
 CELLS_SCRIPT = r"""
@@ -575,41 +591,61 @@ for cell in json.loads(sys.argv[1]):
 """
 
 
+#: (arch, shape) -> its count's seconds in one process on (16x16,
+#: 2x16x16), the share of the work that cell_parts balances (``python -m
+#: repro_torch.launch.dryrun --all --mesh both``, one thread)
+CELL_SECONDS = {
+    ("qwen3-32b", "train_4k"): (8.0, 19.8),
+    ("qwen3-32b", "prefill_32k"): (3.9, 7.6),
+    ("granite-8b", "train_4k"): (6.6, 14.5),
+    ("granite-8b", "prefill_32k"): (2.2, 4.5),
+    ("mistral-nemo-12b", "train_4k"): (6.2, 10.6),
+    ("mistral-nemo-12b", "prefill_32k"): (1.9, 2.1),
+    ("llama3.2-3b", "train_4k"): (5.4, 10.0),
+    ("llama3.2-3b", "prefill_32k"): (1.3, 2.7),
+    ("qwen2-vl-72b", "train_4k"): (13.1, 14.2),
+    ("qwen2-vl-72b", "prefill_32k"): (3.5, 6.0),
+    ("olmoe-1b-7b", "train_4k"): (4.7, 7.4),
+    ("olmoe-1b-7b", "prefill_32k"): (1.5, 1.8),
+    ("grok-1-314b", "train_4k"): (13.4, 20.7),
+    ("grok-1-314b", "prefill_32k"): (4.5, 6.4),
+}
+
+
 def cell_parts(n):
-    """The dense cells in ``n`` parts of about equal work (a train step
-    ~3x a prefill, 2x16x16 ~1.5x 16x16, both by the depth), largest
-    first."""
-    depth = {"llama3.2-3b": 28, "granite-8b": 36, "mistral-nemo-12b": 40,
-             "qwen3-32b": 64}
-    cells = sorted(([a, s, mp] for a in DENSE
+    """The counted cells in ``n`` parts of about equal work
+    (CELL_SECONDS), largest first."""
+    cells = sorted(([a, s, mp] for a in COUNTED
                     for s in ("train_4k", "prefill_32k")
                     for mp in (False, True)),
-                   key=lambda c: -depth[c[0]] * (3 if c[1] == "train_4k"
-                                                 else 1) * (1.5 if c[2]
-                                                            else 1))
+                   key=lambda c: -CELL_SECONDS[tuple(c[:2])][c[2]])
     parts, load = [[] for _ in range(n)], [0.0] * n
     for c in cells:
         i = load.index(min(load))
         parts[i].append(c)
-        load[i] += depth[c[0]] * (3 if c[1] == "train_4k" else 1) * (
-            1.5 if c[2] else 1)
+        load[i] += CELL_SECONDS[tuple(c[:2])][c[2]]
     return parts
 
 
 @pytest.fixture(scope="module")
-def dense_cells(jobs):
+def mesh_cells(jobs):
     recs = [r for job in jobs["cells"] for r in job.lines("CELL")]
-    assert len(recs) == 2 * 2 * len(DENSE)
+    assert len(recs) == 2 * 2 * len(COUNTED)
     return recs
 
 
-def test_every_dense_cell_counts_its_partitioned_step(dense_cells):
-    """Each dense ``train_4k`` / ``prefill_32k`` record on both layouts:
-    no per-device field ``null`` (FLOPs, bytes by category, temporaries,
+def test_every_dense_cell_counts_its_partitioned_step(mesh_cells):
+    """Each counted ``train_4k`` / ``prefill_32k`` record (the dense
+    archs, the VL backbone and the MoE family) on both layouts: no
+    per-device field ``null`` (FLOPs, bytes by category, temporaries,
     peak = argument + temp, wire bytes by kind), the FSDP and sequence
     collectives on their axes, the hand-written kernels launched on
-    shards, and the argument bytes the layout's alone."""
-    for r in dense_cells:
+    shards, and the argument bytes the layout's alone.  A MoE record
+    counts its plan's groups (olmoe-1b-7b's 16) and says its dispatch is
+    at its upper bound; where a group spans several data ranks (grok's
+    one group; olmoe's 16 over 2x16x16's 32) its rows move by
+    all-to-all."""
+    for r in mesh_cells:
         mem = r["memory"]
         for v in (r["flops_per_device"], r["bytes_per_device"],
                   mem["temp_bytes"], mem["peak_bytes"],
@@ -632,13 +668,23 @@ def test_every_dense_cell_counts_its_partitioned_step(dense_cells):
         assert mem["argument_bytes"] == want[r["mesh"] == "2x16x16"]
         assert mem["peak_bytes"] < dryrun.CARD_BYTES
         assert "partition" not in r["not_counted"]
+        if get_config(r["arch"]).family == "moe":
+            groups = r["moe_groups"]
+            assert groups == (16 if r["arch"] == "olmoe-1b-7b" else 1)
+            assert r["moe_gather"] == dryrun.MOE_COUNTED
+            ranks = (32 if r["mesh"] == "2x16x16" else 16) // groups
+            span = r["collectives"].get(f"moe span of {ranks}", {})
+            assert (span.get("all-to-all", {}).get("calls", 0) > 0) == (
+                ranks > 1), (r["arch"], r["mesh"], r["shape"])
 
 
 def test_other_cells_say_why_they_are_not_counted():
-    """A MoE, VL or decode cell keeps ``null`` with its family or kind
-    named; the layout alone (``mesh_cell``) counts nothing."""
-    for arch, shape, word in (("olmoe-1b-7b", "train_4k", "moe"),
-                              ("qwen2-vl-72b", "prefill_32k", "VL"),
+    """An SSM, hybrid, enc-dec or decode cell keeps ``null`` with its
+    family or kind named; the layout alone (``mesh_cell``) counts
+    nothing."""
+    for arch, shape, word in (("mamba2-2.7b", "train_4k", "ssm"),
+                              ("zamba2-7b", "prefill_32k", "hybrid"),
+                              ("whisper-small", "train_4k", "encdec"),
                               ("llama3.2-3b", "decode_32k", "decode")):
         r = dryrun.counted_mesh_cell(arch, shape, False)
         assert r["flops_per_device"] is None and word in r["not_counted"]
@@ -647,6 +693,56 @@ def test_other_cells_say_why_they_are_not_counted():
     assert r["flops_per_device"] is None
     assert r["memory"]["argument_bytes"] == ARGUMENT_BYTES[
         ("llama3.2-3b", "train_4k")][0]
+
+
+#: the applicable (arch, shape) cells of the grid
+APPLICABLE = [(a, s) for a in ARCH_NAMES for s in SHAPES
+              if applicable(get_config(a), SHAPES[s])[0]]
+
+
+def test_dryrun_all_mesh_both(tmp_path, monkeypatch, capsys, mesh_cells):
+    """``--all --mesh both``: 80 records, 16x16 and 2x16x16 for each of
+    the 40 cells, 64 counted (32 applicable cells on each mesh) and 16
+    skipped, none with an error, every counted one's arguments within
+    the card's 80 GB.  The 28 partitioned steps are the ``mesh_cells``
+    records (each cell counted once a run): ``counted_mesh_cell`` looks
+    them up, and lays out the rest, which count nothing.  Those 28 have
+    no ``null`` per-device field; every other applicable record is
+    ``null`` there and names why."""
+    counted = {(r["arch"], r["shape"], r["mesh"]): r for r in mesh_cells}
+    laid_out = dryrun.counted_mesh_cell
+
+    def lookup(arch, shape, multi_pod, fsdp=True, params=None):
+        key = (arch, shape, dryrun.mesh_name(multi_pod))
+        if key in counted:
+            return counted[key]
+        r = laid_out(arch, shape, multi_pod, fsdp, params)
+        assert r.get("flops_per_device") is None, key
+        return r
+
+    monkeypatch.setattr(dryrun, "counted_mesh_cell", lookup)
+    out = tmp_path / "all.json"
+    dryrun.main(["--all", "--mesh", "both", "--out", str(out)])
+    capsys.readouterr()
+    recs = json.loads(out.read_text())
+    assert len(recs) == 80
+    assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"] * 40
+    assert not [r for r in recs if "error" in r]
+    applied = [r for r in recs if "skipped" not in r]
+    assert len(applied) == 64 and len(APPLICABLE) == 32
+    assert all(r["arguments_fit_80gb"] for r in applied)
+    full = [r for r in applied if r["flops_per_device"] is not None]
+    assert len(full) == 28
+    for r in full:
+        assert None not in (r["bytes_per_device"],
+                            r["memory"]["temp_bytes"],
+                            r["memory"]["peak_bytes"],
+                            r["collective_total"])
+    for r in applied:
+        if r["flops_per_device"] is None:
+            assert r["bytes_per_device"] is None
+            assert r["memory"]["peak_bytes"] is None
+            assert "later slice of the port" in r["not_counted"], r["arch"]
 
 
 # ---------------------------------------------------------------------------
@@ -786,9 +882,9 @@ def test_one_rank_mesh_matches_no_mesh(dtype, jobs):
 
 
 def test_sharded_forward_refuses_what_it_does_not_cover():
-    """The partitioned stack is the dense family's: another family, the VL
-    backbone's M-RoPE or a prefill cache longer than the prompt raise; so
-    do kv heads that neither divide nor are divided by the model axis,
+    """The partitioned stack is the dense (VL too) and MoE families': the
+    SSM or hybrid family or a prefill cache longer than the prompt raise;
+    so do kv heads that neither divide nor are divided by the model axis,
     and query groups that do not split evenly are padded (3 -> 4 on a
     model axis of 4 with 2 kv heads)."""
     from repro_torch.launch.mesh import device_mesh, fake_world
@@ -802,9 +898,9 @@ def test_sharded_forward_refuses_what_it_does_not_cover():
             ctx.head_groups(dataclasses.replace(CFG, n_heads=6,
                                                 n_kv_heads=3), mesh)
     with pytest.raises(NotImplementedError):
-        _check_sharded(dataclasses.replace(CFG, family="moe"), 8, None)
+        _check_sharded(dataclasses.replace(CFG, family="ssm"), 8, None)
     with pytest.raises(NotImplementedError):
-        _check_sharded(dataclasses.replace(CFG, mrope=True), 8, None)
+        _check_sharded(dataclasses.replace(CFG, family="hybrid"), 8, None)
     with pytest.raises(NotImplementedError):
         _check_sharded(CFG, 8, 16)
     _check_sharded(CFG, 8, 8)
